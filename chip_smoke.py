@@ -5,18 +5,31 @@
 
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from premvos_tpu_torch/kernels/*.cu with
-     nvcc for sm_90a;
-  3. hold each kernel against its plain PyTorch version on the card at the
-     shapes of the production path (configs/davis2017_val.json), and time
-     kernel, plain version, a PyTorch library call where one computes the
-     same function, and the least time the card could take (bound);
+  2. build the CUDA kernels from premvos_tpu_torch/kernels/*.cu with nvcc
+     for sm_90a;
+  3. hold each kernel against its plain PyTorch version (and the RoIAlign
+     backward against the plain version's autograd) on the card at the
+     shapes of its path (inference: configs/davis2017_val.json; training:
+     ProposalConfig() at 480×864, batch 2), and time kernel, plain version,
+     a PyTorch library call where one computes the same function, and the
+     least time the card could take (bound);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
      weights on 9 synthetic frames (one chunk): a warm-up run, then three
      timed runs; launch counters are zeroed just before the first timed run
-     and read just after it, and every kernel must have launched.
+     and read just after it, and every inference kernel must have launched;
+  6. one Mask R-CNN training loss and its gradients at a tiny configuration
+     on CUDA (kernels) and on the CPU (plain versions) from the same seeded
+     weights: the loss within 1e-4 relative, every parameter's gradient
+     within 1e-3 of that parameter's largest |grad|;
+  7. Mask R-CNN training at full width (ProposalConfig() defaults, 480×864,
+     batch 2, 8 object slots, Adam 1e-4, float32): one step through
+     `train_maskrcnn` on an in-memory synthetic dataset, then 5 timed steps
+     of `make_train_step` on one fixed batch from the same batch assembly;
+     launch counters are zeroed just before the timed steps and read just
+     after, every loss must be finite, the last below the first, and NMS,
+     RoIAlign and its backward must have launched.
 
 Prints the card line, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
@@ -54,7 +67,26 @@ KERNELS = {
         "premvos_tpu_torch/kernels/resample2d.cu",
         "premvos_tpu/ops/pallas/resample2d_pallas.py:109",
     ),
+    "roi_align": (
+        "premvos_tpu_torch/kernels/roi_align.cu",
+        "premvos_tpu/ops/pallas/roi_align_pallas.py:103",
+    ),
+    # The JAX package has no backward kernel: training differentiates the
+    # XLA einsum form.
+    "roi_align_backward": (
+        "premvos_tpu_torch/kernels/roi_align.cu",
+        "premvos_tpu/ops/roi_align.py:113 (autodiff of roi_align_matmul)",
+    ),
 }
+
+# The kernels each main path must launch: inference (phase 5) and training
+# (phase 7).
+INFERENCE_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d")
+TRAINING_KERNELS = ("nms", "roi_align", "roi_align_backward")
+
+# FPN levels P2..P5 at 480×864 and their strides.
+LEVEL_SHAPES = [(120, 216), (60, 108), (30, 54), (15, 27)]
+LEVEL_STRIDES = (4, 8, 16, 32)
 
 
 def log(msg: str) -> None:
@@ -124,23 +156,50 @@ def check_nms(torch, gen, dev, case):
                 tol="exact", ms=ms, plain_ms=plain, bound=bnd, library_ms=None)
 
 
-def check_roi_align(torch, gen, dev, n_rois, p):
+def roi_case(torch, gen, dev, b, n_rois, c, dtype):
+    """P2..P5 features [b, H, W, c] at 480×864 and boxes of log-uniform size
+    (8 to 720 px) over the image, with their levels."""
     from premvos_tpu_torch.models.maskrcnn import roi_levels
+
+    feats = [torch.randn(b, h, w, c, generator=gen).to(dev, dtype) for h, w in LEVEL_SHAPES]
+    size = torch.exp(torch.rand(b, n_rois, 1, generator=gen) * 4.5) * 8.0
+    ctr = torch.rand(b, n_rois, 2, generator=gen) * torch.tensor([864.0, 480.0])
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1).clamp(0, 864).to(dev)
+    return feats, boxes, roi_levels(boxes)
+
+
+def sampled_pixels(torch, boxes, levels, p, s=2) -> int:
+    """How many feature pixels (over all images and levels) the boxes'
+    bilinear taps touch, each RoI on its own level."""
+    dev = boxes.device
+    touched = 0
+    for li, ((h, w), stride) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES)):
+        on = levels == li + 2
+        bx = boxes * (1.0 / stride) - 0.5
+        g = (torch.arange(p * s, device=dev, dtype=torch.float32) + 0.5) / (p * s)
+        ys = bx[..., 1:2] + g * (bx[..., 3:4] - bx[..., 1:2]).clamp(min=1e-6)
+        xs = bx[..., 0:1] + g * (bx[..., 2:3] - bx[..., 0:1]).clamp(min=1e-6)
+        y0 = ys.clamp(0, h - 1).floor().long()
+        x0 = xs.clamp(0, w - 1).floor().long()
+        for img in range(boxes.shape[0]):
+            mask = torch.zeros(h, w, dtype=torch.bool, device=dev)
+            for yy in (y0[img], (y0[img] + 1).clamp(max=h - 1)):
+                for xx in (x0[img], (x0[img] + 1).clamp(max=w - 1)):
+                    sel = on[img]
+                    idx = yy[sel][:, :, None] * w + xx[sel][:, None, :]
+                    mask.view(-1)[idx.reshape(-1)] = True
+            touched += int(mask.sum())
+    return touched
+
+
+def check_roi_align(torch, gen, dev, n_rois, p):
     from premvos_tpu_torch.ops.roi_align import (
         multilevel_roi_align_cuda,
         multilevel_roi_align_reference,
     )
 
     b, c = 8, 256
-    shapes = [(120, 216), (60, 108), (30, 54), (15, 27)]
-    feats = [
-        torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
-        for h, w in shapes
-    ]
-    size = torch.exp(torch.rand(b, n_rois, 1, generator=gen) * 4.5) * 8.0
-    ctr = torch.rand(b, n_rois, 2, generator=gen) * torch.tensor([864.0, 480.0])
-    boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1).clamp(0, 864).to(dev)
-    levels = roi_levels(boxes)
+    feats, boxes, levels = roi_case(torch, gen, dev, b, n_rois, c, torch.bfloat16)
     got = multilevel_roi_align_cuda(feats, boxes, levels, p, 2)
     want = multilevel_roi_align_reference(feats, boxes, levels, p, 2)
     err = max_abs(got, want)
@@ -155,29 +214,87 @@ def check_roi_align(torch, gen, dev, n_rois, p):
     )
     # Bytes: the feature pixels this run's boxes sample (each once), boxes,
     # and the output. Ops: 4 taps × 2 + 2 per sample per channel.
-    touched = 0
     s = 2
-    for li, ((h, w), stride) in enumerate(zip(shapes, (4, 8, 16, 32))):
-        on = levels == li + 2
-        bx = boxes * (1.0 / stride) - 0.5
-        g = (torch.arange(p * s, device=dev, dtype=torch.float32) + 0.5) / (p * s)
-        ys = bx[..., 1:2] + g * (bx[..., 3:4] - bx[..., 1:2]).clamp(min=1e-6)
-        xs = bx[..., 0:1] + g * (bx[..., 2:3] - bx[..., 0:1]).clamp(min=1e-6)
-        y0 = ys.clamp(0, h - 1).floor().long()
-        x0 = xs.clamp(0, w - 1).floor().long()
-        for img in range(b):
-            mask = torch.zeros(h, w, dtype=torch.bool, device=dev)
-            for yy in (y0[img], (y0[img] + 1).clamp(max=h - 1)):
-                for xx in (x0[img], (x0[img] + 1).clamp(max=w - 1)):
-                    sel = on[img]
-                    idx = yy[sel][:, :, None] * w + xx[sel][:, None, :]
-                    mask.view(-1)[idx.reshape(-1)] = True
-            touched += int(mask.sum())
+    touched = sampled_pixels(torch, boxes, levels, p, s)
     nbytes = touched * c * 2 + boxes.numel() * 4 + got.numel() * 2
     flops = b * n_rois * p * p * c * s * s * 10
     return dict(shape=f"P2..P5 bf16 [8,H,W,256], {n_rois} RoIs/image, P={p}",
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                 bound=bound_ms(nbytes, flops), library_ms=None)
+
+
+def check_roi_align_train(torch, gen, dev, p, dtype):
+    """The training align's forward (ops/roi_align.py::roi_align_levels on
+    CUDA: the single-level kernel once per level P2..P5, each launch on the
+    RoIs of its level, into one output) vs its plain version."""
+    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_reference, roi_align_levels
+
+    b, n, c, s = 2, 256, 256, 2
+    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, dtype)
+    got = roi_align_levels(feats, boxes, levels, p, s)
+    want = multilevel_roi_align_reference(feats, boxes, levels, p, s)
+    err = max_abs(got, want)
+    # float32: the sums differ only in order. bf16 output: 2 ulp at the
+    # largest magnitude.
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.float().abs().max())
+    if not err <= tol:
+        fail(f"roi_align {dtype} P={p}: max |diff| {err} > {tol}")
+    ms = cuda_ms(lambda: roi_align_levels(feats, boxes, levels, p, s), 20)
+    plain = cuda_ms(lambda: multilevel_roi_align_reference(feats, boxes, levels, p, s), 3, warmup=1)
+    # Bytes: the sampled feature pixels (each once), boxes, levels, output.
+    # Ops: 4 taps × 2 + 2 per sample per channel.
+    size = feats[0].element_size()
+    nbytes = (sampled_pixels(torch, boxes, levels, p, s) * c * size + b * n * 20
+              + got.numel() * size)
+    flops = b * n * p * p * c * s * s * 10
+    return dict(shape=f"P2..P5 {str(dtype)[6:]} [2,H,W,256], 256 RoIs/image, P={p}, "
+                      "4 launches (one per level)",
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                bound=bound_ms(nbytes, flops), library_ms=None)
+
+
+def check_roi_align_backward(torch, gen, dev, p):
+    """The backward kernel, launched once per level as training does, vs the
+    autograd of the plain version; each level's gradient within 1e-4 of its
+    largest |grad| (float32 atomics add in a varying order)."""
+    from premvos_tpu_torch.ops.roi_align import (
+        multilevel_roi_align_reference,
+        roi_align_backward_cuda,
+    )
+
+    b, n, c, s = 2, 256, 256, 2
+    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, torch.float32)
+    grad_out = torch.randn(b, n, p, p, c, generator=gen).to(dev)
+
+    def run():
+        return [
+            roi_align_backward_cuda(grad_out, boxes, hw, s, 1.0 / st, levels, li + 2)
+            for li, (hw, st) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES))
+        ]
+
+    got = run()
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    out = multilevel_roi_align_reference(leaves, boxes, levels, p, s)
+    want = torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+    err = 0.0
+    for li, (g, w) in enumerate(zip(got, want)):
+        e, tol = max_abs(g, w), 1e-4 * float(w.abs().max())
+        if not e <= tol:
+            fail(f"roi_align_backward P={p}, level P{li + 2}: max |diff| {e} > {tol}")
+        err = max(err, e)
+    ms = cuda_ms(run, 20)
+    plain = cuda_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True), 3,
+                    warmup=1)
+    # Bytes: the output gradient read once, boxes and levels, and every
+    # element of the four float32 feature gradients written once (the
+    # zero fill; the sampled pixels are among them). Ops: 4 taps × (2 mul
+    # + 1 add) per sample per channel.
+    nbytes = grad_out.numel() * 4 + b * n * 20 + sum(g.numel() for g in got) * 4
+    flops = b * n * p * p * c * s * s * 12
+    return dict(shape=f"grad [2,256,{p},{p},256] f32 → P2..P5 [2,H,W,256] f32, "
+                      "4 launches (one per level)",
+                max_abs_err=err, tol="1e-4 of each level's max |grad|", ms=ms,
+                plain_ms=plain, bound=bound_ms(nbytes, flops), library_ms=None)
 
 
 def corr_bmm(torch, f1, f2, md, stride):
@@ -309,6 +426,172 @@ def synthetic_video(np, t, h, w, k, seed):
     return np.clip(frames, 0, 255).astype(np.uint8), gt
 
 
+# ------------------------------------------------------------- phase 6
+
+def tiny_train_case(np, torch):
+    """The tiny Mask R-CNN (seeded weights, RPN delta head zeroed) on the
+    CPU, its anchors, and a batch of two 64×64 images with two GT slots
+    (the second of image 1 padded). Returns (cfg, hw, model, anchors,
+    batch)."""
+    from premvos_tpu_torch import config as tc
+    from premvos_tpu_torch.models.anchors import pyramid_anchors
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.maskrcnn import MaskRCNN
+
+    cfg = tc.ProposalConfig(backbone_depth=26, fpn_channels=32, rpn_pre_nms_topk=64,
+                            rpn_post_nms_topk=16, detections_per_frame=8)
+    hw = (64, 64)
+    model = MaskRCNN(cfg)
+    init_module(model, torch.Generator().manual_seed(0))
+    # A zero RPN delta head makes the proposals the clipped anchors on both
+    # devices, so float32 noise in the deltas cannot move the RoIs.
+    with torch.no_grad():
+        for t in model.rpn.Conv_2.parameters():
+            t.zero_()
+    anchors = {k: torch.from_numpy(v)
+               for k, v in pyramid_anchors(*hw, cfg.anchor_scales, cfg.anchor_ratios).items()}
+    # GT boxes are some of the model's own largest proposals, so foreground
+    # RoIs (and with them the box and mask losses) exist.
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.standard_normal((2, *hw, 3)).astype(np.float32))
+    with torch.no_grad():
+        rois = model.proposals(model.features(images.permute(0, 3, 1, 2)), anchors, hw)[0]
+    sizes = (rois[..., 2] - rois[..., 0]) * (rois[..., 3] - rois[..., 1])
+    gt_boxes = torch.zeros(2, 2, 4)
+    gt_valid = torch.tensor([[True, True], [True, False]])
+    gt_masks = torch.zeros(2, 2, *hw)
+    for i in range(2):
+        for j in range(int(gt_valid[i].sum())):
+            gt_boxes[i, j] = torch.round(rois[i, torch.argsort(-sizes[i])[j]])
+            x1, y1, x2, y2 = gt_boxes[i, j].long().tolist()
+            gt_masks[i, j, y1:y2, x1 + 1:x2 - 1] = 1.0
+    return cfg, hw, model, anchors, (images, gt_boxes, gt_masks, gt_valid)
+
+
+def tiny_loss_grads(torch, case, device: str):
+    """The training loss of `case` on `device` and every parameter's
+    gradient (float32 on the CPU), with TF32 off."""
+    import copy
+
+    from premvos_tpu_torch.pipeline.runner import float32_precision, place
+    from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
+
+    cfg, hw, model, anchors, batch = case
+    m = place(copy.deepcopy(model), torch.device(device)).train()
+    anc = {k: v.to(device) for k, v in anchors.items()}
+    with float32_precision():
+        loss = maskrcnn_loss_fn(m, anc, cfg, hw)(tuple(x.to(device) for x in batch))
+        loss.backward()
+    return loss.item(), {n: t.grad.detach().float().cpu() for n, t in m.named_parameters()}
+
+
+def grad_ratios(got: dict, want: dict) -> list:
+    """[(max |got − want| / max |want|, name)] per parameter, worst first."""
+    out = []
+    for name, w in want.items():
+        scale = max(float(w.abs().max()), 1e-12)
+        out.append((float((got[name] - w).abs().max()) / scale, name))
+    return sorted(out, reverse=True)
+
+
+def tiny_train_parity(np, torch):
+    """One loss and its gradients of the tiny Mask R-CNN on CUDA and on the
+    CPU from the same seeded weights and batch. Returns a report dict."""
+    case = tiny_train_case(np, torch)
+    lc, gc = tiny_loss_grads(torch, case, "cuda")
+    lp, gp = tiny_loss_grads(torch, case, "cpu")
+    rel = abs(lc - lp) / abs(lp)
+    if not (np.isfinite(lc) and rel <= 1e-4):
+        fail(f"tiny training loss: CUDA {lc} vs CPU {lp} (relative {rel} > 1e-4)")
+    ratios = grad_ratios(gc, gp)
+    if not ratios[0][0] <= 1e-3:
+        fail(f"tiny training gradient {ratios[0][1]}: max |diff| {ratios[0][0]} of its "
+             "max |grad| > 1e-3")
+    if not any(n.startswith("mask_head.") and float(g.abs().max()) > 0 for n, g in gp.items()):
+        fail("tiny training: the mask loss gave no gradient")
+    return dict(loss_cuda=lc, loss_cpu=lp, loss_rel_diff=rel, worst_grad_ratios=ratios[:5])
+
+
+# ------------------------------------------------------------- phase 7
+
+class SyntheticDavis:
+    """An in-memory dataset with the DAVIS reader's interface (`.sequences`,
+    `.load_sequence(seq, h, w, max_objects)`): each sequence is one
+    annotated frame of `synthetic_video`, seeded by its index."""
+
+    def __init__(self, np, n_sequences: int = 2):
+        self.np = np
+        self.sequences = [f"synthetic_{i}" for i in range(n_sequences)]
+
+    def load_sequence(self, seq, h, w, max_objects):
+        np = self.np
+        frames, gt = synthetic_video(np, 1, h, w, max_objects, seed=10 + self.sequences.index(seq))
+        ids = np.arange(1, max_objects + 1)[:, None, None]
+        labels = (ids * (gt > 0.5)).max(0).astype(np.int32)
+        return {"frames": frames, "gt_labels": labels[None]}
+
+
+def train_full_width(np, torch, wrappers, n_steps: int = 5):
+    """Mask R-CNN training at ProposalConfig() defaults, 480×864, batch 2,
+    8 object slots: one step through `train_maskrcnn`, then `n_steps` timed
+    steps on one fixed batch. Returns a report dict."""
+    from premvos_tpu_torch.config import ProposalConfig
+    from premvos_tpu_torch.models.anchors import pyramid_anchors
+    from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
+    from premvos_tpu_torch.train.train_maskrcnn import sample_batch, train_maskrcnn
+    from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg, hw, slots, bs = ProposalConfig(), (480, 864), 8, 2
+    dev = torch.device("cuda")
+    ds = SyntheticDavis(np)
+    t0 = time.perf_counter()
+    model, warm_loss = train_maskrcnn(ds, cfg, image_hw=hw, max_objects=slots, steps=1,
+                                      batch_size=bs, seed=0, log_every=0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if not np.isfinite(warm_loss):
+        fail(f"training warm-up step: loss {warm_loss}")
+    anchors = {k: torch.from_numpy(v).to(dev)
+               for k, v in pyramid_anchors(*hw, cfg.anchor_scales, cfg.anchor_ratios).items()}
+    state = create_train_state(model, 1e-4)
+    step = make_train_step(maskrcnn_loss_fn(model, anchors, cfg, hw), state.optimizer)
+    batch = sample_batch(ds, np.random.default_rng(1), hw, slots, bs, dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    # The steps run back to back as in train_maskrcnn, which reads no loss
+    # between steps; CUDA events between steps give each step's span on the
+    # device's timeline, idle gaps included.
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    out = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n_steps):
+        out.append(step(batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    losses = [float(x) for x in out]
+    if not all(np.isfinite(x) for x in losses):
+        fail(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall over {n_steps} steps on one batch: {losses}")
+    missing = [k for k in TRAINING_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched on the training path: {missing}")
+    med = statistics.median(times)
+    return dict(config="ProposalConfig() (R101-FPN, 256 ch, 256 RoIs/image), 480x864, "
+                       "batch 2, 8 slots, Adam 1e-4, float32 without TF32",
+                first_step_s_incl_init=first_s, warmup_loss=warm_loss, losses=losses,
+                step_s=times, median_s_per_step=med, images_per_s=bs / med,
+                wall_s_per_step=wall / n_steps, peak_bytes=peak, launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     ap.add_argument("--json", help="also write the full report (JSON) here")
@@ -334,6 +617,8 @@ def main() -> int:
         "multilevel_roi_align": roi_align.multilevel_roi_align_cuda,
         "correlation": correlation.correlation_cuda,
         "resample2d": resample2d.resample2d_cuda,
+        "roi_align": roi_align.roi_align_cuda,
+        "roi_align_backward": roi_align.roi_align_backward_cuda,
     }
     report = {}
 
@@ -367,6 +652,11 @@ def main() -> int:
         "correlation": [check_correlation(torch, gen, dev)],
         "resample2d": [check_resample(torch, gen, dev, 8, 3, 448, 832, torch.bfloat16),
                        check_resample(torch, gen, dev, 1, 8, 240, 432, torch.float32)],
+        "roi_align": [check_roi_align_train(torch, gen, dev, 7, torch.float32),
+                      check_roi_align_train(torch, gen, dev, 14, torch.float32),
+                      check_roi_align_train(torch, gen, dev, 7, torch.bfloat16)],
+        "roi_align_backward": [check_roi_align_backward(torch, gen, dev, 7),
+                               check_roi_align_backward(torch, gen, dev, 14)],
     }
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
@@ -425,9 +715,9 @@ def main() -> int:
     ids = (np.arange(1, p.max_objects + 1)[:, None, None] * (gt > 0.5)).max(0)
     if not np.array_equal(lab[0], ids):
         fail("frame 0 labels differ from the annotation")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
     if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+        fail(f"kernels not launched on the inference path: {missing}")
     with torch.inference_mode():
         f = frames_d[1:9].float() / 255.0
         outs = stages_batch(models, cfg, get_anchors(cfg, "cuda"), f, frames_d[0:8].float() / 255.0)
@@ -443,13 +733,29 @@ def main() -> int:
     )
     log(f"davis2017_val, {n_frames} frames: median {med:.3f} s → "
         f"{n_frames / med:.2f} frames/s, peak {peak / 2**30:.2f} GiB, launches {launches}")
+    del models, outs, frames_d, gt_d, out, f
+    torch.cuda.empty_cache()
 
+    # Phase 6 — tiny training step: CUDA (kernels) vs CPU (plain versions).
+    report["tiny_training"] = tiny_train_parity(np, torch)
+    log(f"tiny training: {report['tiny_training']}")
+
+    # Phase 7 — Mask R-CNN training at full width.
+    tr = train_full_width(np, torch, wrappers)
+    report["training"] = tr
+    log(f"training at full width: median {tr['median_s_per_step']:.4f} s/step → "
+        f"{tr['images_per_s']:.2f} images/s, peak {tr['peak_bytes'] / 2**30:.2f} GiB, "
+        f"losses {tr['losses']}, launches {tr['launches']}")
+
+    # Each kernel's launches on the path that runs it.
+    path_launches = {k: launches[k] for k in INFERENCE_KERNELS}
+    path_launches.update({k: tr["launches"][k] for k in TRAINING_KERNELS if k != "nms"})
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():
         main = checks[name][0]
         kernels_line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": main["max_abs_err"],
+            "launches": path_launches[name], "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
             "library_ms": main["library_ms"],

@@ -47,14 +47,16 @@ def _layer_paths(node: dict, prefix: str = ""):
             return
 
 
-def load_flax_tree(module: torch.nn.Module, tree: dict) -> None:
-    """Copy one network's flax tree into `module` (in place).
+def flax_tensors(module: torch.nn.Module, tree: dict) -> dict:
+    """{name: float32 tensor} in `module`'s state-dict names and layouts for
+    a flax tree shaped like its parameters: the parameters themselves, or
+    anything with their structure, such as their gradients.
 
     Raises if a layer of the module has no leaves in the tree, if shapes
     differ, or if the tree holds leaves no layer consumed.
     """
     tree = tree.get("params", tree)
-    used = set()
+    used, out = set(), {}
     for name, mod in module.named_modules():
         if not isinstance(mod, PARAM_LAYERS):
             continue
@@ -71,12 +73,21 @@ def load_flax_tree(module: torch.nn.Module, tree: dict) -> None:
                 raise ValueError(
                     f"{name}.{key}: flax {tuple(arr.shape)} vs port {tuple(target.shape)}"
                 )
-            with torch.no_grad():
-                target.copy_(arr)
+            out[f"{name}.{key}"] = arr
 
     unused = sorted(set(_layer_paths(tree)) - used)
     if unused:
         raise ValueError(f"flax leaves not consumed: {unused}")
+    return out
+
+
+def load_flax_tree(module: torch.nn.Module, tree: dict) -> None:
+    """Copy one network's flax tree into `module` (in place), with the
+    checks of `flax_tensors`."""
+    state = {**dict(module.named_parameters()), **dict(module.named_buffers())}
+    with torch.no_grad():
+        for name, value in flax_tensors(module, tree).items():
+            state[name].copy_(value)
 
 
 def params_from_jax(models, params_np: dict):

@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-Four CUDA C++ sources sit beside this file, one per TPU kernel of the JAX
-package that the main path runs:
+Four CUDA C++ sources sit beside this file, for the five TPU kernels of the
+JAX package:
 
   nms.cu          ← premvos_tpu/ops/pallas/nms_pallas.py::nms_pallas
-  roi_align.cu    ← premvos_tpu/ops/pallas/multilevel_roi_align_pallas.py
+  roi_align.cu    ← premvos_tpu/ops/pallas/multilevel_roi_align_pallas.py and
+                    premvos_tpu/ops/pallas/roi_align_pallas.py (with the
+                    single-level kernel's backward)
   correlation.cu  ← premvos_tpu/ops/pallas/correlation_pallas.py
   resample2d.cu   ← premvos_tpu/ops/pallas/resample2d_pallas.py
 

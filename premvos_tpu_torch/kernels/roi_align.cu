@@ -1,25 +1,46 @@
-// Multilevel (FPN) RoIAlign, batched over images.
+// Aligned RoIAlign on FPN levels, batched over images: the multilevel
+// forward (inference), the single-level forward and its backward (training).
 //
-// Replaces premvos_tpu/ops/pallas/multilevel_roi_align_pallas.py::
-// multilevel_roi_align_pallas (_kernel). Contract (ops/roi_align.py):
-// features P2..P5 as [B, H_l, W_l, C] (channels innermost), float32 or
-// bfloat16; boxes [B, N, 4] xyxy image coordinates (float32); levels
-// [B, N] int32 in 2..5 (models/maskrcnn.py::roi_levels). Each RoI is
-// sampled ONLY on its level (stride 4/8/16/32): aligned coordinates
-// (shift -0.5), P x P bins of s x s bilinear samples averaged; samples
-// outside (-1, size) are zero, the rest clamp to the edge. Output
-// [B, N, P, P, C] in the features' dtype, accumulated in float32.
+// Replaces
+//   premvos_tpu/ops/pallas/multilevel_roi_align_pallas.py::
+//     multilevel_roi_align_pallas (_kernel)          → premvos_multilevel_roi_align
+//   premvos_tpu/ops/pallas/roi_align_pallas.py::roi_align_pallas (_roi_kernel)
+//                                                    → premvos_roi_align
+//   the autodiff of premvos_tpu/ops/roi_align.py::roi_align_matmul (the JAX
+//   package has no backward kernel)                  → premvos_roi_align_backward
+//
+// Contract (ops/roi_align.py): features [B, H, W, C] (channels innermost),
+// float32 or bfloat16; boxes [B, N, 4] xyxy image coordinates (float32),
+// scaled by the level's spatial scale; aligned coordinates (shift -0.5),
+// P x P bins of s x s bilinear samples averaged; samples outside (-1, size)
+// are zero, the rest clamp to the edge. Forward output [B, N, P, P, C] in
+// the features' dtype, accumulated in float32.
 //
 // Design: one thread block per (RoI, image). The block first computes the
 // RoI's P*s row and column sample positions and weights into shared memory,
 // then its threads run over (bin, channel) with the channel fastest, so a
-// warp reads 32 consecutive channels of one feature pixel (coalesced). No
-// level sort (the TPU kernel sorted RoIs so each block was one level): a
-// block reads its RoI's level and samples that level only.
+// warp touches 32 consecutive channels of one feature pixel (coalesced).
+// The TPU kernels built iota-matmul interpolation matrices; on the card the
+// same sampling law is a gather (forward) and its adjoint a scatter-add
+// (backward).
+//   * multilevel: each block reads its RoI's level (2..5) and samples that
+//     level only; no level sort (the TPU kernel sorted RoIs by level).
+//   * single level with an optional level filter: with `levels` given, a
+//     block whose RoI is on another level exits at once. Training launches
+//     it once per level P2..P5 into one output, so every RoI is sampled once
+//     (the JAX training path computes all four levels and selects).
+//   * backward: gradient with respect to the features only (boxes are
+//     constants on the training path). Each sample's four taps get
+//     g * w_y * w_x / s^2 by float32 atomicAdd into a zeroed float32
+//     [B, H, W, C] gradient; where a tap clamps to the last row or column
+//     (i1 == i0) both taps add to the same pixel, and zero-weight taps (a
+//     sample outside the image, or an exact integer coordinate) add nothing.
 //
-// What bounds it: reading the sampled feature pixels, 4 taps x s^2 x P^2 x C
-// per RoI, mostly from L2 (neighbouring bins share pixels); the arithmetic
-// is a few flops per tap.
+// What bounds them: reading (forward) or read-modify-writing (backward) the
+// sampled feature pixels, 4 taps x s^2 x P^2 x C per RoI, mostly in L2
+// (neighbouring bins share pixels); the arithmetic is a few flops per tap.
+// The backward's atomics serialise where many samples of a small RoI land
+// on the same pixels.
 
 #include <cuda_bf16.h>
 
@@ -28,6 +49,7 @@
 namespace {
 
 constexpr int kMaxSamples = 64;  // P * s per axis
+constexpr int kThreads = 256;
 
 struct Level {
   const void* data;
@@ -37,6 +59,12 @@ struct Level {
 
 struct Levels {
   Level l[4];
+};
+
+// Sample positions of one RoI along both axes.
+struct Samples {
+  int y0[kMaxSamples], y1[kMaxSamples], x0[kMaxSamples], x1[kMaxSamples];
+  float wy0[kMaxSamples], wy1[kMaxSamples], wx0[kMaxSamples], wx1[kMaxSamples];
 };
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
@@ -61,40 +89,40 @@ __device__ __forceinline__ void bilinear_1d(float coord, int size, int* i0,
   *w0 = inside ? 1.f - frac : 0.f;
 }
 
-template <typename T>
-__global__ void roi_align_kernel(Levels levels_desc, int c,
-                                 const float* __restrict__ boxes,
-                                 const int* __restrict__ levels, int n, int p,
-                                 int s, T* __restrict__ out) {
-  const int r = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t roi = (size_t)b * n + r;
-  const int li = min(max(levels[roi] - 2, 0), 3);
-  const Level lv = levels_desc.l[li];
-  const T* feat = static_cast<const T*>(lv.data) + (size_t)b * lv.h * lv.w * c;
-  const int ps = p * s;
+// One box edge in sampling coordinates, rounded as the plain version's
+// separate multiply and subtract are (no FMA contraction).
+__device__ __forceinline__ float edge(float v, float scale) {
+  return __fsub_rn(__fmul_rn(v, scale), 0.5f);
+}
 
-  __shared__ int ys0[kMaxSamples], ys1[kMaxSamples];
-  __shared__ int xs0[kMaxSamples], xs1[kMaxSamples];
-  __shared__ float wy0[kMaxSamples], wy1[kMaxSamples];
-  __shared__ float wx0[kMaxSamples], wx1[kMaxSamples];
-
-  const float* bx = boxes + roi * 4;
-  const float x1 = bx[0] * lv.scale - 0.5f;
-  const float y1 = bx[1] * lv.scale - 0.5f;
-  const float x2 = bx[2] * lv.scale - 0.5f;
-  const float y2 = bx[3] * lv.scale - 0.5f;
-  const float bw = fmaxf(x2 - x1, 1e-6f);
-  const float bh = fmaxf(y2 - y1, 1e-6f);
+// The block's sample tables for the box `bx` on a level h x w at `scale`;
+// ends with a barrier. Sample coordinates are rounded step by step as in
+// the plain version (no FMA contraction, a correctly rounded division): at
+// a coordinate of 200 one float32 ulp is 1.5e-5 px, and an ulp there moved
+// float32 outputs on unit features by up to 7e-5.
+__device__ void sample_tables(Samples& t, const float* bx, float scale, int h,
+                              int w, int ps) {
+  const float x1 = edge(bx[0], scale);
+  const float y1 = edge(bx[1], scale);
+  const float x2 = edge(bx[2], scale);
+  const float y2 = edge(bx[3], scale);
+  const float bw = fmaxf(__fsub_rn(x2, x1), 1e-6f);
+  const float bh = fmaxf(__fsub_rn(y2, y1), 1e-6f);
   for (int k = threadIdx.x; k < ps; k += blockDim.x) {
-    const float g = ((float)k + 0.5f) / (float)ps;
-    bilinear_1d(y1 + g * bh, lv.h, &ys0[k], &ys1[k], &wy0[k], &wy1[k]);
-    bilinear_1d(x1 + g * bw, lv.w, &xs0[k], &xs1[k], &wx0[k], &wx1[k]);
+    const float g = __fdiv_rn((float)k + 0.5f, (float)ps);
+    bilinear_1d(__fadd_rn(y1, __fmul_rn(g, bh)), h, &t.y0[k], &t.y1[k], &t.wy0[k],
+                &t.wy1[k]);
+    bilinear_1d(__fadd_rn(x1, __fmul_rn(g, bw)), w, &t.x0[k], &t.x1[k], &t.wx0[k],
+                &t.wx1[k]);
   }
   __syncthreads();
+}
 
+// One RoI's [P, P, C] output from the level `feat` ([H, W, C] of one image).
+template <typename T>
+__device__ void pool_roi(const Samples& t, const T* __restrict__ feat, int w,
+                         int c, int p, int s, T* __restrict__ o) {
   const float inv = 1.f / (float)(s * s);
-  T* o = out + roi * p * p * c;
   for (int e = threadIdx.x; e < p * p * c; e += blockDim.x) {
     const int ch = e % c;
     const int bin = e / c;
@@ -103,18 +131,85 @@ __global__ void roi_align_kernel(Levels levels_desc, int c,
     float acc = 0.f;
     for (int iy = 0; iy < s; ++iy) {
       const int ky = py * s + iy;
-      const T* r0 = feat + (size_t)ys0[ky] * lv.w * c + ch;
-      const T* r1 = feat + (size_t)ys1[ky] * lv.w * c + ch;
+      const T* r0 = feat + (size_t)t.y0[ky] * w * c + ch;
+      const T* r1 = feat + (size_t)t.y1[ky] * w * c + ch;
       for (int ix = 0; ix < s; ++ix) {
         const int kx = px * s + ix;
-        const size_t c0 = (size_t)xs0[kx] * c;
-        const size_t c1 = (size_t)xs1[kx] * c;
-        const float top = load(r0 + c0) * wx0[kx] + load(r0 + c1) * wx1[kx];
-        const float bot = load(r1 + c0) * wx0[kx] + load(r1 + c1) * wx1[kx];
-        acc += top * wy0[ky] + bot * wy1[ky];
+        const size_t c0 = (size_t)t.x0[kx] * c;
+        const size_t c1 = (size_t)t.x1[kx] * c;
+        const float top = load(r0 + c0) * t.wx0[kx] + load(r0 + c1) * t.wx1[kx];
+        const float bot = load(r1 + c0) * t.wx0[kx] + load(r1 + c1) * t.wx1[kx];
+        acc += top * t.wy0[ky] + bot * t.wy1[ky];
       }
     }
     store(o + e, acc * inv);
+  }
+}
+
+__device__ __forceinline__ int clamp_level(int l) { return min(max(l, 2), 5); }
+
+template <typename T>
+__global__ void multilevel_kernel(Levels levels_desc, int c,
+                                  const float* __restrict__ boxes,
+                                  const int* __restrict__ levels, int n, int p,
+                                  int s, T* __restrict__ out) {
+  const size_t roi = (size_t)blockIdx.y * n + blockIdx.x;
+  const Level lv = levels_desc.l[clamp_level(levels[roi]) - 2];
+  __shared__ Samples t;
+  sample_tables(t, boxes + roi * 4, lv.scale, lv.h, lv.w, p * s);
+  const T* feat = static_cast<const T*>(lv.data) + (size_t)blockIdx.y * lv.h * lv.w * c;
+  pool_roi(t, feat, lv.w, c, p, s, out + roi * p * p * c);
+}
+
+template <typename T>
+__global__ void single_kernel(Level lv, int c, const float* __restrict__ boxes,
+                              const int* __restrict__ levels, int level, int n,
+                              int p, int s, T* __restrict__ out) {
+  const size_t roi = (size_t)blockIdx.y * n + blockIdx.x;
+  if (levels != nullptr && clamp_level(levels[roi]) != level) return;
+  __shared__ Samples t;
+  sample_tables(t, boxes + roi * 4, lv.scale, lv.h, lv.w, p * s);
+  const T* feat = static_cast<const T*>(lv.data) + (size_t)blockIdx.y * lv.h * lv.w * c;
+  pool_roi(t, feat, lv.w, c, p, s, out + roi * p * p * c);
+}
+
+__global__ void backward_kernel(int h, int w, int c, float scale,
+                                const float* __restrict__ boxes,
+                                const int* __restrict__ levels, int level,
+                                int n, int p, int s,
+                                const float* __restrict__ grad_out,
+                                float* __restrict__ grad) {
+  const size_t roi = (size_t)blockIdx.y * n + blockIdx.x;
+  if (levels != nullptr && clamp_level(levels[roi]) != level) return;
+  __shared__ Samples t;
+  sample_tables(t, boxes + roi * 4, scale, h, w, p * s);
+  float* g = grad + (size_t)blockIdx.y * h * w * c;
+  const float* go = grad_out + roi * p * p * c;
+  const float inv = 1.f / (float)(s * s);
+  for (int e = threadIdx.x; e < p * p * c; e += blockDim.x) {
+    const float ge = go[e] * inv;
+    if (ge == 0.f) continue;
+    const int ch = e % c;
+    const int bin = e / c;
+    const int py = bin / p;
+    const int px = bin % p;
+    for (int iy = 0; iy < s; ++iy) {
+      const int ky = py * s + iy;
+      const float gy0 = ge * t.wy0[ky];
+      const float gy1 = ge * t.wy1[ky];
+      float* r0 = g + (size_t)t.y0[ky] * w * c + ch;
+      float* r1 = g + (size_t)t.y1[ky] * w * c + ch;
+      for (int ix = 0; ix < s; ++ix) {
+        const int kx = px * s + ix;
+        const size_t c0 = (size_t)t.x0[kx] * c;
+        const size_t c1 = (size_t)t.x1[kx] * c;
+        const float wx0 = t.wx0[kx], wx1 = t.wx1[kx];
+        if (gy0 * wx0 != 0.f) atomicAdd(r0 + c0, gy0 * wx0);
+        if (gy0 * wx1 != 0.f) atomicAdd(r0 + c1, gy0 * wx1);
+        if (gy1 * wx0 != 0.f) atomicAdd(r1 + c0, gy1 * wx0);
+        if (gy1 * wx1 != 0.f) atomicAdd(r1 + c1, gy1 * wx1);
+      }
+    }
   }
 }
 
@@ -133,13 +228,46 @@ extern "C" int premvos_multilevel_roi_align(
   desc.l[2] = {p4, h4, w4, 1.f / 16.f};
   desc.l[3] = {p5, h5, w5, 1.f / 32.f};
   const dim3 grid(n, batch);
-  const int threads = 256;
   if (is_bf16) {
-    roi_align_kernel<__nv_bfloat16><<<grid, threads, 0, stream>>>(
+    multilevel_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
         desc, c, boxes, levels, n, p, s, static_cast<__nv_bfloat16*>(out));
   } else {
-    roi_align_kernel<float><<<grid, threads, 0, stream>>>(
+    multilevel_kernel<float><<<grid, kThreads, 0, stream>>>(
         desc, c, boxes, levels, n, p, s, static_cast<float*>(out));
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int premvos_roi_align(const void* features, int h, int w, int c,
+                                 int is_bf16, float spatial_scale,
+                                 const float* boxes, const int* levels,
+                                 int level, int batch, int n, int p, int s,
+                                 void* out, cudaStream_t stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (p * s > kMaxSamples) return (int)cudaErrorInvalidValue;
+  const Level lv = {features, h, w, spatial_scale};
+  const dim3 grid(n, batch);
+  if (is_bf16) {
+    single_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+        lv, c, boxes, levels, level, n, p, s, static_cast<__nv_bfloat16*>(out));
+  } else {
+    single_kernel<float><<<grid, kThreads, 0, stream>>>(
+        lv, c, boxes, levels, level, n, p, s, static_cast<float*>(out));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int premvos_roi_align_backward(const float* grad_out, int h, int w,
+                                          int c, float spatial_scale,
+                                          const float* boxes, const int* levels,
+                                          int level, int batch, int n, int p,
+                                          int s, float* grad_features,
+                                          cudaStream_t stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (p * s > kMaxSamples) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n, batch);
+  backward_kernel<<<grid, kThreads, 0, stream>>>(h, w, c, spatial_scale, boxes,
+                                                 levels, level, n, p, s,
+                                                 grad_out, grad_features);
   return (int)cudaGetLastError();
 }

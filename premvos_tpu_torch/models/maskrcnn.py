@@ -2,8 +2,10 @@
 premvos_tpu/models/maskrcnn.py), batched over images.
 
 Every output is fixed-shape and padded with validity masks, as in the JAX
-package. RoIAlign samples each RoI on its own FPN level
-(ops/roi_align.py::multilevel_roi_align).
+package. RoIAlign samples each RoI on its own FPN level, by one of two
+functions named after their JAX counterparts: `multilevel_roi_align_auto`
+(inference, the fused multilevel kernel) and `multilevel_roi_align`
+(training, differentiable in the features).
 """
 
 from __future__ import annotations
@@ -30,10 +32,12 @@ def roi_levels(boxes: torch.Tensor) -> torch.Tensor:
     return torch.clamp(lvl, 2, 5).to(torch.int32)
 
 
-def multilevel_roi_align(
+def multilevel_roi_align_auto(
     feats: dict, boxes: torch.Tensor, output_size: int, sampling_ratio: int = 2
 ) -> torch.Tensor:
-    """RoIAlign over P2..P5, each RoI on its level from `roi_levels`.
+    """RoIAlign over P2..P5, each RoI on its level from `roi_levels`, for
+    inference (ops/roi_align.py::multilevel_roi_align: the fused kernel on
+    CUDA, no gradient).
 
     feats: {"P2".."P5": [B, C, H, W]}; boxes [B, N, 4] image coordinates.
     Returns [B, N, P, P, C] in the features' dtype.
@@ -41,6 +45,24 @@ def multilevel_roi_align(
     levels = roi_levels(boxes)
     nhwc = [feats[k].permute(0, 2, 3, 1) for k in ALIGN_LEVELS]
     return roi_align.multilevel_roi_align(nhwc, boxes, levels, output_size, sampling_ratio)
+
+
+def multilevel_roi_align(
+    feats: dict, boxes: torch.Tensor, output_size: int, sampling_ratio: int = 2
+) -> torch.Tensor:
+    """The training form of the same align, differentiable in the features
+    (ops/roi_align.py::roi_align_levels: on CUDA the single-level kernel and
+    its backward once per level; on the CPU the JAX package's
+    compute-every-level-and-select). The JAX version's `roi_chunk` only
+    caps XLA's intermediates and does not change the result; the kernels
+    hold none, so there is no counterpart.
+
+    feats: {"P2".."P5": [B, C, H, W]}; boxes [B, N, 4], no gradient.
+    Returns [B, N, P, P, C] in the features' dtype.
+    """
+    levels = roi_levels(boxes)
+    nhwc = [feats[k].permute(0, 2, 3, 1) for k in ALIGN_LEVELS]
+    return roi_align.roi_align_levels(nhwc, boxes, levels, output_size, sampling_ratio)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,11 +85,21 @@ class MaskRCNN(nn.Module):
         )
         self.mask_head = MaskHead(c, dtype=dtype)
 
-    def proposals(self, feats: dict, anchors: dict, image_hw):
-        """Padded RPN proposals: [B, K, 4], [B, K], [B, K]."""
+    def features(self, images: torch.Tensor) -> dict:
+        """[B, 3, H, W] normalized images → {P2..P6} feature maps."""
+        return self.fpn(self.backbone(images))
+
+    def rpn_outputs(self, feats: dict):
+        """RPN logits {level: [B, Ni]} and deltas {level: [B, Ni, 4]}."""
         logits, deltas = {}, {}
         for lvl, f in feats.items():
             logits[lvl], deltas[lvl] = self.rpn(f)
+        return logits, deltas
+
+    def proposals(self, feats: dict, anchors: dict, image_hw, rpn=None):
+        """Padded RPN proposals: [B, K, 4], [B, K], [B, K]. `rpn` takes
+        already computed (logits, deltas) instead of running the head."""
+        logits, deltas = self.rpn_outputs(feats) if rpn is None else rpn
         cfg = self.cfg
         return generate_proposals(
             logits, deltas, anchors, image_hw,
@@ -81,7 +113,7 @@ class MaskRCNN(nn.Module):
         h, w = image_hw
         cfg = self.cfg
         b, n = rois.shape[:2]
-        roi_feats = multilevel_roi_align(feats, rois, cfg.roi_align_size)
+        roi_feats = multilevel_roi_align_auto(feats, rois, cfg.roi_align_size)
         logits, deltas = self.box_head(roi_feats.reshape(b * n, -1))
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         scores = probs[:, 1].reshape(b, n) * roi_valid.to(torch.float32)
@@ -105,7 +137,7 @@ class MaskRCNN(nn.Module):
     def masks(self, feats: dict, det_boxes):
         """Mask branch → [B, D, 2P, 2P] mask logits in the box frame."""
         b, d = det_boxes.shape[:2]
-        mf = multilevel_roi_align(feats, det_boxes, self.cfg.mask_roi_align_size)
+        mf = multilevel_roi_align_auto(feats, det_boxes, self.cfg.mask_roi_align_size)
         p = mf.shape[2]
         logits = self.mask_head(mf.reshape(b * d, p, p, -1).permute(0, 3, 1, 2))
         return logits.reshape(b, d, *logits.shape[-2:])
@@ -115,7 +147,7 @@ class MaskRCNN(nn.Module):
         {level: [Ni, 4]}. Returns boxes [B, D, 4], scores [B, D],
         valid [B, D], mask_logits [B, D, 2P, 2P]."""
         h, w = images.shape[-2:]
-        feats = self.fpn(self.backbone(images))
+        feats = self.features(images)
         rois, _, roi_valid = self.proposals(feats, anchors, (h, w))
         det_boxes, det_scores, det_valid = self.detect(feats, rois, roi_valid, (h, w))
         mask_logits = self.masks(feats, det_boxes)

@@ -44,6 +44,26 @@ def clip_boxes(boxes: torch.Tensor, height, width) -> torch.Tensor:
     )
 
 
+def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Encode target boxes relative to anchors as (dx, dy, dw, dh) deltas."""
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    ax = anchors[..., 0] + 0.5 * aw
+    ay = anchors[..., 1] + 0.5 * ah
+
+    bw = boxes[..., 2] - boxes[..., 0]
+    bh = boxes[..., 3] - boxes[..., 1]
+    bx = boxes[..., 0] + 0.5 * bw
+    by = boxes[..., 1] + 0.5 * bh
+
+    eps = 1e-12
+    dx = (bx - ax) / torch.clamp(aw, min=eps)
+    dy = (by - ay) / torch.clamp(ah, min=eps)
+    dw = torch.log(torch.clamp(bw, min=eps) / torch.clamp(aw, min=eps))
+    dh = torch.log(torch.clamp(bh, min=eps) / torch.clamp(ah, min=eps))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """Apply (dx, dy, dw, dh) deltas to anchors → xyxy boxes."""
     aw = anchors[..., 2] - anchors[..., 0]

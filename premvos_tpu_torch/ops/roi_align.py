@@ -1,15 +1,24 @@
 """RoIAlign and crop-and-resize (port of premvos_tpu/ops/roi_align.py and of
-the Pallas kernel premvos_tpu/ops/pallas/multilevel_roi_align_pallas.py).
+the Pallas kernels premvos_tpu/ops/pallas/roi_align_pallas.py and
+premvos_tpu/ops/pallas/multilevel_roi_align_pallas.py).
 
   * `crop_and_resize` — exact `tf.image.crop_and_resize` sampling as two
     interpolation matmuls (plain torch ops, as the JAX package left them to
     XLA).
-  * `roi_align_reference` — single-level aligned RoIAlign, gather form.
+  * `roi_align_reference` / `roi_align_cuda` / `roi_align_backward_cuda` —
+    single-level aligned RoIAlign: the plain version (gather form, whose
+    autograd is the plain gradient), the CUDA forward kernel (with an
+    optional level filter) and the CUDA kernel of its gradient with respect
+    to the features (kernels/roi_align.cu). `roi_align` (one level) and
+    `roi_align_levels` (each RoI on its own FPN level, the training form)
+    are differentiable in the features and dispatch on the tensors' device.
   * `multilevel_roi_align_reference` / `multilevel_roi_align_cuda` — FPN
-    RoIAlign where each RoI is sampled on its own level: the plain version
-    and the CUDA kernel (kernels/roi_align.cu). `multilevel_roi_align`
-    dispatches on the tensors' device: CUDA tensors go to the kernel, CPU
-    tensors to the plain version.
+    RoIAlign where each RoI is sampled on its own level, forward only (the
+    inference path): the plain version and the fused CUDA kernel.
+    `multilevel_roi_align` dispatches on the tensors' device.
+
+Every dispatcher sends CUDA tensors to the kernels (a failed launch raises)
+and CPU tensors to the plain versions; boxes get no gradient.
 
 Layouts: images NCHW; RoIAlign features [B, H, W, C] (channels innermost,
 which a channels-last NCHW tensor gives without a copy); boxes [B, N, 4].
@@ -110,8 +119,12 @@ def roi_align_reference(
     x2, y2 = bx[..., 2] - 0.5, bx[..., 3] - 0.5
     bw = torch.clamp(x2 - x1, min=1e-6)
     bh = torch.clamp(y2 - y1, min=1e-6)
-    grid = (torch.arange(p * s, dtype=torch.float32, device=boxes.device)
-            + 0.5) / (p * s)
+    # The sample fractions (k + 0.5) / (p·s), correctly rounded to float32
+    # on every device (CUDA divides by a scalar through its reciprocal, an
+    # ulp off at times, and at coordinates of 200 that moves a sample by
+    # 1e-5 px), as the kernels compute them.
+    grid = ((torch.arange(p * s, dtype=torch.float64, device=boxes.device) + 0.5)
+            / (p * s)).to(torch.float32)
     ys = y1[..., None] + grid * bh[..., None]  # [B, N, p*s]
     xs = x1[..., None] + grid * bw[..., None]
     yi0, yi1, yw0, yw1 = _bilinear_1d(ys, h)
@@ -211,3 +224,195 @@ def multilevel_roi_align(
     version for CPU tensors."""
     fn = multilevel_roi_align_cuda if boxes.is_cuda else multilevel_roi_align_reference
     return fn(feats, boxes, levels, output_size, sampling_ratio)
+
+
+def _check_boxes(name: str, boxes: torch.Tensor, b: int, levels=None) -> None:
+    n = boxes.shape[1] if boxes.dim() == 3 else -1
+    if boxes.shape != (b, n, 4) or (levels is not None and levels.shape != (b, n)):
+        raise ValueError(
+            f"{name}: boxes {tuple(boxes.shape)}"
+            + ("" if levels is None else f", levels {tuple(levels.shape)}")
+            + f" for {b} images"
+        )
+
+
+def roi_align_cuda(
+    features: torch.Tensor, boxes: torch.Tensor, output_size: int = 7,
+    sampling_ratio: int = 2, spatial_scale: float = 1.0,
+    levels: torch.Tensor | None = None, level: int = 0,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The single-level CUDA kernel (kernels/roi_align.cu::premvos_roi_align):
+    the contract of roi_align_reference, output in the features' dtype.
+
+    With `levels` [B, N] given, only the RoIs whose level (clamped to 2..5)
+    is `level` are sampled, into `out` (required then; the other RoIs' rows
+    are left as they are). `roi_align_cuda.launches` counts its launches.
+    """
+    features = features.contiguous()
+    dtype = features.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align: unsupported dtype {dtype}")
+    if features.dim() != 4:
+        raise ValueError(f"roi_align: features must be [B, H, W, C], got {tuple(features.shape)}")
+    b, h, w, c = features.shape
+    _check_boxes("roi_align", boxes, b, levels)
+    n = boxes.shape[1]
+    boxes = boxes.to(torch.float32).contiguous()
+    extra = []
+    if levels is not None:
+        levels = levels.to(torch.int32).contiguous()
+        extra.append(levels)
+        if out is None:
+            raise ValueError("roi_align: a level filter needs `out`")
+    shape = (b, n, output_size, output_size, c)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=boxes.device)
+    elif tuple(out.shape) != shape or out.dtype != dtype:
+        raise ValueError(f"roi_align: out {tuple(out.shape)} {out.dtype}, need {shape} {dtype}")
+    kernels.require_cuda("roi_align", features, boxes, out, *extra)
+    kernels.launch(
+        "roi_align", features.data_ptr(), h, w, c, int(dtype == torch.bfloat16),
+        float(spatial_scale), boxes.data_ptr(),
+        None if levels is None else levels.data_ptr(), int(level), b, n,
+        output_size, sampling_ratio, out.data_ptr(), kernels.stream_of(boxes),
+    )
+    roi_align_cuda.launches += 1
+    return out
+
+
+roi_align_cuda.launches = 0
+
+
+def roi_align_backward_cuda(
+    grad_out: torch.Tensor, boxes: torch.Tensor, feature_hw: tuple,
+    sampling_ratio: int = 2, spatial_scale: float = 1.0,
+    levels: torch.Tensor | None = None, level: int = 0,
+) -> torch.Tensor:
+    """The gradient kernel (kernels/roi_align.cu::premvos_roi_align_backward):
+    grad_out [B, N, P, P, C] of roi_align_cuda → the float32 gradient
+    [B, H, W, C] with respect to its features, with the same level filter.
+    `roi_align_backward_cuda.launches` counts its launches."""
+    if grad_out.dim() != 5 or grad_out.shape[2] != grad_out.shape[3]:
+        raise ValueError(f"roi_align_backward: grad_out {tuple(grad_out.shape)}")
+    b, n, p, _, c = grad_out.shape
+    h, w = feature_hw
+    _check_boxes("roi_align_backward", boxes, b, levels)
+    if boxes.shape[1] != n:
+        raise ValueError(f"roi_align_backward: boxes {tuple(boxes.shape)} for {n} RoIs")
+    grad_out = grad_out.to(torch.float32).contiguous()
+    boxes = boxes.to(torch.float32).contiguous()
+    extra = []
+    if levels is not None:
+        levels = levels.to(torch.int32).contiguous()
+        extra.append(levels)
+    kernels.require_cuda("roi_align_backward", grad_out, boxes, *extra)
+    grad = torch.zeros((b, h, w, c), dtype=torch.float32, device=boxes.device)
+    kernels.launch(
+        "roi_align_backward", grad_out.data_ptr(), h, w, c, float(spatial_scale),
+        boxes.data_ptr(), None if levels is None else levels.data_ptr(),
+        int(level), b, n, p, sampling_ratio, grad.data_ptr(),
+        kernels.stream_of(boxes),
+    )
+    roi_align_backward_cuda.launches += 1
+    return grad
+
+
+roi_align_backward_cuda.launches = 0
+
+
+class _RoIAlignCUDA(torch.autograd.Function):
+    """RoIAlign through the kernels, differentiable in the features.
+
+    With `levels` None, `feats` is one feature map at `scales[0]`; else the
+    FPN levels 2, 3, … at `scales`, one forward and one backward launch per
+    level, each on the RoIs of its level only, into one output.
+    """
+
+    @staticmethod
+    def forward(ctx, boxes, levels, output_size, sampling_ratio, scales, *feats):
+        if levels is None:
+            out = roi_align_cuda(feats[0], boxes, output_size, sampling_ratio, scales[0])
+        else:
+            c, dtype = feats[0].shape[-1], feats[0].dtype
+            if any(f.shape[-1] != c or f.dtype != dtype for f in feats):
+                raise ValueError("roi_align: levels differ in channels or dtype")
+            b, n = boxes.shape[:2]
+            out = torch.empty(
+                (b, n, output_size, output_size, c), dtype=dtype, device=boxes.device
+            )
+            for i, (f, scale) in enumerate(zip(feats, scales)):
+                roi_align_cuda(f, boxes, output_size, sampling_ratio, scale, levels, i + 2, out)
+        ctx.save_for_backward(boxes, levels)
+        ctx.hw = [tuple(f.shape[1:3]) for f in feats]
+        ctx.dtypes = [f.dtype for f in feats]
+        ctx.sampling_ratio, ctx.scales = sampling_ratio, scales
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, levels = ctx.saved_tensors
+        grads = []
+        for i, (hw, dtype, scale) in enumerate(zip(ctx.hw, ctx.dtypes, ctx.scales)):
+            if not ctx.needs_input_grad[5 + i]:
+                grads.append(None)
+                continue
+            g = roi_align_backward_cuda(
+                grad_out, boxes, hw, ctx.sampling_ratio, scale, levels, i + 2
+            )
+            grads.append(g.to(dtype))
+        return (None, None, None, None, None, *grads)
+
+
+def _no_box_grad(name: str, boxes: torch.Tensor) -> None:
+    if boxes.requires_grad:
+        raise ValueError(
+            f"{name}: boxes must not require grad (the gradient is taken with "
+            "respect to the features only; detach the boxes)"
+        )
+
+
+def roi_align(
+    features: torch.Tensor, boxes: torch.Tensor, output_size: int = 7,
+    sampling_ratio: int = 2, spatial_scale: float = 1.0,
+) -> torch.Tensor:
+    """Single-level RoIAlign, differentiable in the features (the port of
+    premvos_tpu/ops/roi_align.py::roi_align, batched over images).
+
+    features [B, H, W, C]; boxes [B, N, 4] image coordinates, no gradient.
+    Returns [B, N, P, P, C] in the features' dtype: the kernels for CUDA
+    tensors, the plain version and its autograd for CPU tensors.
+    """
+    _no_box_grad("roi_align", boxes)
+    if boxes.is_cuda:
+        return _RoIAlignCUDA.apply(
+            boxes, None, output_size, sampling_ratio, (spatial_scale,), features
+        )
+    return roi_align_reference(
+        features, boxes, output_size, sampling_ratio, spatial_scale
+    ).to(features.dtype)
+
+
+def roi_align_levels(
+    feats: list, boxes: torch.Tensor, levels: torch.Tensor,
+    output_size: int = 7, sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """RoIAlign with each RoI on its own FPN level, differentiable in every
+    level (the training form).
+
+    feats: P2..P5 as [B, H_l, W_l, C]; boxes [B, N, 4], no gradient; levels
+    [B, N] in 2..5. Returns [B, N, P, P, C] in the features' dtype. CUDA
+    tensors: the single-level kernel once per level, each launch sampling
+    only the RoIs of its level, and the same four launches of its backward.
+    CPU tensors: the plain version, every level selected by `levels` (the
+    JAX package's training form), and its autograd.
+    """
+    _no_box_grad("roi_align_levels", boxes)
+    if len(feats) != len(LEVEL_STRIDES):
+        raise ValueError(f"roi_align_levels: need {len(LEVEL_STRIDES)} levels, got {len(feats)}")
+    if boxes.is_cuda:
+        scales = tuple(1.0 / s for s in LEVEL_STRIDES)
+        return _RoIAlignCUDA.apply(
+            boxes, levels, output_size, sampling_ratio, scales, *feats
+        )
+    return multilevel_roi_align_reference(feats, boxes, levels, output_size, sampling_ratio)

@@ -71,7 +71,9 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _place(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+def place(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """Move `module` to `device`, with channels-last convolution weights on
+    CUDA (so activations are channels-last and kernels read NHWC)."""
     if device.type == "cuda":
         return module.to(device=device, memory_format=torch.channels_last)
     return module.to(device)
@@ -97,7 +99,7 @@ def build_models(cfg: PremvosConfig, device=None) -> Models:
         reid=ReIDNet(cfg.reid, dtype),
     )
     for m in models:
-        _place(m, device).eval()
+        place(m, device).eval()
     return models
 
 
@@ -109,7 +111,7 @@ def init_params(models: Models, cfg: PremvosConfig, seed: int = 0, device=None) 
     gen = torch.Generator().manual_seed(seed)
     for m in models:
         init_module(m, gen)
-        _place(m, device)
+        place(m, device)
     return models
 
 

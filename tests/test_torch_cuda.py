@@ -14,10 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from premvos_tpu_torch.models.maskrcnn import multilevel_roi_align
+from premvos_tpu_torch.models.maskrcnn import multilevel_roi_align_auto
 from premvos_tpu_torch.ops import nms as tnms
 from premvos_tpu_torch.ops.correlation import correlation_cuda, correlation_reference
 from premvos_tpu_torch.ops.resample2d import resample2d_cuda, resample2d_reference
+from premvos_tpu_torch.ops.roi_align import (
+    multilevel_roi_align_reference,
+    roi_align_backward_cuda,
+    roi_align_cuda,
+    roi_align_levels,
+    roi_align_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +86,101 @@ def test_multilevel_roi_align_kernel(dev, p):
     size = torch.rand(2, 9, 1, generator=gen) * 390 + 8
     ctr = torch.rand(2, 9, 2, generator=gen) * torch.tensor([190.0, 120.0])
     rois = torch.cat([ctr - size / 2, ctr + size / 2], -1).to(dev)
-    got = multilevel_roi_align(feats, rois, p, 2)
-    want = multilevel_roi_align({k: v.cpu() for k, v in feats.items()}, rois.cpu(), p, 2)
+    got = multilevel_roi_align_auto(feats, rois, p, 2)
+    want = multilevel_roi_align_auto({k: v.cpu() for k, v in feats.items()}, rois.cpu(), p, 2)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def _single_level_case(gen, dev, dtype):
+    """Features [2, 24, 32, 16] at scale 1/4, and boxes (image coordinates)
+    that include a degenerate one, one off the image, ones past the right
+    and bottom edges (samples clamp: both taps on the last row or column)
+    and tiny ones (many samples on one pixel: atomics collide)."""
+    feats = torch.randn(2, 24, 32, 16, generator=gen).to(dev, dtype)
+    fixed = torch.tensor([
+        [40.0, 40.0, 40.0, 40.0], [-240.0, -200.0, -80.0, -48.0],
+        [80.0, 56.0, 134.8, 101.2], [-13.2, -10.4, 32.0, 24.0],
+        [60.0, 60.0, 61.0, 61.5], [0.0, 0.0, 128.0, 96.0],
+    ])
+    xy = torch.rand(2, 10, 2, generator=gen) * torch.tensor([128.0, 96.0])
+    wh = torch.rand(2, 10, 2, generator=gen) * 60 + 1
+    boxes = torch.cat([torch.cat([xy, xy + wh], -1), fixed.expand(2, -1, -1)], 1)
+    levels = torch.randint(2, 6, boxes.shape[:2], generator=gen, dtype=torch.int32)
+    return feats, boxes.to(dev), levels.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("filtered", [False, True], ids=["all", "level_filter"])
+def test_roi_align_kernel(dev, dtype, filtered):
+    """The single-level forward vs roi_align_reference: float32 1e-5; bf16
+    2 ulp of the largest value. With the level filter, only the RoIs of
+    that level are written and the other rows keep what `out` held."""
+    gen = torch.Generator().manual_seed(4)
+    feats, boxes, levels = _single_level_case(gen, dev, dtype)
+    p = 7
+    want = roi_align_reference(feats, boxes, p, 2, 0.25)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.abs().max())
+    if filtered:
+        out = torch.full((*boxes.shape[:2], p, p, 16), 3.0, dtype=dtype, device=dev)
+        got = roi_align_cuda(feats, boxes, p, 2, 0.25, levels, 4, out)
+        on = (levels == 4)[..., None, None, None]
+        want = torch.where(on, want, torch.full_like(want, 3.0))
+        assert got is out and 0 < int((levels == 4).sum()) < levels.numel()
+    else:
+        got = roi_align_cuda(feats, boxes, p, 2, 0.25)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("filtered", [False, True], ids=["all", "level_filter"])
+def test_roi_align_backward_kernel(dev, filtered):
+    """The backward kernel vs autograd of roi_align_reference, within 1e-4
+    of the largest |grad| (float32 atomics add in a varying order)."""
+    gen = torch.Generator().manual_seed(5)
+    feats, boxes, levels = _single_level_case(gen, dev, torch.float32)
+    p = 14
+    cot = torch.randn(*boxes.shape[:2], p, p, 16, generator=gen).to(dev)
+    if filtered:
+        cot_ref = cot * (levels == 3)[..., None, None, None]
+        got = roi_align_backward_cuda(cot, boxes, (24, 32), 2, 0.25, levels, 3)
+    else:
+        cot_ref = cot
+        got = roi_align_backward_cuda(cot, boxes, (24, 32), 2, 0.25)
+    f = feats.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(roi_align_reference(f, boxes, p, 2, 0.25), f, cot_ref)
+    torch.cuda.synchronize()
+    assert got.shape == feats.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_roi_align_levels_trains_through_the_kernels(dev):
+    """The training align on CUDA (four filtered forward launches, four
+    backward launches) vs the plain version on the CPU: forward 1e-5, each
+    level's gradient 1e-4 of its largest |grad|."""
+    gen = torch.Generator().manual_seed(6)
+    shapes = [(32, 48), (16, 24), (8, 12), (4, 6)]
+    feats = [torch.randn(2, h, w, 8, generator=gen) for h, w in shapes]
+    size = torch.rand(2, 30, 1, generator=gen) * 390 + 2
+    ctr = torch.rand(2, 30, 2, generator=gen) * torch.tensor([190.0, 120.0])
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1)
+    levels = torch.clamp(
+        torch.floor(4 + torch.log2(size[..., 0] / 224.0)), 2, 5
+    ).to(torch.int32)
+    cot = torch.randn(2, 30, 14, 14, 8, generator=gen)
+    grads = {}
+    for d in ("cpu", "cuda"):
+        fs = [f.to(d, copy=True).requires_grad_(True) for f in feats]
+        before = (roi_align_cuda.launches, roi_align_backward_cuda.launches)
+        out = roi_align_levels(fs, boxes.to(d), levels.to(d), 14, 2)
+        (out * cot.to(d)).sum().backward()
+        grads[d] = (out.detach().cpu(), [f.grad.cpu() for f in fs])
+        after = (roi_align_cuda.launches, roi_align_backward_cuda.launches)
+        assert after == (before if d == "cpu" else (before[0] + 4, before[1] + 4))
+    torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], rtol=0, atol=1e-5)
+    want_fwd = multilevel_roi_align_reference(feats, boxes, levels, 14, 2)
+    torch.testing.assert_close(grads["cpu"][0], want_fwd, rtol=0, atol=0)
+    for level, (g, w) in enumerate(zip(grads["cuda"][1], grads["cpu"][1])):
+        torch.testing.assert_close(
+            g, w, rtol=0, atol=1e-4 * float(w.abs().max()), msg=f"P{level + 2}"
+        )

@@ -26,7 +26,7 @@ from premvos_tpu.ops.pallas.nms_pallas import nms_pallas
 from premvos_tpu.ops.pallas.resample2d_pallas import resample2d_block_pallas
 from premvos_tpu.ops.resample2d import resample2d_reference as jax_resample
 from premvos_tpu.ops.roi_align import crop_and_resize as jax_crop
-from premvos_tpu_torch.models.maskrcnn import multilevel_roi_align, roi_levels
+from premvos_tpu_torch.models.maskrcnn import multilevel_roi_align_auto, roi_levels
 from premvos_tpu_torch.ops import nms as tnms
 from premvos_tpu_torch.ops.correlation import correlation, correlation_reference
 from premvos_tpu_torch.ops.masks import paste_mask, soft_mask_iou
@@ -155,7 +155,7 @@ def test_multilevel_roi_align_matches_jax(p):
         )
     )
     tf = {k: _t(f[None]).permute(0, 3, 1, 2) for k, f in jf.items()}
-    got = multilevel_roi_align(tf, _t(boxes)[None], p, 2)[0].numpy()
+    got = multilevel_roi_align_auto(tf, _t(boxes)[None], p, 2)[0].numpy()
     np.testing.assert_array_equal(
         roi_levels(_t(boxes)).numpy(), np.asarray(jax_roi_levels(jnp.asarray(boxes)))
     )
@@ -171,7 +171,7 @@ def test_multilevel_roi_align_batched_and_degenerate():
     feats = _pyramid(rng, c, batch=2)
     boxes = np.stack([_mixed_boxes(rng, 6), np.zeros((6, 4), np.float32)])
     tf = {k: _t(f).permute(0, 3, 1, 2) for k, f in zip(("P2", "P3", "P4", "P5"), feats)}
-    got = multilevel_roi_align(tf, _t(boxes), 7, 2).numpy()
+    got = multilevel_roi_align_auto(tf, _t(boxes), 7, 2).numpy()
     assert got.shape == (2, 6, 7, 7, c) and np.isfinite(got).all()
     for i in range(2):
         jf = {k: jnp.asarray(f[i]) for k, f in zip(("P2", "P3", "P4", "P5"), feats)}

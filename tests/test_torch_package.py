@@ -15,7 +15,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_no_jax():
     """Import every module of premvos_tpu_torch (and chip_smoke.py) in a
-    fresh interpreter: no jax* and no premvos_tpu(.*) may be loaded."""
+    fresh interpreter: no jax* and no premvos_tpu(.*) may be loaded, and no
+    PIL (the card's machine has no Pillow; the image readers import it
+    inside their functions)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import premvos_tpu_torch\n"
@@ -24,7 +26,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n.startswith('jaxlib') or n == 'premvos_tpu'\n"
-        "             or n.startswith('premvos_tpu.'))\n"
+        "             or n.startswith('premvos_tpu.') or n == 'PIL'\n"
+        "             or n.startswith('PIL.'))\n"
         "n = sum(1 for m in sys.modules if m.startswith('premvos_tpu_torch'))\n"
         "print(n, bad)\n"
         "sys.exit(1 if bad or n < 20 else 0)\n"
@@ -59,9 +62,14 @@ def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors the kernel wrappers are never reached."""
     from premvos_tpu_torch.ops import correlation, nms, resample2d, roi_align
 
-    before = (nms.nms_cuda.launches, correlation.correlation_cuda.launches,
-              resample2d.resample2d_cuda.launches,
-              roi_align.multilevel_roi_align_cuda.launches)
+    def counts():
+        return (nms.nms_cuda.launches, correlation.correlation_cuda.launches,
+                resample2d.resample2d_cuda.launches,
+                roi_align.multilevel_roi_align_cuda.launches,
+                roi_align.roi_align_cuda.launches,
+                roi_align.roi_align_backward_cuda.launches)
+
+    before = counts()
     boxes = torch.tensor([[[0.0, 0.0, 4.0, 4.0], [1.0, 1.0, 5.0, 5.0]]])
     nms.nms(boxes, torch.tensor([[0.9, 0.8]]), 2)
     f = torch.zeros(1, 4, 6, 6)
@@ -70,10 +78,10 @@ def test_cpu_tensors_take_the_plain_versions():
     roi_align.multilevel_roi_align(
         [torch.zeros(1, 8, 8, 4)] * 4, boxes, torch.full((1, 2), 2)
     )
-    after = (nms.nms_cuda.launches, correlation.correlation_cuda.launches,
-             resample2d.resample2d_cuda.launches,
-             roi_align.multilevel_roi_align_cuda.launches)
-    assert before == after
+    feats = [torch.zeros(1, 8, 8, 4, requires_grad=True) for _ in range(4)]
+    roi_align.roi_align_levels(feats, boxes, torch.full((1, 2), 3)).sum().backward()
+    roi_align.roi_align(feats[0], boxes).sum().backward()
+    assert counts() == before
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -110,8 +118,8 @@ def test_kernel_header_matches_the_sources():
         for name, params in re.findall(r"\bint\s+(premvos_\w+)\s*\(([^)]*)\)\s*;", header)
     }
     assert set(sigs) == set(defined) == set(declared) == {
-        "premvos_nms", "premvos_multilevel_roi_align", "premvos_correlation",
-        "premvos_resample2d",
+        "premvos_nms", "premvos_multilevel_roi_align", "premvos_roi_align",
+        "premvos_roi_align_backward", "premvos_correlation", "premvos_resample2d",
     }
     for name, types in declared.items():
         assert defined[name] == types, name
@@ -184,7 +192,29 @@ def _bad_roi_boxes():
     multilevel_roi_align_cuda(feats, torch.zeros(1, 2, 4), torch.full((1, 3), 2))
 
 
-@pytest.mark.parametrize("call", [_bad_corr, _bad_roi_levels, _bad_roi_boxes])
+def _bad_single_boxes():
+    from premvos_tpu_torch.ops.roi_align import roi_align_cuda
+
+    roi_align_cuda(torch.zeros(2, 8, 8, 4), torch.zeros(1, 3, 4))
+
+
+def _bad_single_levels():
+    from premvos_tpu_torch.ops.roi_align import roi_align_cuda
+
+    roi_align_cuda(torch.zeros(1, 8, 8, 4), torch.zeros(1, 3, 4),
+                   levels=torch.full((1, 2), 2), level=2, out=torch.zeros(1, 3, 7, 7, 4))
+
+
+def _bad_backward_boxes():
+    from premvos_tpu_torch.ops.roi_align import roi_align_backward_cuda
+
+    roi_align_backward_cuda(torch.zeros(1, 3, 7, 7, 4), torch.zeros(1, 2, 4), (8, 8))
+
+
+@pytest.mark.parametrize("call", [
+    _bad_corr, _bad_roi_levels, _bad_roi_boxes, _bad_single_boxes,
+    _bad_single_levels, _bad_backward_boxes,
+])
 def test_kernel_wrappers_reject_bad_shapes(call):
     """Shapes the kernels cannot take are refused before any pointer is
     passed (they would read out of bounds)."""
