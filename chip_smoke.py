@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero):
      shapes of its path (inference: configs/davis2017_val.json; training:
      ProposalConfig() at 480×864, batch 2), and time kernel, plain version,
      a PyTorch library call where one computes the same function, and the
-     least time the card could take (bound);
+     least time the card could take (bound); correlation with bf16 inputs
+     (the path's), float32 inputs and, at a small size, stride 1 with max
+     displacement 20 (D = 41);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -29,7 +31,11 @@ Phases (any failure raises and exits non-zero):
      of `make_train_step` on one fixed batch from the same batch assembly;
      launch counters are zeroed just before the timed steps and read just
      after, every loss must be finite, the last below the first, and NMS,
-     RoIAlign and its backward must have launched.
+     RoIAlign and its backward must have launched;
+  8. the correlation's and resample2d's device time by kernel name
+     (torch.profiler) beside phase 3's wrapper times, on fresh inputs of
+     the same shapes: last, because the end-to-end phases ran slower after
+     a profiled run in the same process.
 
 Prints the card line, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
@@ -48,10 +54,12 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (dense): HBM bytes/s and float32 FLOP/s
-# outside the tensor cores (the kernels' arithmetic type).
+# Published peaks of one H100 SXM (dense): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores (most kernels' arithmetic type) and bf16 FLOP/s
+# on the tensor cores (the correlation kernel's).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 
 KERNELS = {
     "nms": ("premvos_tpu_torch/kernels/nms.cu", "premvos_tpu/ops/pallas/nms_pallas.py:70"),
@@ -114,10 +122,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, pattern: str, iters: int = 50) -> float:
+    """Mean device time per call of the kernels whose name holds `pattern`
+    (torch.profiler over `iters` calls, after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and pattern in ev.key)
+    if total <= 0:
+        fail(f"the profiler saw no device time of a kernel named *{pattern}*")
+    return total / 1e3 / iters
 
 
 def max_abs(a, b) -> float:
@@ -316,32 +344,69 @@ def corr_bmm(torch, f1, f2, md, stride):
     return vol.permute(0, 3, 1, 2)
 
 
-def check_correlation(torch, gen, dev):
+# The correlation rows (input dtype, (B, C, H, W, max displacement,
+# stride)) and the resample2d rows (B, C, H, W, src dtype) of phase 3.
+CORR_CASES = (("bfloat16", (8, 256, 56, 104, 20, 2)), ("float32", (8, 256, 56, 104, 20, 2)),
+              ("float32", (2, 64, 24, 48, 20, 1)))
+RESAMPLE_CASES = ((8, 3, 448, 832, "bfloat16"), (1, 8, 240, 432, "float32"))
+
+
+def corr_inputs(torch, gen, dev, dtype, case):
+    """f1, f2 [B, C, H, W] channels-last, as FlowNetC gives them."""
+    b, c, h, w = case[:4]
+    return [torch.randn(b, h, w, c, generator=gen).to(dev, dtype).permute(0, 3, 1, 2)
+            for _ in range(2)]
+
+
+def resample_inputs(torch, gen, dev, b, c, h, w, dtype):
+    """src, a smooth flow with noise, and the same sample points as
+    grid_sample's grid (border padding, align_corners=True: the same clamped
+    bilinear warp on float32 input)."""
+    src = torch.rand(b, c, h, w, generator=gen).to(dev, dtype)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    smooth = torch.stack([9.0 + 30 * torch.sin(yy / 40.0), -6.0 + 20 * torch.cos(xx / 50.0)])
+    flow = (smooth[None] + torch.randn(b, 2, h, w, generator=gen)).to(dev)
+    gx = (torch.arange(w, device=dev) + flow[:, 0]) / (w - 1) * 2 - 1
+    gy = (torch.arange(h, device=dev)[:, None] + flow[:, 1]) / (h - 1) * 2 - 1
+    return src, flow, torch.stack([gx, gy], -1)
+
+
+def check_correlation(torch, gen, dev, dtype, case):
+    """The kernel with `dtype` inputs (channels-last, as FlowNetC gives them)
+    vs the plain version on their float32 values, atol 1e-5. Bound: for bf16
+    inputs the least time of the call (bytes, or the products on the tensor
+    cores); for float32 inputs the yardstick the first kernel was held to,
+    the products as float32 FMAs outside the tensor cores, with the byte
+    bound beside it."""
     from premvos_tpu_torch.ops.correlation import correlation_cuda, correlation_reference
 
-    b, c, h, w, md, st = 8, 256, 56, 104, 20, 2
-    f1 = torch.randn(b, h, w, c, generator=gen).to(dev).permute(0, 3, 1, 2)
-    f2 = torch.randn(b, h, w, c, generator=gen).to(dev).permute(0, 3, 1, 2)
+    b, c, h, w, md, st = case
+    f1, f2 = corr_inputs(torch, gen, dev, dtype, case)
     got = correlation_cuda(f1, f2, md, st)
     want = correlation_reference(f1, f2, md, st)
     err = max_abs(got, want)
     tol = 1e-5
     if not err <= tol:
-        fail(f"correlation: max |diff| {err} > {tol}")
+        fail(f"correlation {dtype} {case}: max |diff| {err} > {tol}")
     ms = cuda_ms(lambda: correlation_cuda(f1, f2, md, st), 20)
     plain = cuda_ms(lambda: correlation_reference(f1, f2, md, st), 3, warmup=1)
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    bmm_err = max_abs(corr_bmm(torch, f1, f2, md, st), want)
-    bmm_ms = cuda_ms(lambda: corr_bmm(torch, f1, f2, md, st), 5)
-    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     d2 = (2 * (md // st) + 1) ** 2
-    nbytes = 2 * b * c * h * w * 4 + b * d2 * h * w * 4
+    nbytes = 2 * b * c * h * w * f1.element_size() + b * d2 * h * w * 4
     flops = 2.0 * b * h * w * d2 * c
-    return dict(shape=f"f1, f2 [{b},{c},{h},{w}] f32 → [{b},{d2},{h},{w}]",
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                bound=bound_ms(nbytes, flops), library_ms=None,
-                bmm_formulation_ms=bmm_ms, bmm_formulation_err=bmm_err)
+    row = dict(shape=f"f1, f2 [{b},{c},{h},{w}] {str(dtype)[6:]} → [{b},{d2},{h},{w}], "
+                     f"md {md}, stride {st}",
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain, library_ms=None)
+    if dtype == torch.bfloat16:
+        row["bound"] = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+    else:
+        row["bound"] = bound_ms(nbytes, flops)
+        row["bound_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        row["bmm_formulation_err"] = max_abs(corr_bmm(torch, f1, f2, md, st), want)
+        row["bmm_formulation_ms"] = cuda_ms(lambda: corr_bmm(torch, f1, f2, md, st), 5)
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return row
 
 
 def check_resample(torch, gen, dev, b, c, h, w, dtype):
@@ -349,10 +414,7 @@ def check_resample(torch, gen, dev, b, c, h, w, dtype):
 
     from premvos_tpu_torch.ops.resample2d import resample2d_cuda, resample2d_reference
 
-    src = torch.rand(b, c, h, w, generator=gen).to(dev, dtype)
-    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
-    smooth = torch.stack([9.0 + 30 * torch.sin(yy / 40.0), -6.0 + 20 * torch.cos(xx / 50.0)])
-    flow = (smooth[None] + torch.randn(b, 2, h, w, generator=gen)).to(dev)
+    src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, dtype)
     got = resample2d_cuda(src, flow)
     want = resample2d_reference(src, flow)
     err = max_abs(got, want)
@@ -361,12 +423,6 @@ def check_resample(torch, gen, dev, b, c, h, w, dtype):
         fail(f"resample2d {src.shape}: max |diff| {err} > {tol}")
     ms = cuda_ms(lambda: resample2d_cuda(src, flow), 50)
     plain = cuda_ms(lambda: resample2d_reference(src, flow), 10)
-    # grid_sample with border padding and align_corners=True is the same
-    # clamped bilinear warp (on float32 input; the grid is built outside the
-    # timed call).
-    gx = (torch.arange(w, device=dev) + flow[:, 0]) / (w - 1) * 2 - 1
-    gy = (torch.arange(h, device=dev)[:, None] + flow[:, 1]) / (h - 1) * 2 - 1
-    grid = torch.stack([gx, gy], -1)
     srcf = src.float()
 
     def lib():
@@ -378,8 +434,33 @@ def check_resample(torch, gen, dev, b, c, h, w, dtype):
     flops = b * c * h * w * 8.0
     return dict(shape=f"src [{b},{c},{h},{w}] {str(dtype)[6:]}, flow f32",
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                bound=bound_ms(nbytes, flops), library_ms=lib_ms,
-                library_err=lib_err)
+                bound=bound_ms(nbytes, flops), library_ms=lib_ms, library_err=lib_err)
+
+
+# ------------------------------------------------------------- phase 8
+
+def device_times(torch, dev, checks) -> None:
+    """The kernel's own device time by name (torch.profiler), and
+    grid_sample's, for the correlation and resample2d rows of phase 3, on
+    fresh inputs of each row's shape. It runs last: a profiled run leaves
+    the card's activity tracing set up in the process, and the end-to-end
+    phases after it ran slower (PERF.md, section 6)."""
+    import torch.nn.functional as F
+
+    from premvos_tpu_torch.ops.correlation import correlation_cuda
+    from premvos_tpu_torch.ops.resample2d import resample2d_cuda
+
+    gen = torch.Generator().manual_seed(1)
+    for row, (dtype, case) in zip(checks["correlation"], CORR_CASES):
+        f1, f2 = corr_inputs(torch, gen, dev, getattr(torch, dtype), case)
+        row["device_ms"] = device_ms(lambda: correlation_cuda(f1, f2, *case[4:]), "corr", 20)
+    for row, (b, c, h, w, dtype) in zip(checks["resample2d"], RESAMPLE_CASES):
+        src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, getattr(torch, dtype))
+        srcf = src.float()
+        row["device_ms"] = device_ms(lambda: resample2d_cuda(src, flow), "resample")
+        row["library_device_ms"] = device_ms(
+            lambda: F.grid_sample(srcf, grid, "bilinear", "border", align_corners=True),
+            "grid_sampler")
 
 
 # ------------------------------------------------------------- phase 4
@@ -649,9 +730,10 @@ def main() -> int:
                 check_nms(torch, gen, dev, (8, 256, 32, 0.5, 0.05))],
         "multilevel_roi_align": [check_roi_align(torch, gen, dev, 256, 7),
                                  check_roi_align(torch, gen, dev, 32, 14)],
-        "correlation": [check_correlation(torch, gen, dev)],
-        "resample2d": [check_resample(torch, gen, dev, 8, 3, 448, 832, torch.bfloat16),
-                       check_resample(torch, gen, dev, 1, 8, 240, 432, torch.float32)],
+        "correlation": [check_correlation(torch, gen, dev, getattr(torch, dt), case)
+                        for dt, case in CORR_CASES],
+        "resample2d": [check_resample(torch, gen, dev, b, c, h, w, getattr(torch, dt))
+                       for b, c, h, w, dt in RESAMPLE_CASES],
         "roi_align": [check_roi_align_train(torch, gen, dev, 7, torch.float32),
                       check_roi_align_train(torch, gen, dev, 14, torch.float32),
                       check_roi_align_train(torch, gen, dev, 7, torch.bfloat16)],
@@ -746,6 +828,14 @@ def main() -> int:
     log(f"training at full width: median {tr['median_s_per_step']:.4f} s/step → "
         f"{tr['images_per_s']:.2f} images/s, peak {tr['peak_bytes'] / 2**30:.2f} GiB, "
         f"losses {tr['losses']}, launches {tr['launches']}")
+
+    # Phase 8 — device times by kernel name, after the timed phases.
+    device_times(torch, dev, checks)
+    for name in ("correlation", "resample2d"):
+        for r in checks[name]:
+            log(f"{name}: {r['shape']}: device {r['device_ms']:.5f} ms"
+                + (f", grid_sample device {r['library_device_ms']:.5f} ms"
+                   if "library_device_ms" in r else ""))
 
     # Each kernel's launches on the path that runs it.
     path_launches = {k: launches[k] for k in INFERENCE_KERNELS}

@@ -21,6 +21,18 @@ PyTorch's headers, so a cold build takes seconds. The library lands in
 `build/` next to this file (listed in .gitignore), under a name that hashes
 the sources, the header and the flags, so an edited source rebuilds.
 
+The launch path is bound once. `load()` builds and opens the library, sets
+each `premvos_*` function's ctypes types and keeps it, with its argument
+count, in a table. A wrapper's `launch(name, ...)` is then one table lookup,
+the argument-count check (ctypes would pass surplus arguments on) and the
+call, and it raises if the returned error is not 0: a refused launch never
+runs, and nothing falls back. `stream_of` reads the raw handle of PyTorch's
+current stream without building a `torch.cuda.Stream`, and `require_cuda`
+checks only what the wrappers do not already ensure (the device; they make
+their inputs contiguous themselves). At the merge warp's shape the kernel
+runs for a few microseconds, so this host path is what a call costs
+(PERF.md, section 6).
+
 Nothing here runs at import time: this module is imported on machines with
 no CUDA toolkit, where only the plain PyTorch versions of the ops run.
 """
@@ -76,6 +88,13 @@ def signatures() -> dict:
 
 _lock = threading.Lock()
 _lib = None
+# {name without the premvos_ prefix: (bound C function, argument count)},
+# filled once by load().
+_FNS: dict = {}
+# The raw handle of a device's current stream, as an int, without building a
+# Stream object (only CUDA builds have it, and only CUDA tensors reach
+# stream_of).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -141,7 +160,7 @@ def build() -> str:
 
 
 def load():
-    """The bound library (built on first use)."""
+    """The bound library (built on first use); fills the launch table."""
     global _lib
     with _lock:
         if _lib is None:
@@ -150,6 +169,7 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _FNS[name[len("premvos_"):]] = (fn, len(argtypes))
             _lib = lib
     return _lib
 
@@ -160,9 +180,13 @@ def launch(name: str, *args) -> None:
     refused launch never runs, and a later synchronize would not report it.
     ctypes lets a C function take more arguments than its declaration, so
     the count is checked here."""
-    fn = getattr(load(), f"premvos_{name}")
-    if len(args) != len(fn.argtypes):
-        raise TypeError(f"premvos_{name} takes {len(fn.argtypes)} arguments, got {len(args)}")
+    try:
+        fn, nargs = _FNS[name]
+    except KeyError:
+        load()
+        fn, nargs = _FNS[name]
+    if len(args) != nargs:
+        raise TypeError(f"premvos_{name} takes {nargs} arguments, got {len(args)}")
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
@@ -170,14 +194,16 @@ def launch(name: str, *args) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on `t`'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _raw_stream(t.get_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Shared argument check of the kernel wrappers."""
-    dev = tensors[0].device
-    for t in tensors:
-        if not t.is_cuda or t.device != dev:
+    """Shared argument check of the kernel wrappers: every tensor on one
+    CUDA device. The wrappers pass contiguous tensors (they call
+    `.contiguous()`, or check a tensor the caller hands in)."""
+    dev = tensors[0].get_device()
+    if dev < 0:
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    for t in tensors[1:]:
+        if t.get_device() != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")

@@ -44,8 +44,10 @@ int premvos_roi_align_backward(const float* grad_out, int h, int w, int c,
                                int p, int s, float* grad_features,
                                cudaStream_t stream);
 
-int premvos_correlation(const float* f1, const float* f2, int b, int h, int w,
-                        int c, int md, int stride, float* out,
+// f1, f2 channels-last [b, h, w, c], bfloat16 (is_bf16) or float32; out
+// float32 [b, D*D, h, w].
+int premvos_correlation(const void* f1, const void* f2, int is_bf16, int b,
+                        int h, int w, int c, int md, int stride, float* out,
                         cudaStream_t stream);
 
 int premvos_resample2d(const void* src, int is_bf16, const float* flow, int b,

@@ -137,10 +137,9 @@ class FlowNetC(nn.Module):
     def forward(self, img1, img2):
         _, c2a, c3a = self.encoder(img1)
         _, _, c3b = self.encoder(img2)
-        corr = correlation(
-            c3a.to(torch.float32), c3b.to(torch.float32),
-            self.max_displacement, self.corr_stride,
-        )
+        # float32 cost volume of the features as they are: a bf16 input is
+        # read as its exact float32 value (JAX casts them first).
+        corr = correlation(c3a, c3b, self.max_displacement, self.corr_stride)
         corr = _leaky(corr.to(self.dtype))
         redir = self.conv_redir(c3a)
         x3 = self.conv3_1(torch.cat([corr, redir], dim=1))

@@ -16,6 +16,14 @@ and a per-block residual ≤ 4), outside which "block" clamps to its window.
 
 `resample2d` dispatches on the device: CUDA tensors go to the kernel
 (kernels/resample2d.cu), CPU tensors to `resample2d_reference`.
+
+The kernel replaces the TPU's block warp (resample2d_block_pallas). On the
+H100 it is bound by bytes, and at the merge warp's shape ([1, 8, 240, 432])
+it runs for a few microseconds, less than the host takes to launch it; so
+the wrapper does only what the kernel needs: one check of types and shapes,
+`.contiguous()`, the output, and the launch through the table that
+`kernels.load()` bound once. The kernel picks its own split of the work
+(pixels per thread, channel groups) from the shape.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from __future__ import annotations
 import torch
 
 from premvos_tpu_torch import kernels
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def resample2d_reference(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -53,17 +63,17 @@ def resample2d_reference(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 def resample2d_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel (kernels/resample2d.cu); same contract as
     resample2d_reference. `resample2d_cuda.launches` counts its launches."""
-    if src.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"resample2d: unsupported dtype {src.dtype}")
-    if flow.dtype != torch.float32:
-        raise ValueError("resample2d: flow must be float32")
     b, c, h, w = src.shape
+    if src.dtype not in _KERNEL_DTYPES or flow.dtype != torch.float32:
+        raise ValueError(
+            f"resample2d: src {src.dtype} must be float32 or bfloat16, flow {flow.dtype} float32"
+        )
     if flow.shape != (b, 2, h, w):
         raise ValueError(f"resample2d: flow {tuple(flow.shape)} vs src {tuple(src.shape)}")
     src = src.contiguous()
     flow = flow.contiguous()
     kernels.require_cuda("resample2d", src, flow)
-    out = torch.empty((b, c, h, w), dtype=torch.float32, device=src.device)
+    out = torch.empty_like(src, dtype=torch.float32)
     kernels.launch(
         "resample2d", src.data_ptr(), int(src.dtype == torch.bfloat16),
         flow.data_ptr(), b, c, h, w, out.data_ptr(), kernels.stream_of(src),

@@ -268,8 +268,10 @@ def roi_align_cuda(
     shape = (b, n, output_size, output_size, c)
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=boxes.device)
-    elif tuple(out.shape) != shape or out.dtype != dtype:
-        raise ValueError(f"roi_align: out {tuple(out.shape)} {out.dtype}, need {shape} {dtype}")
+    elif tuple(out.shape) != shape or out.dtype != dtype or not out.is_contiguous():
+        raise ValueError(
+            f"roi_align: out {tuple(out.shape)} {out.dtype}, need a contiguous {shape} {dtype}"
+        )
     kernels.require_cuda("roi_align", features, boxes, out, *extra)
     kernels.launch(
         "roi_align", features.data_ptr(), h, w, c, int(dtype == torch.bfloat16),

@@ -65,6 +65,36 @@ def test_correlation_kernel(dev):
         )
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "case",
+    [
+        (1, 12, 9, 37, 4, 2),  # C not a multiple of 16, W not of the tile
+        (3, 40, 12, 50, 6, 2),  # B = 3, C = 40
+        (1, 256, 10, 23, 20, 2),  # FlowNetC's C and displacement
+        (2, 16, 8, 45, 20, 1),  # stride 1 at max displacement 20: D = 41
+        (1, 8, 7, 20, 9, 2),  # max displacement not a multiple of the stride
+    ],
+    ids=["c12", "b3_c40", "c256", "d41", "md9"],
+)
+def test_correlation_kernel_cases(dev, dtype, case):
+    """The tensor-core kernel vs correlation_reference on the float32 values
+    of its inputs, atol 1e-5: bf16 inputs as they are (exact products),
+    float32 inputs through the three-product split."""
+    b, c, h, w, md, stride = case
+    gen = torch.Generator().manual_seed(7)
+    f1 = torch.randn(b, h, w, c, generator=gen).to(dev, dtype).permute(0, 3, 1, 2)
+    f2 = torch.randn(b, h, w, c, generator=gen).to(dev, dtype).permute(0, 3, 1, 2)
+    before = correlation_cuda.launches
+    got = correlation_cuda(f1, f2, md, stride)
+    torch.cuda.synchronize()
+    d = 2 * (md // stride) + 1
+    assert got.shape == (b, d * d, h, w) and got.dtype == torch.float32
+    assert correlation_cuda.launches == before + 1
+    want = correlation_reference(f1.float(), f2.float(), md, stride)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_resample2d_kernel(dev, dtype):
     gen = torch.Generator().manual_seed(2)
@@ -184,3 +214,27 @@ def test_roi_align_levels_trains_through_the_kernels(dev):
         torch.testing.assert_close(
             g, w, rtol=0, atol=1e-4 * float(w.abs().max()), msg=f"P{level + 2}"
         )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 3, 8, 64])
+@pytest.mark.parametrize("hw", [(30, 40), (29, 37)], ids=["w4", "ragged"])
+def test_resample2d_kernel_cases(dev, dtype, c, hw):
+    """The warp vs resample2d_reference, atol 1e-5, on noise flow, flow far
+    out of the image (edge clamp) and zero flow, for rows of a multiple of
+    4 pixels (four pixels per thread) and ragged ones (one)."""
+    h, w = hw
+    gen = torch.Generator().manual_seed(8)
+    src = torch.randn(2, c, h, w, generator=gen).to(dev, dtype)
+    flows = [
+        torch.rand(2, 2, h, w, generator=gen) * 80 - 40,
+        torch.full((2, 2, h, w), 500.0),
+        torch.full((2, 2, h, w), -41.3),
+        torch.zeros(2, 2, h, w),
+    ]
+    for flow in flows:
+        flow = flow.to(dev)
+        got = resample2d_cuda(src, flow)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == src.shape
+        torch.testing.assert_close(got, resample2d_reference(src, flow), rtol=0, atol=1e-5)

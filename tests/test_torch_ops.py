@@ -199,6 +199,32 @@ def test_correlation_matches_jax(stride):
     assert got.shape == (2, 12, 20, d * d)
     np.testing.assert_allclose(got, want_ref, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, want_pallas, rtol=0, atol=1e-5)
+    # More than 32 displacements per axis (D = 41 at stride 1, 35 at
+    # stride 2), at a small size: most of the volume reads the zero border.
+    md = 20 if stride == 1 else 34
+    g1, g2 = f1[:, :9, :14], f2[:, :9, :14]
+    want = np.asarray(jax_corr(jnp.asarray(g1), jnp.asarray(g2), md, stride))
+    got = correlation(_t(g1).permute(0, 3, 1, 2), _t(g2).permute(0, 3, 1, 2), md, stride)
+    d = 2 * (md // stride) + 1
+    assert d > 32 and got.shape == (2, d * d, 9, 14)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_correlation_bf16_inputs_match_jax_on_float32_casts():
+    """bf16 features (FlowNetC's inference path) go to the port's
+    correlation as they are; the result equals JAX correlation_reference on
+    their float32 casts (the JAX FlowNetC casts before correlating)."""
+    rng = np.random.default_rng(8)
+    f1 = rng.standard_normal((2, 10, 13, 40)).astype(np.float32)
+    f2 = rng.standard_normal((2, 10, 13, 40)).astype(np.float32)
+    t1 = _t(f1).to(torch.bfloat16).permute(0, 3, 1, 2)
+    t2 = _t(f2).to(torch.bfloat16).permute(0, 3, 1, 2)
+    c1 = t1.permute(0, 2, 3, 1).float().numpy()
+    c2 = t2.permute(0, 2, 3, 1).float().numpy()
+    want = np.asarray(jax_corr(jnp.asarray(c1), jnp.asarray(c2), 6, 2))
+    got = correlation(t1, t2, 6, 2)
+    assert got.dtype == torch.float32 and got.shape == (2, 49, 10, 13)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=0, atol=1e-5)
 
 
 # -------------------------------------------------- Resample2d (#4)

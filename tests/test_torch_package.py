@@ -132,9 +132,6 @@ def test_kernel_header_matches_the_sources():
 def test_launch_checks_arguments_and_errors(monkeypatch):
     """kernels.launch refuses a wrong argument count (ctypes would pass the
     extra ones on) and raises on a refused launch."""
-    import ctypes
-    import types
-
     from premvos_tpu_torch import kernels
 
     calls = []
@@ -143,14 +140,48 @@ def test_launch_checks_arguments_and_errors(monkeypatch):
         calls.append(args)
         return 0 if args[0] else 9
 
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    monkeypatch.setattr(kernels, "load", lambda: types.SimpleNamespace(premvos_x=fn))
+    monkeypatch.setattr(kernels, "_FNS", {"x": (fn, 2)})
     kernels.launch("x", 1, 0)
     with pytest.raises(TypeError, match="takes 2 arguments, got 3"):
         kernels.launch("x", 1, 0, 0)
     with pytest.raises(RuntimeError, match="error 9"):
         kernels.launch("x", 0, 0)
     assert calls == [(1, 0), (0, 0)]
+
+
+def test_load_binds_every_function_once(monkeypatch):
+    """load() opens the library once and binds every function of the header
+    with its ctypes types and argument count; a launch then goes straight
+    to the bound function, without loading again."""
+    import ctypes
+    import types
+
+    from premvos_tpu_torch import kernels
+
+    opened = []
+
+    def cdll(path):
+        opened.append(path)
+        return types.SimpleNamespace(**{
+            name: types.SimpleNamespace(argtypes=None, restype=None)
+            for name in kernels.signatures()
+        })
+
+    monkeypatch.setattr(kernels, "build", lambda: "libfake.so")
+    monkeypatch.setattr(kernels.ctypes, "CDLL", cdll)
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "_FNS", {})
+    lib = kernels.load()
+    assert kernels.load() is lib and opened == ["libfake.so"]
+    sigs = kernels.signatures()
+    assert set(kernels._FNS) == {n[len("premvos_"):] for n in sigs}
+    for short, (fn, nargs) in kernels._FNS.items():
+        assert fn is getattr(lib, "premvos_" + short)
+        assert fn.argtypes == sigs["premvos_" + short] and nargs == len(fn.argtypes)
+        assert fn.restype is ctypes.c_int
+    monkeypatch.setattr(kernels, "load", lambda: pytest.fail("loaded again"))
+    kernels._FNS["correlation"] = (lambda *a: 0, 11)
+    kernels.launch("correlation", *range(11))
 
 
 def test_float32_precision_turns_tf32_off_and_restores():
