@@ -12,9 +12,11 @@ Phases (any failure raises and exits non-zero):
      shapes of its path (inference: configs/davis2017_val.json; training:
      ProposalConfig() at 480×864, batch 2), and time kernel, plain version,
      a PyTorch library call where one computes the same function, and the
-     least time the card could take (bound); correlation with bf16 inputs
-     (the path's), float32 inputs and, at a small size, stride 1 with max
-     displacement 20 (D = 41);
+     least time the card could take (bound); NMS also on clustered boxes
+     (the sweep visits every box); multilevel RoIAlign also in float32 at
+     C = 32 (the tiny configuration's shape, checked only); correlation
+     with bf16 inputs (the path's), float32 inputs and, at a small size,
+     stride 1 with max displacement 20 (D = 41);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -32,10 +34,11 @@ Phases (any failure raises and exits non-zero):
      launch counters are zeroed just before the timed steps and read just
      after, every loss must be finite, the last below the first, and NMS,
      RoIAlign and its backward must have launched;
-  8. the correlation's and resample2d's device time by kernel name
-     (torch.profiler) beside phase 3's wrapper times, on fresh inputs of
-     the same shapes: last, because the end-to-end phases ran slower after
-     a profiled run in the same process.
+  8. the device time by kernel name (torch.profiler) of NMS (mask pass,
+     sweep, and the sort and the rest of its wrapper apart), multilevel
+     RoIAlign, correlation and resample2d beside phase 3's wrapper times,
+     on fresh inputs of the same shapes: last, because the end-to-end
+     phases ran slower after a profiled run in the same process.
 
 Prints the card line, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
@@ -128,24 +131,64 @@ def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, pattern: str, iters: int = 50) -> float:
-    """Mean device time per call of the kernels whose name holds `pattern`
-    (torch.profiler over `iters` calls, after one warm-up call)."""
+def kernel_times(fn, iters: int = 50, need: tuple = (), wrapper=None) -> dict:
+    """{kernel name: mean device ms per call} of everything fn() runs on the
+    card (torch.profiler over `iters` calls, after one warm-up call). Each
+    kernel named by a pattern in `need` launches once per call: `wrapper`'s
+    launch counter, where given, must move by `iters`, so every one of those
+    launches ran (a refused launch raises, a failed one fails the
+    synchronize). A profile that then holds fewer records of a needed
+    kernel than calls has lost records, not launches: it is logged and taken
+    again, three times in all, and a third such profile fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(1, 4):
+        fn()
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and pattern in ev.key)
+        before = wrapper.launches if wrapper is not None else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        if wrapper is not None and wrapper.launches - before != iters:
+            fail(f"{wrapper.__name__} launched {wrapper.launches - before} times in "
+                 f"{iters} profiled calls")
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+        times = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in events}
+        seen = {p: sum(ev.count for ev in events if p in ev.key) for p in need}
+        short = {p: k for p, k in seen.items() if k < iters}
+        if not short:
+            return times
+        log(f"profile {attempt}: {iters} calls launched, the profiler recorded {short} "
+            "of the needed kernels (records lost)")
+    fail(f"three profiles lost records of {sorted(short)}")
+
+
+def named_ms(times: dict, pattern: str) -> float:
+    """The device ms of the kernels whose name holds `pattern`; fails if
+    there are none."""
+    total = sum(ms for name, ms in times.items() if pattern in name)
     if total <= 0:
         fail(f"the profiler saw no device time of a kernel named *{pattern}*")
-    return total / 1e3 / iters
+    return total
+
+
+def device_ms(fn, pattern: str, iters: int = 50, wrapper=None) -> float:
+    """Mean device time per call of the kernels whose name holds `pattern`."""
+    return named_ms(kernel_times(fn, iters, (pattern,), wrapper), pattern)
+
+
+def nms_parts(times: dict) -> dict:
+    """An NMS wrapper call's device ms by part: the mask pass and the sweep
+    (the port's kernels), PyTorch's sort, and the rest (score masking,
+    gathers and, where the wrapper still runs it, the compaction)."""
+    parts = {"mask": named_ms(times, "nms_mask"), "sweep": named_ms(times, "nms_sweep")}
+    parts["sort"] = sum(ms for name, ms in times.items() if "sort" in name.lower())
+    parts["other"] = sum(times.values()) - sum(parts.values())
+    return parts
 
 
 def max_abs(a, b) -> float:
@@ -154,14 +197,42 @@ def max_abs(a, b) -> float:
 
 # ------------------------------------------------------------- phase 3
 
+def nms_inputs(torch, gen, b, n, clustered=False):
+    """Boxes [b, n, 4] (xyxy) and scores [b, n] on the CPU over a 480×864
+    image. Uniform: corners uniform, sides 4-204 px, so few pairs overlap
+    above 0.7 and the RPN sweep keeps 256 boxes early. Clustered: each image
+    holds 40 cluster boxes (sides 40-200 px) and every box is one of them
+    jittered by 3 % of its size, as neighbouring anchors regressed onto one
+    object are: most of a cluster is suppressed by its best box, fewer than
+    256 boxes survive, and the sweep visits all n."""
+    if not clustered:
+        xy = torch.rand(b, n, 2, generator=gen) * torch.tensor([864.0, 480.0])
+        wh = torch.rand(b, n, 2, generator=gen) * 200.0 + 4.0
+    else:
+        k = 40
+        ctr = torch.rand(b, k, 2, generator=gen) * torch.tensor([864.0, 480.0])
+        side = torch.rand(b, k, 2, generator=gen) * 160.0 + 40.0
+        which = torch.randint(0, k, (b, n, 1), generator=gen).expand(b, n, 2)
+        ctr, side = torch.gather(ctr, 1, which), torch.gather(side, 1, which)
+        wh = side * (1.0 + 0.03 * torch.randn(b, n, 2, generator=gen))
+        xy = ctr - wh / 2 + 0.03 * side * torch.randn(b, n, 2, generator=gen)
+    boxes = torch.cat([xy, xy + wh], -1)
+    return boxes, torch.rand(b, n, generator=gen)
+
+
+# The NMS rows of phase 3: (B, N, max_outputs, IoU threshold, score
+# threshold, clustered): the RPN's, the detection's, and the RPN's on
+# clustered boxes (drawn from a generator of its own, so the other rows'
+# inputs stay those of earlier runs).
+NMS_CASES = ((8, 2384, 256, 0.7, 0.0, False), (8, 256, 32, 0.5, 0.05, False),
+             (8, 2384, 256, 0.7, 0.0, True))
+
+
 def check_nms(torch, gen, dev, case):
     from premvos_tpu_torch.ops.nms import nms_cuda, nms_reference
 
-    b, n, k, thr, score_thr = case
-    xy = torch.rand(b, n, 2, generator=gen) * torch.tensor([864.0, 480.0])
-    wh = torch.rand(b, n, 2, generator=gen) * 200.0 + 4.0
-    boxes = torch.cat([xy, xy + wh], -1).to(dev)
-    scores = torch.rand(b, n, generator=gen).to(dev)
+    b, n, k, thr, score_thr, clustered = case
+    boxes, scores = (t.to(dev) for t in nms_inputs(torch, gen, b, n, clustered))
     got = nms_cuda(boxes, scores, k, thr, score_thr)
     want = nms_reference(boxes, scores, k, thr, score_thr)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
@@ -180,28 +251,36 @@ def check_nms(torch, gen, dev, case):
         last = int(pos[-1]) if len(pos) == k else n - 1
         pairs += int((last - pos).sum())
     bnd = bound_ms(b * n * 20 + b * k * 5, pairs * 12)
-    return dict(shape=f"boxes [{b},{n},4], keep {k}, iou {thr}", max_abs_err=err,
-                tol="exact", ms=ms, plain_ms=plain, bound=bnd, library_ms=None)
+    return dict(shape=f"boxes [{b},{n},4]{' clustered' if clustered else ''}, keep {k}, "
+                      f"iou {thr}",
+                max_abs_err=err, tol="exact", ms=ms, plain_ms=plain, bound=bnd,
+                library_ms=None, kept=int(want[1].sum()), pairs=pairs)
 
 
-def roi_case(torch, gen, dev, b, n_rois, c, dtype):
-    """P2..P5 features [b, H, W, c] at 480×864 and boxes of log-uniform size
-    (8 to 720 px) over the image, with their levels."""
+def level_shapes(image_hw):
+    return [(image_hw[0] // st, image_hw[1] // st) for st in LEVEL_STRIDES]
+
+
+def roi_case(torch, gen, dev, b, n_rois, c, dtype, image_hw=(480, 864)):
+    """P2..P5 features [b, H, W, c] of an image_hw image and boxes of
+    log-uniform size (8 to 720 px) over the image, with their levels."""
     from premvos_tpu_torch.models.maskrcnn import roi_levels
 
-    feats = [torch.randn(b, h, w, c, generator=gen).to(dev, dtype) for h, w in LEVEL_SHAPES]
+    ih, iw = image_hw
+    feats = [torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+             for h, w in level_shapes(image_hw)]
     size = torch.exp(torch.rand(b, n_rois, 1, generator=gen) * 4.5) * 8.0
-    ctr = torch.rand(b, n_rois, 2, generator=gen) * torch.tensor([864.0, 480.0])
-    boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1).clamp(0, 864).to(dev)
+    ctr = torch.rand(b, n_rois, 2, generator=gen) * torch.tensor([float(iw), float(ih)])
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1).clamp(0, iw).to(dev)
     return feats, boxes, roi_levels(boxes)
 
 
-def sampled_pixels(torch, boxes, levels, p, s=2) -> int:
+def sampled_pixels(torch, boxes, levels, p, s=2, image_hw=(480, 864)) -> int:
     """How many feature pixels (over all images and levels) the boxes'
     bilinear taps touch, each RoI on its own level."""
     dev = boxes.device
     touched = 0
-    for li, ((h, w), stride) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES)):
+    for li, ((h, w), stride) in enumerate(zip(level_shapes(image_hw), LEVEL_STRIDES)):
         on = levels == li + 2
         bx = boxes * (1.0 / stride) - 0.5
         g = (torch.arange(p * s, device=dev, dtype=torch.float32) + 0.5) / (p * s)
@@ -220,35 +299,52 @@ def sampled_pixels(torch, boxes, levels, p, s=2) -> int:
     return touched
 
 
-def check_roi_align(torch, gen, dev, n_rois, p):
+# The multilevel RoIAlign rows of phase 3: (B, RoIs per image, P, C,
+# dtype, image): the box head's and the mask head's at davis2017_val, and
+# the tiny configuration's box head (float32, C = 32, checked only).
+ROI_CASES = ((8, 256, 7, 256, "bfloat16", (480, 864)), (8, 32, 14, 256, "bfloat16", (480, 864)),
+             (2, 8, 7, 32, "float32", (96, 128)))
+
+
+def roi_inputs(torch, gen, dev, case):
+    b, n_rois, _, c, dtype, image_hw = case
+    return roi_case(torch, gen, dev, b, n_rois, c, getattr(torch, dtype), image_hw)
+
+
+def check_roi_align(torch, gen, dev, case, timed=True):
     from premvos_tpu_torch.ops.roi_align import (
         multilevel_roi_align_cuda,
         multilevel_roi_align_reference,
     )
 
-    b, c = 8, 256
-    feats, boxes, levels = roi_case(torch, gen, dev, b, n_rois, c, torch.bfloat16)
+    b, n_rois, p, c, dtype, image_hw = case
+    feats, boxes, levels = roi_inputs(torch, gen, dev, case)
     got = multilevel_roi_align_cuda(feats, boxes, levels, p, 2)
     want = multilevel_roi_align_reference(feats, boxes, levels, p, 2)
     err = max_abs(got, want)
-    # bf16 output: allow 2 ulp at the largest magnitude (the two sides round
-    # differently-ordered float32 sums).
-    tol = 2.0 ** -7 * float(want.float().abs().max())
+    # float32: the sums differ only in order. bf16 output: allow 2 ulp at
+    # the largest magnitude (the two sides round differently-ordered float32
+    # sums).
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7 * float(want.float().abs().max())
     if not err <= tol:
-        fail(f"multilevel_roi_align P={p}: max |diff| {err} > {tol}")
-    ms = cuda_ms(lambda: multilevel_roi_align_cuda(feats, boxes, levels, p, 2), 20)
-    plain = cuda_ms(
+        fail(f"multilevel_roi_align {case}: max |diff| {err} > {tol}")
+    row = dict(shape=f"P2..P5 {dtype} [{b},H,W,{c}] of {image_hw[0]}x{image_hw[1]}, "
+                     f"{n_rois} RoIs/image, P={p}",
+               max_abs_err=err, tol=tol, library_ms=None)
+    if not timed:
+        return row
+    row["ms"] = cuda_ms(lambda: multilevel_roi_align_cuda(feats, boxes, levels, p, 2), 20)
+    row["plain_ms"] = cuda_ms(
         lambda: multilevel_roi_align_reference(feats, boxes, levels, p, 2), 3, warmup=1
     )
     # Bytes: the feature pixels this run's boxes sample (each once), boxes,
     # and the output. Ops: 4 taps × 2 + 2 per sample per channel.
-    s = 2
-    touched = sampled_pixels(torch, boxes, levels, p, s)
-    nbytes = touched * c * 2 + boxes.numel() * 4 + got.numel() * 2
+    s, size = 2, feats[0].element_size()
+    touched = sampled_pixels(torch, boxes, levels, p, s, image_hw)
+    nbytes = touched * c * size + boxes.numel() * 4 + got.numel() * size
     flops = b * n_rois * p * p * c * s * s * 10
-    return dict(shape=f"P2..P5 bf16 [8,H,W,256], {n_rois} RoIs/image, P={p}",
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                bound=bound_ms(nbytes, flops), library_ms=None)
+    row["bound"] = bound_ms(nbytes, flops)
+    return row
 
 
 def check_roi_align_train(torch, gen, dev, p, dtype):
@@ -440,24 +536,40 @@ def check_resample(torch, gen, dev, b, c, h, w, dtype):
 # ------------------------------------------------------------- phase 8
 
 def device_times(torch, dev, checks) -> None:
-    """The kernel's own device time by name (torch.profiler), and
-    grid_sample's, for the correlation and resample2d rows of phase 3, on
-    fresh inputs of each row's shape. It runs last: a profiled run leaves
-    the card's activity tracing set up in the process, and the end-to-end
+    """The kernels' own device time by name (torch.profiler) for the timed
+    rows of phase 3, on fresh inputs of each row's shape: NMS by part (mask
+    pass, sweep, sort, the rest), multilevel RoIAlign, correlation,
+    resample2d and grid_sample. It runs last: a profiled run leaves the
+    card's activity tracing set up in the process, and the end-to-end
     phases after it ran slower (PERF.md, section 6)."""
     import torch.nn.functional as F
 
     from premvos_tpu_torch.ops.correlation import correlation_cuda
+    from premvos_tpu_torch.ops.nms import nms_cuda
     from premvos_tpu_torch.ops.resample2d import resample2d_cuda
+    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_cuda
 
     gen = torch.Generator().manual_seed(1)
+    for row, (b, n, k, thr, sthr, clustered) in zip(checks["nms"], NMS_CASES):
+        boxes, scores = (t.to(dev) for t in nms_inputs(torch, gen, b, n, clustered))
+        parts = nms_parts(kernel_times(lambda: nms_cuda(boxes, scores, k, thr, sthr), 20,
+                                       ("nms_mask", "nms_sweep"), nms_cuda))
+        row["device_parts_ms"] = parts
+        row["device_ms"] = parts["mask"] + parts["sweep"]
+    for row, case in zip(checks["multilevel_roi_align"], ROI_CASES[:2]):
+        feats, boxes, levels = roi_inputs(torch, gen, dev, case)
+        row["device_ms"] = device_ms(
+            lambda: multilevel_roi_align_cuda(feats, boxes, levels, case[2], 2), "multilevel", 20,
+            multilevel_roi_align_cuda)
     for row, (dtype, case) in zip(checks["correlation"], CORR_CASES):
         f1, f2 = corr_inputs(torch, gen, dev, getattr(torch, dtype), case)
-        row["device_ms"] = device_ms(lambda: correlation_cuda(f1, f2, *case[4:]), "corr", 20)
+        row["device_ms"] = device_ms(lambda: correlation_cuda(f1, f2, *case[4:]), "corr", 20,
+                                     correlation_cuda)
     for row, (b, c, h, w, dtype) in zip(checks["resample2d"], RESAMPLE_CASES):
         src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, getattr(torch, dtype))
         srcf = src.float()
-        row["device_ms"] = device_ms(lambda: resample2d_cuda(src, flow), "resample")
+        row["device_ms"] = device_ms(lambda: resample2d_cuda(src, flow), "resample",
+                                     wrapper=resample2d_cuda)
         row["library_device_ms"] = device_ms(
             lambda: F.grid_sample(srcf, grid, "bilinear", "border", align_corners=True),
             "grid_sampler")
@@ -726,10 +838,10 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     checks = {
-        "nms": [check_nms(torch, gen, dev, (8, 2384, 256, 0.7, 0.0)),
-                check_nms(torch, gen, dev, (8, 256, 32, 0.5, 0.05))],
-        "multilevel_roi_align": [check_roi_align(torch, gen, dev, 256, 7),
-                                 check_roi_align(torch, gen, dev, 32, 14)],
+        "nms": [check_nms(torch, gen, dev, NMS_CASES[0]),
+                check_nms(torch, gen, dev, NMS_CASES[1])],
+        "multilevel_roi_align": [check_roi_align(torch, gen, dev, ROI_CASES[0]),
+                                 check_roi_align(torch, gen, dev, ROI_CASES[1])],
         "correlation": [check_correlation(torch, gen, dev, getattr(torch, dt), case)
                         for dt, case in CORR_CASES],
         "resample2d": [check_resample(torch, gen, dev, b, c, h, w, getattr(torch, dt))
@@ -740,10 +852,18 @@ def main() -> int:
         "roi_align_backward": [check_roi_align_backward(torch, gen, dev, 7),
                                check_roi_align_backward(torch, gen, dev, 14)],
     }
+    # Rows added after the first runs come last, each from its own
+    # generator, so the rows above see the inputs of earlier runs.
+    checks["nms"].append(check_nms(torch, torch.Generator().manual_seed(3), dev, NMS_CASES[2]))
+    checks["multilevel_roi_align"].append(
+        check_roi_align(torch, torch.Generator().manual_seed(4), dev, ROI_CASES[2], timed=False))
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
     for name, rows in checks.items():
         for r in rows:
+            if "ms" not in r:
+                log(f"{name}: {r['shape']}: err {r['max_abs_err']:.3g} (tol {r['tol']})")
+                continue
             log(f"{name}: {r['shape']}: err {r['max_abs_err']:.3g} (tol {r['tol']}), "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library {r['library_ms']}")
@@ -831,9 +951,12 @@ def main() -> int:
 
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
-    for name in ("correlation", "resample2d"):
+    for name in ("nms", "multilevel_roi_align", "correlation", "resample2d"):
         for r in checks[name]:
-            log(f"{name}: {r['shape']}: device {r['device_ms']:.5f} ms"
+            if "device_ms" not in r:
+                continue
+            log(f"{name}: {r['shape']}: wrapper {r['ms']:.5f} ms, device {r['device_ms']:.5f} ms"
+                + (f" ({r['device_parts_ms']})" if "device_parts_ms" in r else "")
                 + (f", grid_sample device {r['library_device_ms']:.5f} ms"
                    if "library_device_ms" in r else ""))
 

@@ -16,10 +16,16 @@
 extern "C" {
 #endif
 
-int premvos_nms(const float* boxes, const uint8_t* alive, int batch, int n,
-                float iou_threshold, int max_outputs,
-                unsigned long long* mask_scratch, uint8_t* keep,
-                cudaStream_t stream);
+// boxes [batch, n, 4] in their original order; order [batch, n] and
+// neg_sorted [batch, n]: torch.sort(-scores, stable=True), invalid rows
+// scored NEG_INF. Writes indices [batch, max_outputs] (-1 past the last
+// kept box) and valid (uint8). With words = ceil(n / 64), mask_scratch
+// holds batch * n * 2 * (words / 2 + 1) 64-bit words, 16-byte aligned.
+int premvos_nms(const float* boxes, const int64_t* order,
+                const float* neg_sorted, int batch, int n,
+                float iou_threshold, float score_threshold, int max_outputs,
+                unsigned long long* mask_scratch, int* indices,
+                uint8_t* valid, cudaStream_t stream);
 
 int premvos_multilevel_roi_align(const void* p2, const void* p3,
                                  const void* p4, const void* p5, int h2,

@@ -6,7 +6,8 @@ batched over images: boxes [B, N, 4] / scores [B, N] → ([B, max_outputs],
 [B, max_outputs]).
 
 `nms` dispatches on the tensors' device: CUDA tensors go to the CUDA kernel
-(kernels/nms.cu, through `nms_cuda`), CPU tensors to `nms_reference`.
+(kernels/nms.cu, through `nms_cuda`, which also compacts the kept indices),
+CPU tensors to `nms_reference`.
 """
 
 from __future__ import annotations
@@ -83,27 +84,44 @@ def nms_cuda(
     score_threshold: float = NEG_INF,
     valid: torch.Tensor | None = None,
 ):
-    """The CUDA kernel (kernels/nms.cu); same contract as nms_reference.
+    """The CUDA kernel (kernels/nms.cu); same contract as nms_reference,
+    for float32 scores (another dtype raises: the kernel compares scores in
+    float32, the plain version in their own dtype).
 
-    The sort and the compaction run in PyTorch; the kernel marks which of the
-    sorted boxes survive in two launches (the mask pass and the sweep).
+    Invalid rows are scored NEG_INF and the stable sort runs in PyTorch, as
+    in nms_reference; one C call launches the mask pass and the sweep, which
+    gathers the boxes through the sort's order, decides which boxes survive
+    and writes the indices and the validity mask itself.
     `nms_cuda.launches` counts the calls that launch them.
     """
-    order, boxes_s, alive = _sort(boxes, scores, score_threshold, valid)
-    boxes_s = boxes_s.contiguous()
-    alive = alive.contiguous()
-    b, n = alive.shape
-    kernels.require_cuda("nms", boxes_s, alive)
+    b, n = scores.shape
+    if boxes.shape != (b, n, 4) or (valid is not None and valid.shape != (b, n)):
+        raise ValueError(
+            f"nms: boxes {tuple(boxes.shape)}, scores {tuple(scores.shape)}"
+            + ("" if valid is None else f", valid {tuple(valid.shape)}")
+        )
+    if scores.dtype != torch.float32:
+        raise TypeError(f"nms_cuda: scores must be float32, got {scores.dtype}")
+    if valid is not None:
+        scores = torch.where(valid, scores, NEG_INF)
+    # Ascending sort of −scores, not descending=True: NaN then sorts last.
+    neg_sorted, order = torch.sort(-scores, dim=-1, stable=True)
+    boxes = boxes.to(torch.float32).contiguous()
+    kernels.require_cuda("nms", boxes, order)
+    dev = boxes.device
+    indices = torch.empty((b, max_outputs), dtype=torch.int32, device=dev)
+    keep = torch.empty((b, max_outputs), dtype=torch.bool, device=dev)
+    if n == 0:
+        return indices.fill_(-1), keep.fill_(False)
     words = (n + 63) // 64
-    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
-    keep = torch.zeros((b, n), dtype=torch.bool, device=boxes.device)
+    mask = torch.empty((b, n, 2 * (words // 2 + 1)), dtype=torch.int64, device=dev)
     kernels.launch(
-        "nms", boxes_s.data_ptr(), alive.data_ptr(), b, n, float(iou_threshold),
-        int(max_outputs), mask.data_ptr(), keep.data_ptr(),
-        kernels.stream_of(boxes_s),
+        "nms", boxes.data_ptr(), order.data_ptr(), neg_sorted.data_ptr(), b, n,
+        float(iou_threshold), float(score_threshold), int(max_outputs), mask.data_ptr(),
+        indices.data_ptr(), keep.data_ptr(), kernels.stream_of(boxes),
     )
     nms_cuda.launches += 1
-    return _compact(order, keep, max_outputs)
+    return indices, keep
 
 
 nms_cuda.launches = 0

@@ -54,6 +54,93 @@ def test_nms_kernel(dev):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _clustered(gen, b, n, clusters, jitter):
+    """Boxes jittered around `clusters` boxes per image (neighbouring
+    anchors on one object): heavy suppression, so the sweep visits every
+    box unless max_outputs stops it."""
+    ctr = torch.rand(b, clusters, 2, generator=gen) * torch.tensor([864.0, 480.0])
+    side = torch.rand(b, clusters, 2, generator=gen) * 160 + 40
+    which = torch.randint(0, clusters, (b, n, 1), generator=gen).expand(b, n, 2)
+    ctr, side = torch.gather(ctr, 1, which), torch.gather(side, 1, which)
+    wh = side * (1 + jitter * torch.randn(b, n, 2, generator=gen))
+    xy = ctr - wh / 2 + jitter * side * torch.randn(b, n, 2, generator=gen)
+    return torch.cat([xy, xy + wh], -1)
+
+
+def _nms_equal(boxes, scores, k, thr, sthr, valid=None):
+    before = tnms.nms_cuda.launches
+    got = tnms.nms_cuda(boxes, scores, k, thr, sthr, valid)
+    torch.cuda.synchronize()
+    want = tnms.nms_reference(boxes, scores, k, thr, sthr, valid)
+    assert tnms.nms_cuda.launches == before + 1
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return want
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 2384])
+def test_nms_kernel_sizes(dev, n, b):
+    """Exact vs nms_reference at tile edges (N = 63, 64, 65: one tile, one
+    full tile, a second tile of one box) and the RPN's N, on spread-out
+    boxes (the RPN's keep and IoU) and on clustered boxes (the sweep runs
+    through every tile; with max_outputs 4 it stops early), with NaN and
+    tied scores and padding rows."""
+    gen = torch.Generator().manual_seed(11 + n + b)
+    boxes = _boxes(gen, b, n, 600.0).to(dev)
+    scores = torch.rand(b, n, generator=gen)
+    scores[:, : n // 3] = 0.5  # ties
+    scores[:, n // 2] = float("nan")
+    valid = torch.rand(b, n, generator=gen) > 0.1
+    scores, valid = scores.to(dev), valid.to(dev)
+    _nms_equal(boxes, scores, min(n, 256), 0.7, 0.0)
+    _nms_equal(boxes, scores, min(n, 32), 0.5, 0.05, valid)
+    clustered = _clustered(gen, b, n, 8, 0.03).to(dev)
+    kept = _nms_equal(clustered, scores, 256, 0.7, 0.0)[1]
+    if n >= 64:
+        assert int(kept.sum(1).max()) < 256  # every box visited
+    if n > 4:
+        assert bool(_nms_equal(clustered, scores, 4, 0.7, -1.0)[1].all())  # early stop
+
+
+def test_nms_kernel_large_n(dev):
+    """N = 10,000 (157 mask words, 165 KB of sweep shared memory): exact on
+    clustered boxes, which the sweep visits to the end; past the shared
+    memory (N = 16,000) the launch is refused and raises."""
+    gen = torch.Generator().manual_seed(15)
+    n = 10_000
+    boxes = _clustered(gen, 1, n, 200, 0.03).to(dev)
+    scores = torch.rand(1, n, generator=gen).to(dev)
+    kept = _nms_equal(boxes, scores, 1000, 0.7, 0.0)[1]
+    assert int(kept.sum()) < 1000  # no early stop: every tile swept
+    big = _clustered(gen, 1, 16_000, 8, 0.03).to(dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        tnms.nms_cuda(big, torch.rand(1, 16_000, generator=gen).to(dev), 10, 0.7, 0.0)
+
+
+def test_nms_kernel_dead_and_identical(dev):
+    """No box alive (every slot -1), invalid rows alive under a threshold
+    below NEG_INF, and identical boxes (one survives per image), over three
+    tiles."""
+    gen = torch.Generator().manual_seed(12)
+    boxes = _boxes(gen, 2, 150, 300.0).to(dev)
+    scores = torch.rand(2, 150, generator=gen).to(dev)
+    idx, keep = _nms_equal(boxes, scores, 20, 0.5, 2.0)
+    assert not bool(keep.any()) and bool((idx == -1).all())
+    idx, keep = _nms_equal(boxes, scores, 20, 0.5, 0.0, torch.zeros_like(scores, dtype=torch.bool))
+    assert not bool(keep.any())
+    # Below NEG_INF, invalid rows (scored NEG_INF) are alive and sort last.
+    part = torch.rand(2, 150, generator=gen).to(dev) > 0.3
+    idx, keep = _nms_equal(boxes, scores, 150, 0.5, -2e10, part)
+    assert bool((keep & ~torch.gather(part, 1, idx.clamp(min=0).long())).any())
+    # A negative IoU threshold (the division path): every later box goes.
+    idx, keep = _nms_equal(boxes, scores, 20, -0.1, 0.0)
+    assert keep.sum(1).tolist() == [1, 1]
+    same = torch.tensor([10.0, 20.0, 50.0, 80.0], device=dev).expand(2, 150, 4)
+    idx, keep = _nms_equal(same, scores, 20, 0.5, 0.0)
+    assert keep.sum(1).tolist() == [1, 1]
+
+
 def test_correlation_kernel(dev):
     gen = torch.Generator().manual_seed(1)
     for stride in (2, 1):
@@ -119,6 +206,88 @@ def test_multilevel_roi_align_kernel(dev, p):
     got = multilevel_roi_align_auto(feats, rois, p, 2)
     want = multilevel_roi_align_auto({k: v.cpu() for k, v in feats.items()}, rois.cpu(), p, 2)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def _ml_case(gen, dev, c, dtype, n=40, levels_on=None):
+    """P2..P5 [2, H, W, c] of a 128x192 image and n RoIs per image: random
+    sizes (every level), plus a degenerate box, one past the right and
+    bottom edges and one off the image. With `levels_on`, every RoI is put
+    on that level (the other levels get none)."""
+    from premvos_tpu_torch.models.maskrcnn import roi_levels
+
+    shapes = [(32, 48), (16, 24), (8, 12), (4, 6)]
+    feats = [torch.randn(2, h, w, c, generator=gen).to(dev, dtype) for h, w in shapes]
+    size = torch.exp(torch.rand(2, n - 3, 1, generator=gen) * 4.6) * 6
+    ctr = torch.rand(2, n - 3, 2, generator=gen) * torch.tensor([192.0, 128.0])
+    fixed = torch.tensor([[30.0, 30.0, 30.0, 30.0], [150.0, 100.0, 200.5, 131.0],
+                          [300.0, 200.0, 340.0, 240.0]])
+    boxes = torch.cat([torch.cat([ctr - size / 2, ctr + size / 2], -1),
+                       fixed.expand(2, -1, -1)], 1)
+    levels = roi_levels(boxes).to(torch.int32)
+    if levels_on is not None:
+        levels = torch.full_like(levels, levels_on)
+    return feats, boxes.to(dev), levels.to(dev)
+
+
+@pytest.mark.parametrize(
+    "c,dtype,p,levels_on,s",
+    [
+        (256, torch.bfloat16, 7, None, 2),  # the box head's C and type
+        (256, torch.bfloat16, 14, None, 2),  # the mask head's
+        (32, torch.float32, 7, None, 2),  # the tiny configuration's
+        (20, torch.float32, 14, None, 2),  # C * 4 bytes not a multiple of 16: one channel a lane
+        (20, torch.bfloat16, 7, None, 2),
+        (24, torch.bfloat16, 7, 3, 2),  # every RoI on P3, none on P2, P4, P5
+        (256, torch.float32, 7, 5, 2),
+        # Sampling ratios other than 2 take the kernel's run-time tap loops.
+        (256, torch.bfloat16, 7, None, 1),
+        (256, torch.bfloat16, 14, None, 3),
+        (20, torch.float32, 7, None, 1),
+        (20, torch.float32, 14, None, 3),
+    ],
+    ids=["bf16_c256_p7", "bf16_c256_p14", "f32_c32", "f32_c20", "bf16_c20", "one_level_p3",
+         "f32_c256_p5", "bf16_c256_s1", "bf16_c256_s3", "f32_c20_s1", "f32_c20_s3"],
+)
+def test_multilevel_roi_align_kernel_cases(dev, c, dtype, p, levels_on, s):
+    """The multilevel kernel vs multilevel_roi_align_reference on the card:
+    float32 1e-5, bf16 2 ulp of the largest value (chip_smoke.py phase 3's
+    tolerances)."""
+    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_cuda
+
+    gen = torch.Generator().manual_seed(13 + c + p + 100 * (s - 2))  # s = 2 keeps 13 + c + p
+    feats, boxes, levels = _ml_case(gen, dev, c, dtype, levels_on=levels_on)
+    if levels_on is None:
+        assert sorted(set(levels.flatten().tolist())) == [2, 3, 4, 5]
+    before = multilevel_roi_align_cuda.launches
+    got = multilevel_roi_align_cuda(feats, boxes, levels, p, s)
+    torch.cuda.synchronize()
+    assert multilevel_roi_align_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, boxes.shape[1], p, p, c)
+    want = multilevel_roi_align_reference(feats, boxes, levels, p, s)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_multilevel_roi_align_kernel_unaligned(dev, dtype):
+    """Levels that are contiguous views at an odd element offset (base
+    pointers not 16-byte aligned) take the one-channel-a-lane path and agree
+    as well."""
+    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_cuda
+
+    gen = torch.Generator().manual_seed(14)
+    feats, boxes, levels = _ml_case(gen, dev, 32, dtype)
+    odd = []
+    for f in feats:
+        flat = torch.empty(f.numel() + 1, dtype=dtype, device=dev)
+        view = flat[1:].view(f.shape)
+        view.copy_(f)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        odd.append(view)
+    got = multilevel_roi_align_cuda(odd, boxes, levels, 7, 2)
+    want = multilevel_roi_align_reference(feats, boxes, levels, 7, 2)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
 def _single_level_case(gen, dev, dtype):

@@ -120,6 +120,51 @@ def test_nms_batched_equals_per_image():
         np.testing.assert_array_equal(kb[i].numpy(), np.asarray(ka))
 
 
+def _clustered_boxes(rng, n, clusters, jitter):
+    """n boxes jittered around `clusters` boxes (neighbouring anchors on one
+    object): most of a cluster overlaps its best box above 0.7."""
+    ctr = rng.uniform([0, 0], [192, 128], (clusters, 2))
+    side = rng.uniform(12, 60, (clusters, 2))
+    which = rng.integers(0, clusters, n)
+    wh = side[which] * (1 + jitter * rng.standard_normal((n, 2)))
+    xy = ctr[which] - wh / 2 + jitter * side[which] * rng.standard_normal((n, 2))
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def test_nms_clustered_matches_jax_exactly():
+    """Heavy suppression, as on the RPN's path: 512 boxes in eight clusters
+    per image, two images, with tied and NaN scores and max_outputs below
+    the number of survivors. The port's batched call equals JAX nms and the
+    Pallas kernel (interpret mode) on each image, exactly."""
+    rng = np.random.default_rng(5)
+    b, n, k = 2, 512, 12
+    boxes = np.stack([_clustered_boxes(rng, n, 8, 0.12) for _ in range(b)])
+    scores = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    scores[:, 100:140] = 0.5  # ties
+    scores[:, [7, 200, 301]] = np.nan
+    ic, kc = tnms.nms(_t(boxes), _t(scores), k, 0.7, 0.0)
+    survivors = tnms.nms(_t(boxes), _t(scores), n, 0.7, 0.0)[1].sum(1)
+    assert (survivors > k).all() and (survivors < n // 4).all()
+    for i in range(b):
+        ia, ka = jax_nms(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), k, 0.7, 0.0)
+        ib, kb = nms_pallas(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), k, 0.7, 0.0,
+                            interpret=True)
+        np.testing.assert_array_equal(ic[i].numpy(), np.asarray(ia))
+        np.testing.assert_array_equal(ic[i].numpy(), np.asarray(ib))
+        np.testing.assert_array_equal(kc[i].numpy(), np.asarray(ka))
+    assert not np.isin(ic.numpy(), [7, 200, 301]).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_nms_cuda_refuses_other_score_dtypes(dtype):
+    """The kernel compares scores in float32 and nms_reference in their own
+    dtype, so the CUDA wrapper takes float32 scores only (and checks that
+    before it touches a tensor)."""
+    boxes = torch.tensor([[[0.0, 0.0, 10.0, 10.0], [1.0, 1.0, 11.0, 11.0]]])
+    with pytest.raises(TypeError, match="float32"):
+        tnms.nms_cuda(boxes, torch.tensor([[0.9, 0.8]], dtype=dtype), 2)
+
+
 # ---------------------------------------------------- RoIAlign (#2)
 
 def _pyramid(rng, c, batch=None):
@@ -177,6 +222,38 @@ def test_multilevel_roi_align_batched_and_degenerate():
         jf = {k: jnp.asarray(f[i]) for k, f in zip(("P2", "P3", "P4", "P5"), feats)}
         want = np.asarray(jax_multilevel(jf, jnp.asarray(boxes[i]), 7, 2))
         np.testing.assert_allclose(got[i], want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("p", [7, 14])
+def test_multilevel_roi_align_c20_every_level_matches_jax(p):
+    """C = 20 (the CUDA kernel's one-channel-a-lane layout), two images,
+    RoIs on every level, past the image edges, degenerate (zero size,
+    inverted) and off the image: the port (batched plain version) vs JAX
+    multilevel_roi_align and the Pallas kernel in interpret mode, per image,
+    atol 1e-5."""
+    rng = np.random.default_rng(6)
+    c = 20
+    feats = _pyramid(rng, c, batch=2)
+    fixed = np.array([
+        [10, 12, 60, 70], [0, 0, 8, 8], [40, 20, 190, 127], [-50, -30, 200, 180],
+        [-200, -150, 400, 300], [150, 100, 192, 128], [30, 30, 30, 30],
+        [80, 60, 70, 50], [300, 200, 340, 240],
+    ], np.float32)
+    boxes = np.stack([np.concatenate([_mixed_boxes(rng, 7), fixed]) for _ in range(2)])
+    tf = {k: _t(f).permute(0, 3, 1, 2) for k, f in zip(("P2", "P3", "P4", "P5"), feats)}
+    got = multilevel_roi_align_auto(tf, _t(boxes), p, 2).numpy()
+    assert got.shape == (2, 16, p, p, c)
+    for i in range(2):
+        jf = {k: jnp.asarray(f[i]) for k, f in zip(("P2", "P3", "P4", "P5"), feats)}
+        jb = jnp.asarray(boxes[i])
+        levels = jax_roi_levels(jb)
+        assert set(np.asarray(levels).tolist()) == {2, 3, 4, 5}
+        want_xla = np.asarray(jax_multilevel(jf, jb, p, 2))
+        want_pallas = np.asarray(multilevel_roi_align_pallas(
+            *jf.values(), jb, levels, p, 2, roi_block=4, channel_block=128, interpret=True,
+        ))
+        np.testing.assert_allclose(got[i], want_xla, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got[i], want_pallas, rtol=0, atol=1e-5)
 
 
 # ------------------------------------------------- Correlation (#3)
