@@ -16,7 +16,10 @@ Phases (any failure raises and exits non-zero):
      (the sweep visits every box); multilevel RoIAlign also in float32 at
      C = 32 (the tiny configuration's shape, checked only); correlation
      with bf16 inputs (the path's), float32 inputs and, at a small size,
-     stride 1 with max displacement 20 (D = 41);
+     stride 1 with max displacement 20 (D = 41); the RoIAlign backward also
+     on 8-px boxes piled on one point of P2 (contention) and in one
+     unfiltered launch on P2 whose largest RoIs are too large for the
+     kernel's shared-memory tables (its second path);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -36,7 +39,8 @@ Phases (any failure raises and exits non-zero):
      RoIAlign and its backward must have launched;
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
-     RoIAlign, correlation and resample2d beside phase 3's wrapper times,
+     RoIAlign, correlation, resample2d and the training RoIAlign forward
+     and backward (four launches a head) beside phase 3's wrapper times,
      on fresh inputs of the same shapes: last, because the end-to-end
      phases ran slower after a profiled run in the same process.
 
@@ -131,15 +135,15 @@ def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_times(fn, iters: int = 50, need: tuple = (), wrapper=None) -> dict:
+def kernel_times(fn, iters: int = 50, need: tuple = (), wrapper=None, per_call: int = 1) -> dict:
     """{kernel name: mean device ms per call} of everything fn() runs on the
     card (torch.profiler over `iters` calls, after one warm-up call). Each
-    kernel named by a pattern in `need` launches once per call: `wrapper`'s
-    launch counter, where given, must move by `iters`, so every one of those
-    launches ran (a refused launch raises, a failed one fails the
-    synchronize). A profile that then holds fewer records of a needed
-    kernel than calls has lost records, not launches: it is logged and taken
-    again, three times in all, and a third such profile fails."""
+    kernel named by a pattern in `need` launches `per_call` times per call:
+    `wrapper`'s launch counter, where given, must move by iters * per_call,
+    so every one of those launches ran (a refused launch raises, a failed
+    one fails the synchronize). A profile that then holds fewer records of a
+    needed kernel than launches has lost records, not launches: it is logged
+    and taken again, three times in all, and a third such profile fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -152,17 +156,17 @@ def kernel_times(fn, iters: int = 50, need: tuple = (), wrapper=None) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        if wrapper is not None and wrapper.launches - before != iters:
+        if wrapper is not None and wrapper.launches - before != iters * per_call:
             fail(f"{wrapper.__name__} launched {wrapper.launches - before} times in "
-                 f"{iters} profiled calls")
+                 f"{iters} profiled calls of {per_call} launches")
         events = [ev for ev in prof.key_averages()
                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
         times = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in events}
         seen = {p: sum(ev.count for ev in events if p in ev.key) for p in need}
-        short = {p: k for p, k in seen.items() if k < iters}
+        short = {p: k for p, k in seen.items() if k < iters * per_call}
         if not short:
             return times
-        log(f"profile {attempt}: {iters} calls launched, the profiler recorded {short} "
+        log(f"profile {attempt}: {iters * per_call} launches, the profiler recorded {short} "
             "of the needed kernels (records lost)")
     fail(f"three profiles lost records of {sorted(short)}")
 
@@ -176,9 +180,9 @@ def named_ms(times: dict, pattern: str) -> float:
     return total
 
 
-def device_ms(fn, pattern: str, iters: int = 50, wrapper=None) -> float:
+def device_ms(fn, pattern: str, iters: int = 50, wrapper=None, per_call: int = 1) -> float:
     """Mean device time per call of the kernels whose name holds `pattern`."""
-    return named_ms(kernel_times(fn, iters, (pattern,), wrapper), pattern)
+    return named_ms(kernel_times(fn, iters, (pattern,), wrapper, per_call), pattern)
 
 
 def nms_parts(times: dict) -> dict:
@@ -347,6 +351,10 @@ def check_roi_align(torch, gen, dev, case, timed=True):
     return row
 
 
+# The training RoIAlign forward rows of phase 3: (P, dtype).
+TRAIN_ALIGN_CASES = ((7, "float32"), (14, "float32"), (7, "bfloat16"))
+
+
 def check_roi_align_train(torch, gen, dev, p, dtype):
     """The training align's forward (ops/roi_align.py::roi_align_levels on
     CUDA: the single-level kernel once per level P2..P5, each launch on the
@@ -377,48 +385,116 @@ def check_roi_align_train(torch, gen, dev, p, dtype):
                 bound=bound_ms(nbytes, flops), library_ms=None)
 
 
-def check_roi_align_backward(torch, gen, dev, p):
-    """The backward kernel, launched once per level as training does, vs the
-    autograd of the plain version; each level's gradient within 1e-4 of its
-    largest |grad| (float32 atomics add in a varying order)."""
-    from premvos_tpu_torch.ops.roi_align import (
-        multilevel_roi_align_reference,
-        roi_align_backward_cuda,
-    )
+# The RoIAlign backward rows of phase 3 beyond the two dense ones: (P, kind).
+# "contention": 256 RoIs per image of about 8 px around one point, all on P2
+# (hundreds of taps add into each pixel of a few); "unfiltered": one
+# unfiltered single-level launch on P2 over the log-uniform boxes, whose
+# large RoIs' footprints are too large for the kernel's shared-memory table
+# (the second path) while the small ones take the first.
+BACKWARD_CASES = ((14, "contention"), (14, "unfiltered"))
+
+
+def footprint_sides(torch, boxes, p, s, stride, hw):
+    """Per RoI, the sides (fh, fw) of the rectangle of level pixels its
+    sample taps span on a level of `stride` (the backward's footprint)."""
+    bx = boxes.double() / stride - 0.5
+    g = (torch.arange(p * s, dtype=torch.float64, device=boxes.device) + 0.5) / (p * s)
+    sides = []
+    for lo, hi, size in ((1, 3, hw[0]), (0, 2, hw[1])):
+        c = bx[..., lo:lo + 1] + g * (bx[..., hi:hi + 1] - bx[..., lo:lo + 1]).clamp(min=1e-6)
+        c = c.clamp(0, size - 1)
+        sides.append((c.max(-1).values.floor() + 1).clamp(max=size - 1)
+                     - c.min(-1).values.floor() + 1)
+    return sides
+
+
+def second_path(fh, fw, p):
+    """Whether the backward kernel sends a footprint down its second path:
+    P * max(fh, fw) above kWRows = 2048 or a side above kMaxSpan = 512
+    (kernels/roi_align.cu)."""
+    import torch
+
+    return (p * torch.maximum(fh, fw) > 2048) | (torch.maximum(fh, fw) > 512)
+
+
+def backward_inputs(torch, gen, dev, p, kind="dense"):
+    """Features, boxes, levels and an output gradient for a backward row:
+    phase 3's training shapes (P2..P5 float32 [2, H, W, 256] of 480×864,
+    256 RoIs per image), with the boxes of `kind`."""
+    from premvos_tpu_torch.models.maskrcnn import roi_levels
+
+    b, n, c = 2, 256, 256
+    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, torch.float32)
+    if kind == "contention":
+        ctr = torch.tensor([432.0, 240.0]) + torch.rand(b, n, 2, generator=gen) * 12.0
+        half = 4.0 + torch.rand(b, n, 1, generator=gen)
+        boxes = torch.cat([ctr - half, ctr + half], -1).to(dev)
+        levels = roi_levels(boxes)
+    grad_out = torch.randn(b, n, p, p, c, generator=gen).to(dev)
+    return feats, boxes, levels, grad_out
+
+
+def backward_run(torch, boxes, levels, grad_out, p, kind="dense"):
+    """The backward launches of a row: training's backward (one launch per
+    level with the level filter), or one unfiltered launch on P2."""
+    from premvos_tpu_torch.ops.roi_align import roi_align_backward_cuda, roi_align_levels_backward
+
+    if kind == "unfiltered":
+        return [roi_align_backward_cuda(grad_out, boxes, LEVEL_SHAPES[0], 2, 0.25)]
+    return roi_align_levels_backward(grad_out, boxes, levels, LEVEL_SHAPES, 2)
+
+
+def check_roi_align_backward(torch, gen, dev, p, kind="dense"):
+    """The backward kernel vs the autograd of the plain version; each
+    level's gradient within 1e-4 of its largest |grad| (float32 atomics add
+    in a varying order)."""
+    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_reference, roi_align_reference
 
     b, n, c, s = 2, 256, 256, 2
-    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, torch.float32)
-    grad_out = torch.randn(b, n, p, p, c, generator=gen).to(dev)
-
-    def run():
-        return [
-            roi_align_backward_cuda(grad_out, boxes, hw, s, 1.0 / st, levels, li + 2)
-            for li, (hw, st) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES))
-        ]
-
+    feats, boxes, levels, grad_out = backward_inputs(torch, gen, dev, p, kind)
+    run = lambda: backward_run(torch, boxes, levels, grad_out, p, kind)  # noqa: E731
     got = run()
-    leaves = [f.clone().requires_grad_(True) for f in feats]
-    out = multilevel_roi_align_reference(leaves, boxes, levels, p, s)
+    if kind == "unfiltered":
+        big = second_path(*footprint_sides(torch, boxes, p, s, 4, LEVEL_SHAPES[0]), p)
+        if not (0 < int(big.sum()) < big.numel()):
+            fail(f"roi_align_backward unfiltered: {int(big.sum())} of {big.numel()} RoIs "
+                 "take the second path; the row needs both paths")
+        leaves = [feats[0].clone().requires_grad_(True)]
+        out = roi_align_reference(leaves[0], boxes, p, s, 0.25)
+    else:
+        leaves = [f.clone().requires_grad_(True) for f in feats]
+        out = multilevel_roi_align_reference(leaves, boxes, levels, p, s)
     want = torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
     err = 0.0
     for li, (g, w) in enumerate(zip(got, want)):
         e, tol = max_abs(g, w), 1e-4 * float(w.abs().max())
         if not e <= tol:
-            fail(f"roi_align_backward P={p}, level P{li + 2}: max |diff| {e} > {tol}")
+            fail(f"roi_align_backward P={p} {kind}, level P{li + 2}: max |diff| {e} > {tol}")
         err = max(err, e)
     ms = cuda_ms(run, 20)
     plain = cuda_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True), 3,
                     warmup=1)
     # Bytes: the output gradient read once, boxes and levels, and every
-    # element of the four float32 feature gradients written once (the
-    # zero fill; the sampled pixels are among them). Ops: 4 taps × (2 mul
-    # + 1 add) per sample per channel.
+    # element of the float32 feature gradients written once (the zero fill;
+    # the sampled pixels are among them). Ops: 4 taps × (2 mul + 1 add) per
+    # sample per channel. Beside them, the bytes the kernel's vector atomics
+    # move: each RoI's footprint (on its level) once.
     nbytes = grad_out.numel() * 4 + b * n * 20 + sum(g.numel() for g in got) * 4
     flops = b * n * p * p * c * s * s * 12
-    return dict(shape=f"grad [2,256,{p},{p},256] f32 → P2..P5 [2,H,W,256] f32, "
-                      "4 launches (one per level)",
-                max_abs_err=err, tol="1e-4 of each level's max |grad|", ms=ms,
-                plain_ms=plain, bound=bound_ms(nbytes, flops), library_ms=None)
+    if kind == "unfiltered":
+        fh, fw = footprint_sides(torch, boxes, p, s, 4, LEVEL_SHAPES[0])
+        fp = fh * fw
+        shape = f"grad [2,256,{p},{p},256] f32 → P2 [2,120,216,256] f32, 1 unfiltered launch"
+    else:
+        fp = 0
+        for li, (hw, st) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES)):
+            fh, fw = footprint_sides(torch, boxes, p, s, st, hw)
+            fp = fp + (fh * fw)[levels == li + 2].sum()
+        shape = (f"grad [2,256,{p},{p},256] f32 → P2..P5 [2,H,W,256] f32, 4 launches "
+                 f"(one per level){', 8-px boxes on P2' if kind == 'contention' else ''}")
+    return dict(shape=shape, max_abs_err=err, tol="1e-4 of each level's max |grad|", ms=ms,
+                plain_ms=plain, bound=bound_ms(nbytes, flops), library_ms=None,
+                footprint_bytes=int(fp.sum()) * c * 4)
 
 
 def corr_bmm(torch, f1, f2, md, stride):
@@ -539,15 +615,22 @@ def device_times(torch, dev, checks) -> None:
     """The kernels' own device time by name (torch.profiler) for the timed
     rows of phase 3, on fresh inputs of each row's shape: NMS by part (mask
     pass, sweep, sort, the rest), multilevel RoIAlign, correlation,
-    resample2d and grid_sample. It runs last: a profiled run leaves the
-    card's activity tracing set up in the process, and the end-to-end
-    phases after it ran slower (PERF.md, section 6)."""
+    resample2d and grid_sample, and the training RoIAligns (the four
+    launches of a head; for the backward also with its zero fill). It runs
+    last: a profiled run leaves the card's activity tracing set up in the
+    process, and the end-to-end phases after it ran slower (PERF.md,
+    section 6)."""
     import torch.nn.functional as F
 
     from premvos_tpu_torch.ops.correlation import correlation_cuda
     from premvos_tpu_torch.ops.nms import nms_cuda
     from premvos_tpu_torch.ops.resample2d import resample2d_cuda
-    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_cuda
+    from premvos_tpu_torch.ops.roi_align import (
+        multilevel_roi_align_cuda,
+        roi_align_backward_cuda,
+        roi_align_cuda,
+        roi_align_levels,
+    )
 
     gen = torch.Generator().manual_seed(1)
     for row, (b, n, k, thr, sthr, clustered) in zip(checks["nms"], NMS_CASES):
@@ -573,6 +656,21 @@ def device_times(torch, dev, checks) -> None:
         row["library_device_ms"] = device_ms(
             lambda: F.grid_sample(srcf, grid, "bilinear", "border", align_corners=True),
             "grid_sampler")
+    # The training RoIAligns, added later: a generator of their own.
+    gen = torch.Generator().manual_seed(2)
+    for row, (p, dtype) in zip(checks["roi_align"], TRAIN_ALIGN_CASES):
+        feats, boxes, levels = roi_case(torch, gen, dev, 2, 256, 256, getattr(torch, dtype))
+        row["device_ms"] = device_ms(
+            lambda: roi_align_levels(feats, boxes, levels, p, 2), "single_kernel", 20,
+            roi_align_cuda, per_call=4)
+    for row, (p, kind) in zip(checks["roi_align_backward"],
+                              ((7, "dense"), (14, "dense"), *BACKWARD_CASES)):
+        _, boxes, levels, grad_out = backward_inputs(torch, gen, dev, p, kind)
+        times = kernel_times(lambda: backward_run(torch, boxes, levels, grad_out, p, kind), 20,
+                             ("backward_kernel",), roi_align_backward_cuda,
+                             per_call=1 if kind == "unfiltered" else 4)
+        row["device_ms"] = named_ms(times, "backward_kernel")
+        row["device_all_ms"] = sum(times.values())  # with the gradients' zero fill
 
 
 # ------------------------------------------------------------- phase 4
@@ -846,9 +944,8 @@ def main() -> int:
                         for dt, case in CORR_CASES],
         "resample2d": [check_resample(torch, gen, dev, b, c, h, w, getattr(torch, dt))
                        for b, c, h, w, dt in RESAMPLE_CASES],
-        "roi_align": [check_roi_align_train(torch, gen, dev, 7, torch.float32),
-                      check_roi_align_train(torch, gen, dev, 14, torch.float32),
-                      check_roi_align_train(torch, gen, dev, 7, torch.bfloat16)],
+        "roi_align": [check_roi_align_train(torch, gen, dev, p, getattr(torch, dt))
+                      for p, dt in TRAIN_ALIGN_CASES],
         "roi_align_backward": [check_roi_align_backward(torch, gen, dev, 7),
                                check_roi_align_backward(torch, gen, dev, 14)],
     }
@@ -857,6 +954,9 @@ def main() -> int:
     checks["nms"].append(check_nms(torch, torch.Generator().manual_seed(3), dev, NMS_CASES[2]))
     checks["multilevel_roi_align"].append(
         check_roi_align(torch, torch.Generator().manual_seed(4), dev, ROI_CASES[2], timed=False))
+    for i, (p_bw, kind) in enumerate(BACKWARD_CASES):
+        checks["roi_align_backward"].append(check_roi_align_backward(
+            torch, torch.Generator().manual_seed(5 + i), dev, p_bw, kind))
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
     for name, rows in checks.items():
@@ -951,12 +1051,13 @@ def main() -> int:
 
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
-    for name in ("nms", "multilevel_roi_align", "correlation", "resample2d"):
+    for name in KERNELS:
         for r in checks[name]:
             if "device_ms" not in r:
                 continue
             log(f"{name}: {r['shape']}: wrapper {r['ms']:.5f} ms, device {r['device_ms']:.5f} ms"
                 + (f" ({r['device_parts_ms']})" if "device_parts_ms" in r else "")
+                + (f", with zero fill {r['device_all_ms']:.5f} ms" if "device_all_ms" in r else "")
                 + (f", grid_sample device {r['library_device_ms']:.5f} ms"
                    if "library_device_ms" in r else ""))
 

@@ -36,14 +36,17 @@ int premvos_multilevel_roi_align(const void* p2, const void* p3,
                                  cudaStream_t stream);
 
 // Single-level RoIAlign; `levels` [batch, n] may be NULL. When it is given,
-// only the RoIs whose level (clamped to 2..5) equals `level` are written.
+// only the RoIs whose level (clamped to 2..5) equals `level` are written,
+// and n must be at most 4096 (each block compacts its image's list of those
+// RoIs in shared memory); a larger n is refused.
 int premvos_roi_align(const void* features, int h, int w, int c, int is_bf16,
                       float spatial_scale, const float* boxes,
                       const int* levels, int level, int batch, int n, int p,
                       int s, void* out, cudaStream_t stream);
 
 // Its gradient with respect to the features, added into `grad_features`
-// (float32 [batch, h, w, c], zeroed by the caller) with atomics.
+// (float32 [batch, h, w, c], zeroed by the caller) with atomics; the same
+// level filter and limit on n.
 int premvos_roi_align_backward(const float* grad_out, int h, int w, int c,
                                float spatial_scale, const float* boxes,
                                const int* levels, int level, int batch, int n,

@@ -20,7 +20,8 @@
 // row and column sample positions and weights into shared memory
 // (sample_tables, rounded exactly as the plain version). The TPU kernels
 // built iota-matmul interpolation matrices; on the card the same sampling
-// law is a gather (forward) and its adjoint a scatter-add (backward).
+// law is a gather (forward) and its adjoint a gather over the footprint and
+// vector atomics (backward).
 //
 // What bounds them on the H100: bytes, the sampled feature pixels (read
 // once) and the output (at the box head's 8 x 256 RoIs, P = 7, bf16 C = 256:
@@ -42,34 +43,69 @@
 //     RoI's neighbouring bins in one block, so taps they share hit in L1.
 //     Where C * sizeof(T) is not a multiple of 16 or a base pointer is not
 //     16-byte aligned, the same kernel's lanes take one channel each.
-//   * single level with an optional level filter (training): one block per
-//     (RoI, image), threads over (bin, channel), channel fastest. With
-//     `levels` given, a block whose RoI is on another level exits at once.
-//     Training launches it once per level P2..P5 into one output, so every
-//     RoI is sampled once (the JAX training path computes all four levels
-//     and selects).
+//   * single level with an optional level filter (training): the same
+//     warp-per-bin body (pool_bin, s = 2 compiled in). Training launches it
+//     once per level P2..P5 into one output, so every RoI is sampled once
+//     (the JAX training path computes all four levels and selects). A block
+//     first compacts the indices of its image's RoIs on `level` into shared
+//     memory (ballot and popc prefix over the `levels` row, as the TPU
+//     kernel's level sort orders RoIs by level), then walks the items (RoI
+//     of that list, chunk of bins) striding by the grid. The grid is about
+//     8 blocks per SM over (blocks per image, image), sized from n on the
+//     host: no count is read back, so a training step gains no
+//     synchronisation, and no block is spent on a RoI of another level.
+//     Each RoI's row is written at its original index.
 //   * backward: gradient with respect to the features only (boxes are
-//     constants on the training path), one block per (RoI, image). Each
-//     sample's four taps get g * w_y * w_x / s^2 by float32 atomicAdd into
-//     a zeroed float32 [B, H, W, C] gradient; where a tap clamps to the last
-//     row or column (i1 == i0) both taps add to the same pixel, and
-//     zero-weight taps (a sample outside the image, or an exact integer
-//     coordinate) add nothing. Its atomics serialise where many samples of a
-//     small RoI land on the same pixels.
-// The single-level forward and the backward keep one element per thread
-// (pool_roi): with its runtime divisions and 2-byte loads that design is
-// issue-bound at 14-34x its bound (PERF.md); the multilevel design is the
-// model for theirs.
+//     constants on the training path), into a zeroed float32 [B, H, W, C]
+//     gradient. Same compacted list and strided grid; an item is (RoI,
+//     quarter of its footprint). The footprint is the rectangle of level
+//     pixels the RoI's taps span, and over it the gradient is
+//     separable: grad[y][x] = sum_py sum_px Ay[py][y] Ax[px][x] g[py][px] /
+//     s^2, with Ay[py] the summed weights of the distinct rows bin row py's
+//     samples touch (at most 2s, often 2 or 3 where a RoI is small on its
+//     level) and Ax the same for columns: the TPU's two interpolation
+//     matmuls, as banded sums. The block builds Ay and Ax densely in shared
+//     memory with each pixel's run of bins; then, as the forward's mirror
+//     image, a warp owns one footprint pixel at a time, its lanes run over
+//     16-byte channel vectors of g (through L1), and each vector of the
+//     pixel goes to the gradient with one 16-byte vector atomic (float4
+//     atomicAdd, compute capability 9.x), zero vectors skipped: one vector
+//     atomic per footprint pixel and 4 channels, against 4 s^2 scalar
+//     atomics per element before. There are no shared-memory atomics (a
+//     float32 one is a compare-and-swap loop on this card) and no barrier
+//     in the pixel loop: designs that accumulated the footprint in shared
+//     memory, slice by slice, were bound by those atomics and barriers
+//     (PERF.md). A footprint too large for the tables (P times a side above
+//     kWRows, or a side above kMaxSpan: a large RoI in an unfiltered call;
+//     on the training path a RoI's level bounds it, to under 28^2 px of
+//     area on P2..P4 and all of P5's 15 x 27 px at 480 x 864) takes the
+//     second path in the same kernel: each thread takes (bin, 4 channels)
+//     and adds the bin's merged taps straight into the gradient with vector
+//     atomics. Where C is not a multiple of 4 or a base pointer is not
+//     16-byte aligned, both paths go one channel at a time.
+// With a level filter, n is at most kMaxRois (the compacted list lives in
+// shared memory); a larger n is refused. In-image offsets of the forward
+// are 32-bit and checked at the entry points.
 
 #include <cuda_bf16.h>
+
+#include <algorithm>
 
 #include "premvos_kernels.h"
 
 namespace {
 
 constexpr int kMaxSamples = 64;  // P * s per axis
-constexpr int kThreads = 256;
-constexpr int kMlThreads = 256;  // multilevel: 8 warps, one output bin each
+constexpr int kFwThreads = 256;  // forward: 8 warps, one output bin each
+constexpr int kMaxRois = 4096;   // n with a level filter: the compacted list
+// Backward: blocks of 256 threads; an item is a kChunks-th of a RoI's
+// footprint. A footprint takes the first path while P times its longer
+// side is at most kWRows (the weight tables) and each side at most
+// kMaxSpan.
+constexpr int kBwThreads = 256;
+constexpr int kChunks = 4;
+constexpr int kWRows = 2048;
+constexpr int kMaxSpan = 512;
 
 struct Level {
   const void* data;
@@ -138,34 +174,6 @@ __device__ void sample_tables(Samples& t, const float* bx, float scale, int h,
   __syncthreads();
 }
 
-// One RoI's [P, P, C] output from the level `feat` ([H, W, C] of one image).
-template <typename T>
-__device__ void pool_roi(const Samples& t, const T* __restrict__ feat, int w,
-                         int c, int p, int s, T* __restrict__ o) {
-  const float inv = 1.f / (float)(s * s);
-  for (int e = threadIdx.x; e < p * p * c; e += blockDim.x) {
-    const int ch = e % c;
-    const int bin = e / c;
-    const int py = bin / p;
-    const int px = bin % p;
-    float acc = 0.f;
-    for (int iy = 0; iy < s; ++iy) {
-      const int ky = py * s + iy;
-      const T* r0 = feat + (size_t)t.y0[ky] * w * c + ch;
-      const T* r1 = feat + (size_t)t.y1[ky] * w * c + ch;
-      for (int ix = 0; ix < s; ++ix) {
-        const int kx = px * s + ix;
-        const size_t c0 = (size_t)t.x0[kx] * c;
-        const size_t c1 = (size_t)t.x1[kx] * c;
-        const float top = load(r0 + c0) * t.wx0[kx] + load(r0 + c1) * t.wx1[kx];
-        const float bot = load(r1 + c0) * t.wx0[kx] + load(r1 + c1) * t.wx1[kx];
-        acc += top * t.wy0[ky] + bot * t.wy1[ky];
-      }
-    }
-    store(o + e, acc * inv);
-  }
-}
-
 __device__ __forceinline__ int clamp_level(int l) { return min(max(l, 2), 5); }
 
 // 16 bytes of features as floats: 4 float32 or 8 bf16 channels.
@@ -214,7 +222,8 @@ struct Vec16<__nv_bfloat16> {
 // vectors v, v+32, ...; with kS > 0 all kS*kS*4 taps of a vector are
 // loaded before any is used. Scalar path: lane ch takes channels ch,
 // ch+32, ... one element at a time (C * sizeof(T) not a multiple of 16, or
-// a base pointer not 16-byte aligned). Same sums as pool_roi.
+// a base pointer not 16-byte aligned). Same sums as the plain version, in
+// another order.
 template <typename T, bool kVec, int kS>
 __device__ __forceinline__ void pool_bin(const Samples& t, const T* __restrict__ feat,
                                          int w, int c, int ky0, int kx0, int s_rt,
@@ -310,7 +319,7 @@ __device__ __forceinline__ void pool_bin(const Samples& t, const T* __restrict__
 // Block (chunk, RoI, image): the RoI's sample tables, then bins
 // chunk * bins_per_block .. of its P x P, one warp per bin at a time.
 template <typename T, bool kVec, int kS>
-__global__ void __launch_bounds__(kMlThreads)
+__global__ void __launch_bounds__(kFwThreads)
 multilevel_kernel(Levels levels_desc, int c, const float* __restrict__ boxes,
                   const int* __restrict__ levels, int n, int p, int s_rt,
                   int bins_per_block, T* __restrict__ out) {
@@ -329,7 +338,7 @@ multilevel_kernel(Levels levels_desc, int c, const float* __restrict__ boxes,
   const int first = blockIdx.x * bins_per_block;
   const int last = min(first + bins_per_block, bins);
   const float inv = 1.f / (float)(s * s);
-  for (int bin = first + (threadIdx.x >> 5); bin < last; bin += kMlThreads / 32) {
+  for (int bin = first + (threadIdx.x >> 5); bin < last; bin += kFwThreads / 32) {
     const int py = bin / p;
     const int px = bin - py * p;
     pool_bin<T, kVec, kS>(t, feat, lv.w, c, py * s, px * s, s, inv,
@@ -337,55 +346,332 @@ multilevel_kernel(Levels levels_desc, int c, const float* __restrict__ boxes,
   }
 }
 
-template <typename T>
-__global__ void single_kernel(Level lv, int c, const float* __restrict__ boxes,
-                              const int* __restrict__ levels, int level, int n,
-                              int p, int s, T* __restrict__ out) {
-  const size_t roi = (size_t)blockIdx.y * n + blockIdx.x;
-  if (levels != nullptr && clamp_level(levels[roi]) != level) return;
-  __shared__ Samples t;
-  sample_tables(t, boxes + roi * 4, lv.scale, lv.h, lv.w, p * s);
-  const T* feat = static_cast<const T*>(lv.data) + (size_t)blockIdx.y * lv.h * lv.w * c;
-  pool_roi(t, feat, lv.w, c, p, s, out + roi * p * p * c);
+// Bring the box of a block's next item into L1 while the current one runs.
+__device__ __forceinline__ void prefetch_box(const float* bx) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(bx));
 }
 
-__global__ void backward_kernel(int h, int w, int c, float scale,
-                                const float* __restrict__ boxes,
-                                const int* __restrict__ levels, int level,
-                                int n, int p, int s,
-                                const float* __restrict__ grad_out,
-                                float* __restrict__ grad) {
-  const size_t roi = (size_t)blockIdx.y * n + blockIdx.x;
-  if (levels != nullptr && clamp_level(levels[roi]) != level) return;
+// a / b for 0 <= a < 2^21 and b > 0, by b's float reciprocal: (a + 0.5) / b
+// lies at least 0.5 / b from an integer, and the product's rounding error,
+// under (a / b) 2^-22, stays below that at this range.
+__device__ __forceinline__ int small_div(int a, float inv_b) {
+  return (int)(((float)a + 0.5f) * inv_b);
+}
+
+// The indices (in order) of the RoIs of one image whose level, clamped to
+// 2..5, is `level`, into `list`; returns their count. With `levels` NULL
+// every RoI is on the list, which is then not written (item j is RoI j).
+// Warps ballot over blocks of the `levels` row and each RoI's place is the
+// popc of the RoIs before it. Ends with a barrier.
+__device__ int compact_rois(const int* __restrict__ levels, int level, int n,
+                            unsigned short* list) {
+  if (levels == nullptr) return n;
+  __shared__ int warp_counts[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int count = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const bool on = i < n && clamp_level(levels[i]) == level;
+    const unsigned mask = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) warp_counts[warp] = __popc(mask);
+    __syncthreads();
+    int offset = count;
+    for (int k = 0; k < warps; ++k) {
+      const int v = warp_counts[k];
+      offset += k < warp ? v : 0;
+      count += v;
+    }
+    if (on) list[offset + __popc(mask & ((1u << lane) - 1u))] = (unsigned short)i;
+    __syncthreads();  // warp_counts is rewritten by the next round
+  }
+  return count;
+}
+
+// Block (block of the image, image): the image's RoIs on `level`, then the
+// items (RoI of the list, chunk of bins_per_block bins) striding by the
+// grid, each its RoI's sample tables and a warp per bin.
+template <typename T, bool kVec, int kS>
+__global__ void __launch_bounds__(kFwThreads)
+single_kernel(Level lv, int c, const float* __restrict__ boxes,
+              const int* __restrict__ levels, int level, int n, int p, int s_rt,
+              int bins_per_block, T* __restrict__ out) {
+  const int s = kS > 0 ? kS : s_rt;
+  const int img = blockIdx.y;
+  __shared__ unsigned short list[kMaxRois];
   __shared__ Samples t;
-  sample_tables(t, boxes + roi * 4, scale, h, w, p * s);
-  float* g = grad + (size_t)blockIdx.y * h * w * c;
-  const float* go = grad_out + roi * p * p * c;
+  const int count = compact_rois(levels == nullptr ? nullptr : levels + (size_t)img * n,
+                                 level, n, list);
+  const T* feat = static_cast<const T*>(lv.data) + (size_t)img * lv.h * lv.w * c;
+  const int bins = p * p;
+  const int chunks = (bins + bins_per_block - 1) / bins_per_block;
   const float inv = 1.f / (float)(s * s);
-  for (int e = threadIdx.x; e < p * p * c; e += blockDim.x) {
-    const float ge = go[e] * inv;
-    if (ge == 0.f) continue;
-    const int ch = e % c;
-    const int bin = e / c;
-    const int py = bin / p;
-    const int px = bin % p;
-    for (int iy = 0; iy < s; ++iy) {
-      const int ky = py * s + iy;
-      const float gy0 = ge * t.wy0[ky];
-      const float gy1 = ge * t.wy1[ky];
-      float* r0 = g + (size_t)t.y0[ky] * w * c + ch;
-      float* r1 = g + (size_t)t.y1[ky] * w * c + ch;
-      for (int ix = 0; ix < s; ++ix) {
-        const int kx = px * s + ix;
-        const size_t c0 = (size_t)t.x0[kx] * c;
-        const size_t c1 = (size_t)t.x1[kx] * c;
-        const float wx0 = t.wx0[kx], wx1 = t.wx1[kx];
-        if (gy0 * wx0 != 0.f) atomicAdd(r0 + c0, gy0 * wx0);
-        if (gy0 * wx1 != 0.f) atomicAdd(r0 + c1, gy0 * wx1);
-        if (gy1 * wx0 != 0.f) atomicAdd(r1 + c0, gy1 * wx0);
-        if (gy1 * wx1 != 0.f) atomicAdd(r1 + c1, gy1 * wx1);
+  for (int item = blockIdx.x; item < count * chunks; item += gridDim.x) {
+    const int j = item / chunks;
+    const int first = (item - j * chunks) * bins_per_block;
+    const int last = min(first + bins_per_block, bins);
+    const size_t roi = (size_t)img * n + (levels == nullptr ? j : list[j]);
+    if (threadIdx.x == 0 && item + gridDim.x < count * chunks) {
+      const int jn = (item + gridDim.x) / chunks;
+      prefetch_box(boxes + ((size_t)img * n + (levels == nullptr ? jn : list[jn])) * 4);
+    }
+    sample_tables(t, boxes + roi * 4, lv.scale, lv.h, lv.w, p * s);
+    for (int bin = first + (threadIdx.x >> 5); bin < last; bin += kFwThreads / 32) {
+      const int py = bin / p;
+      const int px = bin - py * p;
+      pool_bin<T, kVec, kS>(t, feat, lv.w, c, py * s, px * s, s, inv,
+                            out + (roi * bins + bin) * c);
+    }
+    __syncthreads();  // the next item's tables overwrite these
+  }
+}
+
+// Per output bin along one axis: the distinct level pixels its s samples'
+// taps touch with a nonzero weight and their summed weights (bin b's at
+// [2 s b, 2 s b + n[b])).
+struct Taps {
+  int pix[2 * kMaxSamples];
+  float w[2 * kMaxSamples];
+  int n[kMaxSamples];
+};
+
+// Merge bin b's taps along one axis (i0, i1, w0, w1: the sample tables of
+// that axis) into `m`.
+__device__ void merge_taps(const int* i0, const int* i1, const float* w0,
+                           const float* w1, int s, int b, Taps& m) {
+  const int base = 2 * s * b;
+  int cnt = 0;
+  for (int k = b * s; k < b * s + s; ++k) {
+    for (int tap = 0; tap < 2; ++tap) {
+      const int pix = tap ? i1[k] : i0[k];
+      const float wt = tap ? w1[k] : w0[k];
+      if (wt == 0.f) continue;
+      int q = 0;
+      while (q < cnt && m.pix[base + q] != pix) ++q;
+      if (q == cnt) {
+        m.pix[base + cnt] = pix;
+        m.w[base + cnt] = wt;
+        ++cnt;
+      } else {
+        m.w[base + q] += wt;
       }
     }
+  }
+  m.n[b] = cnt;
+}
+
+// The weight bin k's s samples give pixel `pix` along one axis (i0, i1,
+// w0, w1: that axis' sample tables): its taps at that pixel, summed.
+__device__ __forceinline__ float bin_weight(const int* i0, const int* i1, const float* w0,
+                                            const float* w1, int s, int k, int pix) {
+  float wt = 0.f;
+  for (int j = k * s; j < k * s + s; ++j) {
+    if (i0[j] == pix) wt += w0[j];
+    if (i1[j] == pix) wt += w1[j];
+  }
+  return wt;
+}
+
+// The run of bins whose taps can reach pixel `pix` along one axis (bin k
+// spans i0[k s] .. i1[k s + s - 1], and both ends grow with k), as
+// band[0] .. band[1].
+__device__ __forceinline__ void bin_band(const int* i0, const int* i1, int p, int s, int pix,
+                                         short* band) {
+  int first = p, last = -1;
+  for (int k = 0; k < p; ++k) {
+    if (i0[k * s] <= pix && pix <= i1[k * s + s - 1]) {
+      first = min(first, k);
+      last = k;
+    }
+  }
+  band[0] = (short)first;
+  band[1] = (short)last;
+}
+
+// Add 4 float32 channels `v` at `dst` (left: channels from dst to the end
+// of the pixel): one 16-byte vector atomic, or scalar atomics for the
+// nonzero ones where the gradient cannot take vectors.
+__device__ __forceinline__ void add4(float* dst, float4 v, int left, bool vec) {
+  if (vec) {
+    atomicAdd(reinterpret_cast<float4*>(dst), v);
+    return;
+  }
+  if (v.x != 0.f) atomicAdd(dst, v.x);
+  if (left > 1 && v.y != 0.f) atomicAdd(dst + 1, v.y);
+  if (left > 2 && v.z != 0.f) atomicAdd(dst + 2, v.z);
+  if (left > 3 && v.w != 0.f) atomicAdd(dst + 3, v.w);
+}
+
+// Block (block of the image, image): the image's RoIs on `level`, then the
+// items (RoI of the list, kChunks-th of its footprint) striding by the
+// grid. `vec`: C is a multiple of 4 and both grad_out and the gradient are
+// 16-byte aligned.
+//
+// The adjoint of the forward, gathered: a RoI's gradient is separable over
+// its footprint (the fh x fw level pixels its taps span),
+// grad[y][x] = sum over the bins (py, px) whose taps touch (y, x) of
+// Wy[py][y] Wx[px][x] g[py][px], with Wy and Wx the merged tap weights of
+// each bin row and column (dense tables in shared memory, 1/s^2 folded
+// into Wy) and each pixel's run of bins along each axis. A warp owns one
+// footprint pixel at a time and its lanes run over 16-byte channel vectors
+// (two at a time), reading g through L1 and adding the pixel's vectors to
+// the gradient with one 16-byte vector atomic each: no shared-memory
+// atomics (on this card a float32 shared atomic add is a compare-and-swap
+// loop) and no barrier inside the pixel loop.
+__global__ void __launch_bounds__(kBwThreads)
+backward_kernel(int h, int w, int c, float scale, const float* __restrict__ boxes,
+                const int* __restrict__ levels, int level, int n, int p, int s,
+                const float* __restrict__ grad_out, float* __restrict__ grad, int vec) {
+  __shared__ float wy_buf[kWRows], wx_buf[kWRows];
+  __shared__ unsigned short list[kMaxRois];
+  __shared__ Samples t;
+  __shared__ Taps ty, tx;
+  __shared__ short band_y[kMaxSpan][2], band_x[kMaxSpan][2];
+  const int img = blockIdx.y;
+  const int count = compact_rois(levels == nullptr ? nullptr : levels + (size_t)img * n,
+                                 level, n, list);
+  float* g = grad + (size_t)img * h * w * c;
+  const int bins = p * p;
+  const float inv = 1.f / (float)(s * s);
+  const float inv_p = 1.f / (float)p;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kWarps = kBwThreads / 32;
+  for (int item = blockIdx.x; item < count * kChunks; item += gridDim.x) {
+    const int j = item / kChunks;
+    const int chunk = item - j * kChunks;
+    const size_t roi = (size_t)img * n + (levels == nullptr ? j : list[j]);
+    const float* go = grad_out + roi * bins * c;
+    if (threadIdx.x == 0 && item + gridDim.x < count * kChunks) {
+      const int jn = (item + gridDim.x) / kChunks;
+      prefetch_box(boxes + ((size_t)img * n + (levels == nullptr ? jn : list[jn])) * 4);
+    }
+    sample_tables(t, boxes + roi * 4, scale, h, w, p * s);
+    // The footprint: the pixels the taps span (sample positions grow with
+    // their index, and taps of zero weight add nothing).
+    const int ps = p * s;
+    const int ylo = t.y0[0], xlo = t.x0[0];
+    const int fh = t.y1[ps - 1] - ylo + 1, fw = t.x1[ps - 1] - xlo + 1;
+    if (max(fh, fw) <= kMaxSpan && p * max(fh, fw) <= kWRows) {
+      for (int i = threadIdx.x; i < p * (fh + fw); i += kBwThreads) {
+        if (i < p * fh)
+          wy_buf[i] = bin_weight(t.y0, t.y1, t.wy0, t.wy1, s, i / fh, ylo + i % fh) * inv;
+        else
+          wx_buf[i - p * fh] =
+              bin_weight(t.x0, t.x1, t.wx0, t.wx1, s, (i - p * fh) / fw, xlo + (i - p * fh) % fw);
+      }
+      for (int i = threadIdx.x; i < fh + fw; i += kBwThreads) {
+        if (i < fh)
+          bin_band(t.y0, t.y1, p, s, ylo + i, band_y[i]);
+        else
+          bin_band(t.x0, t.x1, p, s, xlo + i - fh, band_x[i - fh]);
+      }
+      __syncthreads();
+      const int pixels = fh * fw;
+      const int first = (int)((long long)pixels * chunk / kChunks);
+      const int last = (int)((long long)pixels * (chunk + 1) / kChunks);
+      const float inv_fw = 1.f / (float)fw;
+      for (int pix = first + warp; pix < last; pix += kWarps) {
+        const int yi = small_div(pix, inv_fw);
+        const int xi = pix - yi * fw;
+        const int py0 = band_y[yi][0], py1 = band_y[yi][1];
+        const int px0 = band_x[xi][0], px1 = band_x[xi][1];
+        float* dst = g + ((size_t)(ylo + yi) * w + xlo + xi) * c;
+        if (vec) {
+          // Lane v takes vectors v and v + 32 together (two chains of loads).
+          const int vecs = c / 4;
+          const float4* g4 = reinterpret_cast<const float4*>(go);
+          for (int v = lane; v < vecs; v += 64) {
+            const bool two = v + 32 < vecs;
+            float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+            for (int py = py0; py <= py1; ++py) {
+              const float wy = wy_buf[py * fh + yi];
+              if (wy == 0.f) continue;
+              float4 ra = make_float4(0.f, 0.f, 0.f, 0.f), rb = ra;
+              for (int px = px0; px <= px1; ++px) {
+                const float wx = wx_buf[px * fw + xi];
+                if (wx == 0.f) continue;
+                const float4* src = g4 + (size_t)(py * p + px) * vecs + v;
+                const float4 u = __ldg(src);
+                const float4 u2 = two ? __ldg(src + 32) : make_float4(0.f, 0.f, 0.f, 0.f);
+                ra.x += wx * u.x;
+                ra.y += wx * u.y;
+                ra.z += wx * u.z;
+                ra.w += wx * u.w;
+                rb.x += wx * u2.x;
+                rb.y += wx * u2.y;
+                rb.z += wx * u2.z;
+                rb.w += wx * u2.w;
+              }
+              a.x += wy * ra.x;
+              a.y += wy * ra.y;
+              a.z += wy * ra.z;
+              a.w += wy * ra.w;
+              b.x += wy * rb.x;
+              b.y += wy * rb.y;
+              b.z += wy * rb.z;
+              b.w += wy * rb.w;
+            }
+            if (a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f)
+              atomicAdd(reinterpret_cast<float4*>(dst) + v, a);
+            if (two && (b.x != 0.f || b.y != 0.f || b.z != 0.f || b.w != 0.f))
+              atomicAdd(reinterpret_cast<float4*>(dst) + v + 32, b);
+          }
+        } else {
+          for (int ch = lane; ch < c; ch += 32) {
+            float a = 0.f;
+            for (int py = py0; py <= py1; ++py) {
+              const float wy = wy_buf[py * fh + yi];
+              if (wy == 0.f) continue;
+              float r = 0.f;
+              for (int px = px0; px <= px1; ++px) {
+                const float wx = wx_buf[px * fw + xi];
+                if (wx != 0.f) r += wx * __ldg(go + (size_t)(py * p + px) * c + ch);
+              }
+              a += wy * r;
+            }
+            if (a != 0.f) atomicAdd(dst + ch, a);
+          }
+        }
+      }
+    } else {
+      // A footprint too large for the tables: (bin, 4 channels) a thread,
+      // this item's share of the bins, their merged taps straight into the
+      // gradient.
+      for (int k = threadIdx.x; k < 2 * p; k += kBwThreads) {
+        if (k < p)
+          merge_taps(t.y0, t.y1, t.wy0, t.wy1, s, k, ty);
+        else
+          merge_taps(t.x0, t.x1, t.wx0, t.wx1, s, k - p, tx);
+      }
+      __syncthreads();
+      const int vecs = (c + 3) / 4;
+      const int first = (int)((long long)bins * chunk / kChunks);
+      const int last = (int)((long long)bins * (chunk + 1) / kChunks);
+      for (int e = first * vecs + threadIdx.x; e < last * vecs; e += kBwThreads) {
+        const int bin = e / vecs;
+        const int ch0 = (e - bin * vecs) * 4;
+        const int left = c - ch0;
+        const float* src = go + (size_t)bin * c + ch0;
+        const float4 ge = make_float4(src[0] * inv, left > 1 ? src[1] * inv : 0.f,
+                                      left > 2 ? src[2] * inv : 0.f,
+                                      left > 3 ? src[3] * inv : 0.f);
+        if (ge.x == 0.f && ge.y == 0.f && ge.z == 0.f && ge.w == 0.f) continue;
+        const int py = small_div(bin, inv_p);
+        const int px = bin - py * p;
+        const int by = 2 * s * py, bx = 2 * s * px;
+        for (int a = 0; a < ty.n[py]; ++a) {
+          const float wy = ty.w[by + a];
+          const float gy[4] = {ge.x * wy, ge.y * wy, ge.z * wy, ge.w * wy};
+          float* row = g + (size_t)ty.pix[by + a] * w * c + ch0;
+          for (int b = 0; b < tx.n[px]; ++b) {
+            const float wx = tx.w[bx + b];
+            add4(row + (size_t)tx.pix[bx + b] * c,
+                 make_float4(gy[0] * wx, gy[1] * wx, gy[2] * wx, gy[3] * wx), left, vec);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next item's tables overwrite these
   }
 }
 
@@ -393,21 +679,58 @@ __global__ void backward_kernel(int h, int w, int c, float scale,
 
 namespace {
 
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// The current device and its SM count, read once per device.
+cudaError_t sm_count(int* dev, int* sms) {
+  static int cached[64];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[*dev] == 0)
+    err = cudaDeviceGetAttribute(&cached[*dev], cudaDevAttrMultiProcessorCount, *dev);
+  *sms = cached[*dev];
+  return err;
+}
+
+// Bins per block of the forward kernels: a whole number of bins per warp,
+// halved until `rois` RoIs split that way give about 8 blocks per SM.
+int bins_per_block(long long rois, int p, int sms) {
+  const int warps = kFwThreads / 32;
+  const int bins = p * p;
+  int per_warp = (bins + warps - 1) / warps;
+  while (per_warp > 1 &&
+         rois * ((bins + per_warp * warps - 1) / (per_warp * warps)) < 8LL * sms)
+    per_warp = (per_warp + 1) / 2;
+  return per_warp * warps;
+}
+
 template <typename T, bool kVec>
 void launch_multilevel(const Levels& desc, int c, const float* boxes, const int* levels,
                        int batch, int n, int p, int s, int bins_per_block, T* out,
                        cudaStream_t stream) {
   const dim3 grid((p * p + bins_per_block - 1) / bins_per_block, n, batch);
   if (s == 2) {
-    multilevel_kernel<T, kVec, 2><<<grid, kMlThreads, 0, stream>>>(
+    multilevel_kernel<T, kVec, 2><<<grid, kFwThreads, 0, stream>>>(
         desc, c, boxes, levels, n, p, s, bins_per_block, out);
   } else {
-    multilevel_kernel<T, kVec, 0><<<grid, kMlThreads, 0, stream>>>(
+    multilevel_kernel<T, kVec, 0><<<grid, kFwThreads, 0, stream>>>(
         desc, c, boxes, levels, n, p, s, bins_per_block, out);
   }
 }
 
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+template <typename T, bool kVec>
+void launch_single(dim3 grid, const Level& lv, int c, const float* boxes, const int* levels,
+                   int level, int n, int p, int s, int bins_per_block, T* out,
+                   cudaStream_t stream) {
+  if (s == 2) {
+    single_kernel<T, kVec, 2><<<grid, kFwThreads, 0, stream>>>(
+        lv, c, boxes, levels, level, n, p, s, bins_per_block, out);
+  } else {
+    single_kernel<T, kVec, 0><<<grid, kFwThreads, 0, stream>>>(
+        lv, c, boxes, levels, level, n, p, s, bins_per_block, out);
+  }
+}
 
 }  // namespace
 
@@ -430,20 +753,10 @@ extern "C" int premvos_multilevel_roi_align(
     if ((long long)lv.h * lv.w * c >= (1LL << 31)) return (int)cudaErrorInvalidValue;
     vec = vec && aligned16(lv.data);
   }
-  // Split each RoI's bins over blocks (a whole number of bins per warp)
-  // until the grid is about 8 blocks per SM.
   int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = sm_count(&dev, &sms);
   if (err != cudaSuccess) return (int)err;
-  const int warps = kMlThreads / 32;
-  const int bins = p * p;
-  int per_warp = (bins + warps - 1) / warps;
-  while (per_warp > 1 &&
-         (long long)batch * n * ((bins + per_warp * warps - 1) / (per_warp * warps)) < 8LL * sms)
-    per_warp = (per_warp + 1) / 2;
-  const int per_block = per_warp * warps;
+  const int per_block = bins_per_block((long long)batch * n, p, sms);
   if (is_bf16) {
     using B = __nv_bfloat16;
     if (vec)
@@ -468,15 +781,31 @@ extern "C" int premvos_roi_align(const void* features, int h, int w, int c,
                                  int level, int batch, int n, int p, int s,
                                  void* out, cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (p * s > kMaxSamples) return (int)cudaErrorInvalidValue;
+  if (p * s > kMaxSamples || batch > 65535 || (levels != nullptr && n > kMaxRois) ||
+      (long long)h * w * c >= (1LL << 31))  // in-image offsets are 32-bit
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = sm_count(&dev, &sms);
+  if (err != cudaSuccess) return (int)err;
   const Level lv = {features, h, w, spatial_scale};
-  const dim3 grid(n, batch);
+  const int per_block = bins_per_block((long long)batch * n, p, sms);
+  const long long items = (long long)n * ((p * p + per_block - 1) / per_block);
+  const dim3 grid((unsigned)std::min<long long>(items, (8LL * sms + batch - 1) / batch), batch);
+  const bool vec = (c * (is_bf16 ? 2 : 4)) % 16 == 0 && aligned16(features) && aligned16(out);
   if (is_bf16) {
-    single_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        lv, c, boxes, levels, level, n, p, s, static_cast<__nv_bfloat16*>(out));
+    using B = __nv_bfloat16;
+    if (vec)
+      launch_single<B, true>(grid, lv, c, boxes, levels, level, n, p, s, per_block,
+                             static_cast<B*>(out), stream);
+    else
+      launch_single<B, false>(grid, lv, c, boxes, levels, level, n, p, s, per_block,
+                              static_cast<B*>(out), stream);
+  } else if (vec) {
+    launch_single<float, true>(grid, lv, c, boxes, levels, level, n, p, s, per_block,
+                               static_cast<float*>(out), stream);
   } else {
-    single_kernel<float><<<grid, kThreads, 0, stream>>>(
-        lv, c, boxes, levels, level, n, p, s, static_cast<float*>(out));
+    launch_single<float, false>(grid, lv, c, boxes, levels, level, n, p, s, per_block,
+                                static_cast<float*>(out), stream);
   }
   return (int)cudaGetLastError();
 }
@@ -488,10 +817,17 @@ extern "C" int premvos_roi_align_backward(const float* grad_out, int h, int w,
                                           int s, float* grad_features,
                                           cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (p * s > kMaxSamples) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n, batch);
-  backward_kernel<<<grid, kThreads, 0, stream>>>(h, w, c, spatial_scale, boxes,
-                                                 levels, level, n, p, s,
-                                                 grad_out, grad_features);
+  if (p * s > kMaxSamples || batch > 65535 || (levels != nullptr && n > kMaxRois))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = sm_count(&dev, &sms);
+  if (err != cudaSuccess) return (int)err;
+  // About 8 blocks per SM over (blocks per image, image).
+  const long long items = (long long)n * kChunks;
+  const dim3 grid((unsigned)std::min(items, (8LL * sms + batch - 1) / batch), batch);
+  const int vec = c % 4 == 0 && aligned16(grad_out) && aligned16(grad_features);
+  backward_kernel<<<grid, kBwThreads, 0, stream>>>(h, w, c, spatial_scale, boxes, levels,
+                                                   level, n, p, s, grad_out, grad_features,
+                                                   vec);
   return (int)cudaGetLastError();
 }

@@ -236,6 +236,42 @@ def _check_boxes(name: str, boxes: torch.Tensor, b: int, levels=None) -> None:
         )
 
 
+def _launch_roi_align(features, boxes, levels, level, out, p, s, scale) -> None:
+    """One launch of premvos_roi_align on tensors already checked: features
+    [B, H, W, C] contiguous, boxes float32 and levels int32 (or None)
+    contiguous, `out` the contiguous output."""
+    b, h, w, c = features.shape
+    kernels.launch(
+        "roi_align", features.data_ptr(), h, w, c, int(features.dtype == torch.bfloat16),
+        float(scale), boxes.data_ptr(), None if levels is None else levels.data_ptr(),
+        int(level), b, boxes.shape[1], p, s, out.data_ptr(), kernels.stream_of(boxes),
+    )
+    roi_align_cuda.launches += 1
+
+
+def _launch_roi_align_backward(grad_out, boxes, levels, level, grad, s, scale) -> torch.Tensor:
+    """One launch of premvos_roi_align_backward on tensors already checked
+    (grad_out float32 [B, N, P, P, C], boxes and levels as for
+    _launch_roi_align), adding into `grad`, a zeroed contiguous float32
+    [B, H, W, C]. Returns `grad`."""
+    b, n, p, _, c = grad_out.shape
+    kernels.launch(
+        "roi_align_backward", grad_out.data_ptr(), grad.shape[1], grad.shape[2], c,
+        float(scale), boxes.data_ptr(), None if levels is None else levels.data_ptr(),
+        int(level), b, n, p, s, grad.data_ptr(), kernels.stream_of(boxes),
+    )
+    roi_align_backward_cuda.launches += 1
+    return grad
+
+
+def _boxes_and_levels(name, boxes, b, levels):
+    _check_boxes(name, boxes, b, levels)
+    boxes = boxes.to(torch.float32).contiguous()
+    if levels is not None:
+        levels = levels.to(torch.int32).contiguous()
+    return boxes, levels
+
+
 def roi_align_cuda(
     features: torch.Tensor, boxes: torch.Tensor, output_size: int = 7,
     sampling_ratio: int = 2, spatial_scale: float = 1.0,
@@ -247,7 +283,8 @@ def roi_align_cuda(
 
     With `levels` [B, N] given, only the RoIs whose level (clamped to 2..5)
     is `level` are sampled, into `out` (required then; the other RoIs' rows
-    are left as they are). `roi_align_cuda.launches` counts its launches.
+    are left as they are); N is then at most 4096 (the kernel refuses more).
+    `roi_align_cuda.launches` counts its launches.
     """
     features = features.contiguous()
     dtype = features.dtype
@@ -256,34 +293,32 @@ def roi_align_cuda(
     if features.dim() != 4:
         raise ValueError(f"roi_align: features must be [B, H, W, C], got {tuple(features.shape)}")
     b, h, w, c = features.shape
-    _check_boxes("roi_align", boxes, b, levels)
-    n = boxes.shape[1]
-    boxes = boxes.to(torch.float32).contiguous()
-    extra = []
-    if levels is not None:
-        levels = levels.to(torch.int32).contiguous()
-        extra.append(levels)
-        if out is None:
-            raise ValueError("roi_align: a level filter needs `out`")
-    shape = (b, n, output_size, output_size, c)
+    boxes, levels = _boxes_and_levels("roi_align", boxes, b, levels)
+    if levels is not None and out is None:
+        raise ValueError("roi_align: a level filter needs `out`")
+    shape = (b, boxes.shape[1], output_size, output_size, c)
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=boxes.device)
     elif tuple(out.shape) != shape or out.dtype != dtype or not out.is_contiguous():
         raise ValueError(
             f"roi_align: out {tuple(out.shape)} {out.dtype}, need a contiguous {shape} {dtype}"
         )
-    kernels.require_cuda("roi_align", features, boxes, out, *extra)
-    kernels.launch(
-        "roi_align", features.data_ptr(), h, w, c, int(dtype == torch.bfloat16),
-        float(spatial_scale), boxes.data_ptr(),
-        None if levels is None else levels.data_ptr(), int(level), b, n,
-        output_size, sampling_ratio, out.data_ptr(), kernels.stream_of(boxes),
-    )
-    roi_align_cuda.launches += 1
+    kernels.require_cuda("roi_align", features, boxes, out, *(() if levels is None else (levels,)))
+    _launch_roi_align(features, boxes, levels, level, out, output_size, sampling_ratio,
+                      spatial_scale)
     return out
 
 
 roi_align_cuda.launches = 0
+
+
+def _check_grad_out(name, grad_out, boxes):
+    if grad_out.dim() != 5 or grad_out.shape[2] != grad_out.shape[3]:
+        raise ValueError(f"{name}: grad_out {tuple(grad_out.shape)}")
+    if boxes.shape[:2] != grad_out.shape[:2]:
+        raise ValueError(f"{name}: boxes {tuple(boxes.shape)} for grad_out "
+                         f"{tuple(grad_out.shape)}")
+    return grad_out.to(torch.float32).contiguous()
 
 
 def roi_align_backward_cuda(
@@ -295,32 +330,40 @@ def roi_align_backward_cuda(
     grad_out [B, N, P, P, C] of roi_align_cuda → the float32 gradient
     [B, H, W, C] with respect to its features, with the same level filter.
     `roi_align_backward_cuda.launches` counts its launches."""
-    if grad_out.dim() != 5 or grad_out.shape[2] != grad_out.shape[3]:
-        raise ValueError(f"roi_align_backward: grad_out {tuple(grad_out.shape)}")
-    b, n, p, _, c = grad_out.shape
-    h, w = feature_hw
-    _check_boxes("roi_align_backward", boxes, b, levels)
-    if boxes.shape[1] != n:
-        raise ValueError(f"roi_align_backward: boxes {tuple(boxes.shape)} for {n} RoIs")
-    grad_out = grad_out.to(torch.float32).contiguous()
-    boxes = boxes.to(torch.float32).contiguous()
-    extra = []
-    if levels is not None:
-        levels = levels.to(torch.int32).contiguous()
-        extra.append(levels)
-    kernels.require_cuda("roi_align_backward", grad_out, boxes, *extra)
-    grad = torch.zeros((b, h, w, c), dtype=torch.float32, device=boxes.device)
-    kernels.launch(
-        "roi_align_backward", grad_out.data_ptr(), h, w, c, float(spatial_scale),
-        boxes.data_ptr(), None if levels is None else levels.data_ptr(),
-        int(level), b, n, p, sampling_ratio, grad.data_ptr(),
-        kernels.stream_of(boxes),
-    )
-    roi_align_backward_cuda.launches += 1
-    return grad
+    grad_out = _check_grad_out("roi_align_backward", grad_out, boxes)
+    boxes, levels = _boxes_and_levels("roi_align_backward", boxes, grad_out.shape[0], levels)
+    kernels.require_cuda("roi_align_backward", grad_out, boxes,
+                         *(() if levels is None else (levels,)))
+    b, _, _, _, c = grad_out.shape
+    grad = torch.zeros((b, *feature_hw, c), dtype=torch.float32, device=boxes.device)
+    return _launch_roi_align_backward(grad_out, boxes, levels, level, grad, sampling_ratio,
+                                      spatial_scale)
 
 
 roi_align_backward_cuda.launches = 0
+
+
+def roi_align_levels_backward(
+    grad_out: torch.Tensor, boxes: torch.Tensor, levels: torch.Tensor, feature_hws: list,
+    sampling_ratio: int = 2,
+) -> list:
+    """The training align's backward on CUDA (what `roi_align_levels`'s
+    gradient runs): one roi_align_backward_cuda launch per FPN level
+    P2, P3, … (`feature_hws` their [H, W]), each on the RoIs of its level
+    into a zeroed gradient of its own, with the checks made once. Returns
+    the float32 gradients."""
+    grad_out = _check_grad_out("roi_align_levels_backward", grad_out, boxes)
+    b, _, _, _, c = grad_out.shape
+    boxes, levels = _boxes_and_levels("roi_align_levels_backward", boxes, b, levels)
+    kernels.require_cuda("roi_align_levels_backward", grad_out, boxes, levels)
+    return [
+        _launch_roi_align_backward(
+            grad_out, boxes, levels, i + 2,
+            torch.zeros((b, *hw, c), dtype=torch.float32, device=boxes.device),
+            sampling_ratio, 1.0 / stride,
+        )
+        for i, (hw, stride) in enumerate(zip(feature_hws, LEVEL_STRIDES))
+    ]
 
 
 class _RoIAlignCUDA(torch.autograd.Function):
@@ -336,15 +379,24 @@ class _RoIAlignCUDA(torch.autograd.Function):
         if levels is None:
             out = roi_align_cuda(feats[0], boxes, output_size, sampling_ratio, scales[0])
         else:
-            c, dtype = feats[0].shape[-1], feats[0].dtype
-            if any(f.shape[-1] != c or f.dtype != dtype for f in feats):
-                raise ValueError("roi_align: levels differ in channels or dtype")
-            b, n = boxes.shape[:2]
+            # Checked once for the four launches (the host path is most of a
+            # launch's cost at the box head).
+            feats = [f.contiguous() for f in feats]
+            b, c, dtype = feats[0].shape[0], feats[0].shape[-1], feats[0].dtype
+            if dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"roi_align: unsupported dtype {dtype}")
+            if any(f.dim() != 4 or f.shape[0] != b or f.shape[-1] != c or f.dtype != dtype
+                   for f in feats):
+                raise ValueError("roi_align: levels differ in batch, channels or dtype")
+            boxes, levels = _boxes_and_levels("roi_align", boxes, b, levels)
             out = torch.empty(
-                (b, n, output_size, output_size, c), dtype=dtype, device=boxes.device
+                (b, boxes.shape[1], output_size, output_size, c), dtype=dtype,
+                device=boxes.device,
             )
+            kernels.require_cuda("roi_align", boxes, levels, out, *feats)
             for i, (f, scale) in enumerate(zip(feats, scales)):
-                roi_align_cuda(f, boxes, output_size, sampling_ratio, scale, levels, i + 2, out)
+                _launch_roi_align(f, boxes, levels, i + 2, out, output_size, sampling_ratio,
+                                  scale)
         ctx.save_for_backward(boxes, levels)
         ctx.hw = [tuple(f.shape[1:3]) for f in feats]
         ctx.dtypes = [f.dtype for f in feats]
@@ -354,15 +406,14 @@ class _RoIAlignCUDA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         boxes, levels = ctx.saved_tensors
-        grads = []
-        for i, (hw, dtype, scale) in enumerate(zip(ctx.hw, ctx.dtypes, ctx.scales)):
-            if not ctx.needs_input_grad[5 + i]:
-                grads.append(None)
-                continue
-            g = roi_align_backward_cuda(
-                grad_out, boxes, hw, ctx.sampling_ratio, scale, levels, i + 2
-            )
-            grads.append(g.to(dtype))
+        if levels is None:
+            grads = [roi_align_backward_cuda(grad_out, boxes, ctx.hw[0], ctx.sampling_ratio,
+                                             ctx.scales[0])]
+        else:
+            grads = roi_align_levels_backward(grad_out, boxes, levels, ctx.hw,
+                                              ctx.sampling_ratio)
+        grads = [g.to(dtype) if need else None
+                 for g, dtype, need in zip(grads, ctx.dtypes, ctx.needs_input_grad[5:])]
         return (None, None, None, None, None, *grads)
 
 

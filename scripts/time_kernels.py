@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times of the port's inference kernels at the main path's shapes, three
-ways, on one CUDA card.
+"""Times of the port's kernels at their paths' shapes (inference and
+training), three ways, on one CUDA card.
 
     python3 scripts/time_kernels.py [--root DIR] [--json PATH]
 
@@ -42,7 +42,16 @@ multilevel RoIAlign at the box head (bf16 C = 256, 256 RoIs per image,
 P = 7) and the mask head (32 RoIs, P = 14); resample2d at FlowNet2's warp
 (bf16 [8, 3, 448, 832]) and the merge warp (f32 [1, 8, 240, 432]);
 correlation at FlowNetC's cost volume ([8, 256, 56, 104], max displacement
-20, stride 2), float32 and bfloat16 inputs. The profiled runs come after
+20, stride 2), float32 and bfloat16 inputs; and the training path's
+single-level RoIAlign (`roi_align_levels`: four launches, one per level
+P2..P5, into one output) and its backward (`roi_align_levels_backward`,
+or in a tree without it the four `roi_align_backward_cuda` calls it
+replaced: four launches, each with its gradient's zero fill) at the box
+head (P = 7) and the mask head (P = 14): float32 P2..P5 [2, H, W, 256] of a
+480×864 image, 256 RoIs per image. Their `device_ms` is the kernel's own
+four launches; `device_all_ms` adds everything else the call ran on the
+card (for the backward, its gradients' zero fill). The
+profiled runs come after
 every other timing (a profiled run slows what follows it in the process).
 Prints one JSON object. Imports nothing of JAX.
 """
@@ -116,6 +125,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     # This checkout's helpers and inputs, whichever tree is timed.
     from chip_smoke import (
+        LEVEL_SHAPES,
+        LEVEL_STRIDES,
         NMS_CASES,
         ROI_CASES,
         cuda_ms,
@@ -124,6 +135,7 @@ def main() -> int:
         nms_inputs,
         nms_parts,
         resample_inputs,
+        roi_case,
         roi_inputs,
     )
 
@@ -132,7 +144,8 @@ def main() -> int:
     from premvos_tpu_torch.ops import nms as nms_mod
     from premvos_tpu_torch.ops.correlation import correlation_cuda
     from premvos_tpu_torch.ops.resample2d import resample2d_cuda
-    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_cuda
+    from premvos_tpu_torch.ops import roi_align as roi_mod
+    from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_cuda, roi_align_levels
 
     kernels.load()
     dev = torch.device("cuda")
@@ -181,6 +194,30 @@ def main() -> int:
                    shape=f"f1, f2 [{b},{c},{h},{w}] {str(dtype)[6:]} channels-last")
         cases.append((row, lambda a=(f1, f2, md, st): correlation_cuda(*a), "corr", None))
 
+    # The training RoIAligns (chip_smoke.py phase 3's rows): the forward
+    # kernel is `single_kernel`, the backward `backward_kernel` in both the
+    # parent's and this tree's kernels/roi_align.cu.
+    for i, p in enumerate((7, 14)):
+        feats, boxes, levels = roi_case(torch, torch.Generator().manual_seed(30 + i), dev,
+                                        2, 256, 256, torch.float32)
+        grad_out = torch.randn(2, 256, p, p, 256, generator=torch.Generator().manual_seed(40 + i))
+        grad_out = grad_out.to(dev)
+        shape = f"P2..P5 float32 [2,H,W,256], 256 RoIs/image, P={p}, 4 launches"
+        cases.append((dict(kernel="roi_align", shape=shape),
+                      lambda a=(feats, boxes, levels, p, 2): roi_align_levels(*a),
+                      "single_kernel", None))
+
+        def backward(g=grad_out, bx=boxes, lv=levels):
+            # Training's backward: roi_align_levels_backward where the tree
+            # has it, else the per-level wrapper calls it replaced.
+            if hasattr(roi_mod, "roi_align_levels_backward"):
+                return roi_mod.roi_align_levels_backward(g, bx, lv, LEVEL_SHAPES, 2)
+            return [roi_mod.roi_align_backward_cuda(g, bx, hw, 2, 1.0 / st, lv, li + 2)
+                    for li, (hw, st) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES))]
+
+        cases.append((dict(kernel="roi_align_backward", shape=shape), backward,
+                      "backward_kernel", None))
+
     for row, fn, _, lib in cases:
         row["wrapper_ms"] = cuda_ms(fn, ITERS)
         row["host_us"] = host_us(torch, fn)
@@ -191,8 +228,13 @@ def main() -> int:
     for row, fn, pattern, lib in cases:
         if row["kernel"] == "nms":
             row["host_ops_us"] = host_ops_us(torch, fn)
-        times = kernel_times(fn, ITERS, (pattern,))
+        # The empty launch is no kernel of the port: its profile needs no
+        # record count (the profiler can drop one of its 50 very short
+        # records in every retake, which would fail the whole run).
+        times = kernel_times(fn, ITERS, (pattern,) if row["kernel"] != "empty" else ())
         row["device_ms"] = named_ms(times, pattern)
+        if row["kernel"].startswith("roi_align"):
+            row["device_all_ms"] = sum(times.values())
         if row["kernel"] == "nms":
             row["device_parts_ms"] = nms_parts(times)
             row["device_all_ms"] = sum(times.values())
@@ -212,6 +254,7 @@ def main() -> int:
               f"idle-card host {r['host_call_us']:.2f} us"
               + (f", sort host {r['sort_host_call_us']:.2f} us" if "sort_host_call_us" in r else "")
               + (f", parts {r['device_parts_ms']}" if "device_parts_ms" in r else "")
+              + (f", device all {r['device_all_ms']:.5f} ms" if "device_all_ms" in r else "")
               + (f", grid_sample {r['library_ms']:.5f} ms" if "library_ms" in r else ""),
               file=sys.stderr)
     result = {"card": smi, "root": os.path.abspath(args.root), "torch": torch.__version__,

@@ -208,21 +208,21 @@ def test_multilevel_roi_align_kernel(dev, p):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
-def _ml_case(gen, dev, c, dtype, n=40, levels_on=None):
-    """P2..P5 [2, H, W, c] of a 128x192 image and n RoIs per image: random
+def _ml_case(gen, dev, c, dtype, n=40, levels_on=None, b=2):
+    """P2..P5 [b, H, W, c] of a 128x192 image and n RoIs per image: random
     sizes (every level), plus a degenerate box, one past the right and
     bottom edges and one off the image. With `levels_on`, every RoI is put
     on that level (the other levels get none)."""
     from premvos_tpu_torch.models.maskrcnn import roi_levels
 
     shapes = [(32, 48), (16, 24), (8, 12), (4, 6)]
-    feats = [torch.randn(2, h, w, c, generator=gen).to(dev, dtype) for h, w in shapes]
-    size = torch.exp(torch.rand(2, n - 3, 1, generator=gen) * 4.6) * 6
-    ctr = torch.rand(2, n - 3, 2, generator=gen) * torch.tensor([192.0, 128.0])
+    feats = [torch.randn(b, h, w, c, generator=gen).to(dev, dtype) for h, w in shapes]
+    size = torch.exp(torch.rand(b, n - 3, 1, generator=gen) * 4.6) * 6
+    ctr = torch.rand(b, n - 3, 2, generator=gen) * torch.tensor([192.0, 128.0])
     fixed = torch.tensor([[30.0, 30.0, 30.0, 30.0], [150.0, 100.0, 200.5, 131.0],
                           [300.0, 200.0, 340.0, 240.0]])
     boxes = torch.cat([torch.cat([ctr - size / 2, ctr + size / 2], -1),
-                       fixed.expand(2, -1, -1)], 1)
+                       fixed.expand(b, -1, -1)], 1)
     levels = roi_levels(boxes).to(torch.int32)
     if levels_on is not None:
         levels = torch.full_like(levels, levels_on)
@@ -277,14 +277,7 @@ def test_multilevel_roi_align_kernel_unaligned(dev, dtype):
 
     gen = torch.Generator().manual_seed(14)
     feats, boxes, levels = _ml_case(gen, dev, 32, dtype)
-    odd = []
-    for f in feats:
-        flat = torch.empty(f.numel() + 1, dtype=dtype, device=dev)
-        view = flat[1:].view(f.shape)
-        view.copy_(f)
-        assert view.is_contiguous() and view.data_ptr() % 16 != 0
-        odd.append(view)
-    got = multilevel_roi_align_cuda(odd, boxes, levels, 7, 2)
+    got = multilevel_roi_align_cuda([_odd_view(f) for f in feats], boxes, levels, 7, 2)
     want = multilevel_roi_align_reference(feats, boxes, levels, 7, 2)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
@@ -351,6 +344,152 @@ def test_roi_align_backward_kernel(dev, filtered):
     torch.cuda.synchronize()
     assert got.shape == feats.shape and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+LEVEL_STRIDES = (4, 8, 16, 32)
+
+
+def _odd_view(f):
+    """A contiguous copy of f at an odd element offset (base pointer not
+    16-byte aligned)."""
+    flat = torch.empty(f.numel() + 1, dtype=f.dtype, device=f.device)
+    view = flat[1:].view(f.shape)
+    view.copy_(f)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _second_path(boxes, p, s, scale, hw):
+    """Per RoI, whether the backward kernel takes its second path: the
+    rectangle of level pixels its sample taps span (fh x fw) is too large
+    for its shared-memory tables: P * max(fh, fw) > kWRows = 2048 or
+    max(fh, fw) > kMaxSpan = 512 (kernels/roi_align.cu)."""
+    bx = boxes.double() * scale - 0.5
+    g = (torch.arange(p * s, dtype=torch.float64, device=boxes.device) + 0.5) / (p * s)
+    sides = []
+    for lo, hi, size in ((1, 3, hw[0]), (0, 2, hw[1])):
+        c = (bx[..., lo:lo + 1] + g * (bx[..., hi:hi + 1] - bx[..., lo:lo + 1]).clamp(min=1e-6))
+        c = c.clamp(0, size - 1)
+        sides.append((c.max(-1).values.floor() + 1).clamp(max=size - 1)
+                     - c.min(-1).values.floor() + 1)
+    fh, fw = sides
+    return (p * torch.maximum(fh, fw) > 2048) | (torch.maximum(fh, fw) > 512)
+
+
+# (C, dtype, P, s, boxes, B, N): "mixed" is _ml_case's boxes on their own
+# levels, "p3" every RoI on P3 (P2, P4 and P5 hold none), "contention" 64
+# overlapping boxes of about 8 px on P2 (hundreds of taps per pixel),
+# "unaligned" the mixed case on odd-offset views of the levels, "whole" an
+# unfiltered single-level call on a 120 x 160 level (a 480 x 640 image at
+# scale 1/4) with the mixed boxes tripled and one box spanning the whole
+# level (the backward's second path; the others take the first).
+TRAIN_ALIGN_CASES = {
+    "f32_c256_p7": (256, torch.float32, 7, 2, "mixed", 2, 40),
+    "f32_c256_p14": (256, torch.float32, 14, 2, "mixed", 2, 40),
+    "bf16_c256_p7": (256, torch.bfloat16, 7, 2, "mixed", 2, 40),
+    "bf16_c20_p14": (20, torch.bfloat16, 14, 2, "mixed", 2, 40),  # forward one channel a lane
+    "f32_c18_p7": (18, torch.float32, 7, 2, "mixed", 2, 40),  # both kernels' scalar paths
+    "f32_c256_unaligned": (256, torch.float32, 7, 2, "unaligned", 2, 40),
+    "f32_c256_p7_s1": (256, torch.float32, 7, 1, "mixed", 2, 40),
+    "bf16_c256_p14_s1": (256, torch.bfloat16, 14, 1, "mixed", 2, 40),
+    "f32_c20_p14_s3": (20, torch.float32, 14, 3, "mixed", 2, 40),
+    "f32_c256_p7_s3": (256, torch.float32, 7, 3, "mixed", 2, 40),
+    "one_level_p3": (64, torch.float32, 14, 2, "p3", 2, 40),
+    "contention": (256, torch.float32, 14, 2, "contention", 2, 64),
+    "b3_n37": (32, torch.float32, 7, 2, "mixed", 3, 37),
+    "n600": (16, torch.float32, 7, 2, "mixed", 2, 600),  # compaction in several rounds
+    "whole_level_f32_c256": (256, torch.float32, 14, 2, "whole", 2, 40),
+    "whole_level_f32_c18": (18, torch.float32, 14, 3, "whole", 2, 40),
+}
+
+
+@pytest.mark.parametrize("case", list(TRAIN_ALIGN_CASES), ids=list(TRAIN_ALIGN_CASES))
+def test_roi_align_train_kernels_cases(dev, case):
+    """The single-level forward and backward kernels, launched once per
+    level with the level filter as training launches them (or once,
+    unfiltered, on P2 for "whole"), vs the plain version and its autograd:
+    forward float32 1e-5, bf16 2 ulp of the largest value; each level's
+    gradient 1e-4 of its largest |grad| (float32 atomics add in a varying
+    order)."""
+    c, dtype, p, s, kind, b, n = TRAIN_ALIGN_CASES[case]
+    gen = torch.Generator().manual_seed(21 + c + p + n + 10 * s)
+    feats, boxes, levels = _ml_case(gen, dev, c, dtype, n=n, b=b,
+                                    levels_on=3 if kind == "p3" else None)
+    if kind == "contention":
+        ctr = torch.tensor([40.0, 30.0]) + torch.rand(b, n, 2, generator=gen) * 3
+        half = 4.0 + torch.rand(b, n, 1, generator=gen)
+        boxes = torch.cat([ctr - half, ctr + half], -1).to(dev)
+        levels = torch.full((b, n), 2, dtype=torch.int32, device=dev)
+    if kind == "unaligned":
+        feats = [_odd_view(f) for f in feats]
+    cot = torch.randn(b, n, p, p, c, generator=gen).to(dev)
+    before = (roi_align_cuda.launches, roi_align_backward_cuda.launches)
+    leaves = [f.float().clone().requires_grad_(True) for f in feats]
+    if kind == "whole":
+        hw = (120, 160)
+        feats = [torch.randn(b, *hw, c, generator=gen).to(dev, dtype)]
+        leaves = [feats[0].float().clone().requires_grad_(True)]
+        boxes = boxes * 3.0
+        boxes[:, -1] = torch.tensor([0.0, 0.0, 640.0, 480.0], device=dev)
+        second = _second_path(boxes, p, s, 0.25, hw)
+        assert bool(second[:, -1].all()) and not bool(second[:, :-1].all())
+        got = roi_align_cuda(feats[0], boxes, p, s, 0.25)
+        grads = [roi_align_backward_cuda(cot, boxes, hw, s, 0.25)]
+        want = roi_align_reference(feats[0], boxes, p, s, 0.25)
+        want_g = torch.autograd.grad(roi_align_reference(leaves[0], boxes, p, s, 0.25),
+                                     leaves[0], cot)
+        launches = 1
+    else:
+        got = torch.full((b, n, p, p, c), 7.0, dtype=dtype, device=dev)
+        grads = []
+        for li, (f, st) in enumerate(zip(feats, LEVEL_STRIDES)):
+            assert roi_align_cuda(f, boxes, p, s, 1.0 / st, levels, li + 2, got) is got
+            grads.append(roi_align_backward_cuda(cot, boxes, tuple(f.shape[1:3]), s,
+                                                 1.0 / st, levels, li + 2))
+        want = multilevel_roi_align_reference(feats, boxes, levels, p, s)
+        want_g = torch.autograd.grad(multilevel_roi_align_reference(leaves, boxes, levels, p, s),
+                                     leaves, cot)
+        launches = 4
+    torch.cuda.synchronize()
+    assert (roi_align_cuda.launches, roi_align_backward_cuda.launches) == (
+        before[0] + launches, before[1] + launches)
+    assert got.dtype == dtype and got.shape == (b, n, p, p, c)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    for li, (g, w) in enumerate(zip(grads, want_g)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        # Every level that holds a RoI gets a gradient; the others none.
+        held = kind == "whole" or bool((levels == li + 2).any())
+        assert (float(w.abs().max()) > 0) == held
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()),
+                                   msg=f"P{li + 2}")
+
+
+def test_roi_align_kernels_compaction_limit(dev):
+    """With a level filter, n = 4096 RoIs per image (the compacted list's
+    limit) agree with the plain version; n = 4097 is refused by both
+    kernels and raises."""
+    gen = torch.Generator().manual_seed(22)
+    feats, boxes, levels = _ml_case(gen, dev, 8, torch.float32, n=4097)
+    f, scale, hw = feats[0], 0.25, tuple(feats[0].shape[1:3])
+    cot = torch.randn(2, 4097, 7, 7, 8, generator=gen).to(dev)
+    out = torch.zeros(2, 4096, 7, 7, 8, device=dev)
+    got = roi_align_cuda(f, boxes[:, :4096], 7, 2, scale, levels[:, :4096], 2, out)
+    got_g = roi_align_backward_cuda(cot[:, :4096], boxes[:, :4096], hw, 2, scale,
+                                    levels[:, :4096], 2)
+    torch.cuda.synchronize()
+    on = (levels[:, :4096] == 2)[..., None, None, None]
+    want = torch.where(on, roi_align_reference(f, boxes[:, :4096], 7, 2, scale), 0.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    leaf = f.clone().requires_grad_(True)
+    (want_g,) = torch.autograd.grad(roi_align_reference(leaf, boxes[:, :4096], 7, 2, scale),
+                                    leaf, cot[:, :4096] * on)
+    torch.testing.assert_close(got_g, want_g, rtol=0, atol=1e-4 * float(want_g.abs().max()))
+    out = torch.zeros(2, 4097, 7, 7, 8, device=dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        roi_align_cuda(f, boxes, 7, 2, scale, levels, 2, out)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        roi_align_backward_cuda(cot, boxes, hw, 2, scale, levels, 2)
 
 
 def test_roi_align_levels_trains_through_the_kernels(dev):

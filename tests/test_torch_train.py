@@ -166,17 +166,72 @@ def _mixed_boxes(rng, n):
     return b.astype(np.float32)
 
 
-@pytest.mark.parametrize("p", [7, 14])
-def test_multilevel_roi_align_train_matches_jax(p):
+def _contention_boxes(rng, n):
+    """62 boxes of 2-8 px around one point (on P2 their samples pile onto a
+    few pixels: hundreds of taps add into one gradient pixel) after
+    n - 62 mixed ones."""
+    k = 62
+    ctr = np.array([40.0, 30.0]) + rng.uniform(-2.0, 2.0, (k, 2))
+    half = rng.uniform(1.0, 4.0, (k, 2))
+    near = np.concatenate([ctr - half, ctr + half], 1)
+    return np.concatenate([_mixed_boxes(rng, n - k), near]).astype(np.float32)
+
+
+def _outside_boxes(rng, n):
+    """Boxes partly or wholly outside the 128x192 image (centres from -100
+    to 290 by -80 to 210), zero-area boxes (a point; zero width; zero
+    height) and padded zero boxes."""
+    sizes = rng.uniform(8.0, 400.0, (n, 2))
+    ctr = rng.uniform([-100.0, -80.0], [290.0, 210.0], (n, 2))
+    b = np.concatenate([ctr - sizes / 2, ctr + sizes / 2], 1)
+    pts = rng.uniform([-20.0, -20.0], [210.0, 140.0], (12, 2))
+    b[3:7, :2] = b[3:7, 2:] = pts[:4]  # a point
+    b[7:11, 0] = b[7:11, 2] = pts[4:8, 0]  # zero width
+    b[11:15, 1] = b[11:15, 3] = pts[8:12, 1]  # zero height
+    b[:3] = 0.0
+    return b.astype(np.float32)
+
+
+def _elongated_boxes(rng, n):
+    """Boxes at the top of each level's area range (just below the next
+    level's, 0.98 of its side), square or elongated up to 1:16, so each
+    RoI's samples span the most level pixels its level allows; P5 boxes
+    cover the image."""
+    b = np.zeros((n, 4), np.float32)
+    for i in range(n):
+        level = 2 + i % 4
+        side = 0.98 * 224.0 * 2.0 ** (level - 3)
+        aspect = 2.0 ** rng.uniform(-4.0, 4.0) if level < 5 else 1.0
+        w, h = side * np.sqrt(aspect), side / np.sqrt(aspect)
+        cx, cy = rng.uniform(0, 192), rng.uniform(0, 128)
+        b[i] = [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
+    return b
+
+
+_BOX_SETS = {"mixed": _mixed_boxes, "contention": _contention_boxes,
+             "outside": _outside_boxes, "elongated": _elongated_boxes}
+
+
+@pytest.mark.parametrize(
+    "p,box_set",
+    [(7, "mixed"), (14, "mixed"), (7, "contention"), (14, "contention"),
+     (7, "outside"), (14, "outside"), (7, "elongated"), (14, "elongated")],
+    ids=["7", "14", "7-contention", "14-contention", "7-outside", "14-outside",
+         "7-elongated", "14-elongated"],
+)
+def test_multilevel_roi_align_train_matches_jax(p, box_set):
     """The training multilevel align (CPU: the plain version and its
     autograd) against JAX `multilevel_roi_align(..., roi_chunk=64)` on 70
     RoIs (two chunks): forward and the gradient of every level, each within
     1e-5 of its largest |value| (up to hundreds of taps add into one
-    gradient pixel)."""
+    gradient pixel). Box sets: mixed sizes on every level; many tiny
+    overlapping boxes on P2; boxes partly or wholly outside the image and
+    zero-area ones; and boxes as large and elongated as their level allows
+    (the cases the CUDA backward treats specially)."""
     rng = np.random.default_rng(2)
     c, n = 8, 70
     feats = _pyramid(rng, c, 2)
-    boxes = np.stack([_mixed_boxes(rng, n) for _ in range(2)])
+    boxes = np.stack([_BOX_SETS[box_set](rng, n) for _ in range(2)])
     cot = rng.standard_normal((2, n, p, p, c)).astype(np.float32)
     names = ("P2", "P3", "P4", "P5")
 
