@@ -19,7 +19,13 @@ Phases (any failure raises and exits non-zero):
      stride 1 with max displacement 20 (D = 41); the RoIAlign backward also
      on 8-px boxes piled on one point of P2 (contention) and in one
      unfiltered launch on P2 whose largest RoIs are too large for the
-     kernel's shared-memory tables (its second path);
+     kernel's shared-memory tables (its second path); resample2d also at
+     the fine-tune's lucid warps (the backgrounds [8, 3, 480, 864] and the
+     object patches [16 | 64, 4, 256, 256], under their affine, rotation
+     and elastic flows); and NMS and the training RoIAlign forward and
+     backward at the fine-tune's proposal net (batch 4 at 256×448: 1956
+     RPN boxes per image, bf16 features at P = 7 and 14, a bf16 output
+     gradient);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -29,14 +35,27 @@ Phases (any failure raises and exits non-zero):
   6. one Mask R-CNN training loss and its gradients at a tiny configuration
      on CUDA (kernels) and on the CPU (plain versions) from the same seeded
      weights: the loss within 1e-4 relative, every parameter's gradient
-     within 1e-3 of that parameter's largest |grad|;
+     within 1e-3 of that parameter's largest |grad|; then one fused
+     fine-tune step of each net (refine and proposal) at a tiny
+     configuration from the same seeded weights and one set of draws made
+     on the CPU: the same bounds, and the lucid canvases within 1e-3 of
+     255 and masks equal (except where a pasted value lies within 1e-4 of
+     0.5);
   7. Mask R-CNN training at full width (ProposalConfig() defaults, 480×864,
      batch 2, 8 object slots, Adam 1e-4, float32): one step through
      `train_maskrcnn` on an in-memory synthetic dataset, then 5 timed steps
      of `make_train_step` on one fixed batch from the same batch assembly;
      launch counters are zeroed just before the timed steps and read just
      after, every loss must be finite, the last below the first, and NMS,
-     RoIAlign and its backward must have launched;
+     RoIAlign and its backward must have launched; then the per-video fused
+     fine-tune at configs/davis2017_val.json (FinetuneConfig(steps=40):
+     chunks of 16, 16 and 8) through `finetune_video_fused` on bench.py's
+     synthetic 480×864 frame with two objects: a warm-up run, then a timed
+     run with the launch counters zeroed just before and read just after;
+     every loss finite, both nets' parameters changed, resample2d launched
+     by both nets (two launches a step each), NMS, RoIAlign and its
+     backward by the proposal net; then `run_sequence` with the fine-tuned
+     models on phase 5's 9 frames (shape, ids, frame 0 = annotation);
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
      RoIAlign, correlation, resample2d and the training RoIAlign forward
@@ -44,7 +63,10 @@ Phases (any failure raises and exits non-zero):
      on fresh inputs of the same shapes: last, because the end-to-end
      phases ran slower after a profiled run in the same process.
 
-Prints the card line, a `{"kernels": [...]}` line, and last
+Prints the card line, a `{"kernels": [...]}` line (each kernel's
+`launches` is the sum over the paths that run it, each counted in its own
+zeroed window of phase 5 or 7, and `launches_by_path` gives each path's
+count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
 stderr, and with --json the whole report to PATH. Imports nothing of JAX.
 """
@@ -98,10 +120,19 @@ KERNELS = {
 # (phase 7).
 INFERENCE_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d")
 TRAINING_KERNELS = ("nms", "roi_align", "roi_align_backward")
+FINETUNE_KERNELS = ("resample2d", "nms", "roi_align", "roi_align_backward")
 
 # FPN levels P2..P5 at 480×864 and their strides.
 LEVEL_SHAPES = [(120, 216), (60, 108), (30, 54), (15, 27)]
 LEVEL_STRIDES = (4, 8, 16, 32)
+
+# The per-video fine-tune's proposal net at davis2017_val (phase 7): batch
+# 4 (batch_size // 2) at proposal_finetune_hw = 256×448, so FPN levels
+# (64, 112) .. (8, 14), and 1956 RPN boxes per image into NMS (each level's
+# top 512 or all its anchors); main() checks these against the config.
+FT_HW = (256, 448)
+FT_BATCH = 4
+FT_NMS_BOXES = 1956
 
 
 def log(msg: str) -> None:
@@ -201,17 +232,19 @@ def max_abs(a, b) -> float:
 
 # ------------------------------------------------------------- phase 3
 
-def nms_inputs(torch, gen, b, n, clustered=False):
-    """Boxes [b, n, 4] (xyxy) and scores [b, n] on the CPU over a 480×864
-    image. Uniform: corners uniform, sides 4-204 px, so few pairs overlap
-    above 0.7 and the RPN sweep keeps 256 boxes early. Clustered: each image
+def nms_inputs(torch, gen, b, n, clustered=False, image_hw=(480, 864)):
+    """Boxes [b, n, 4] (xyxy) and scores [b, n] on the CPU over an image_hw
+    image. Uniform: corners uniform, sides 4-204 px at 480×864 (scaled with
+    the image's height), so few pairs overlap above 0.7 and the RPN sweep
+    keeps 256 boxes early. Clustered: each image
     holds 40 cluster boxes (sides 40-200 px) and every box is one of them
     jittered by 3 % of its size, as neighbouring anchors regressed onto one
     object are: most of a cluster is suppressed by its best box, fewer than
     256 boxes survive, and the sweep visits all n."""
+    ih, iw = image_hw
     if not clustered:
-        xy = torch.rand(b, n, 2, generator=gen) * torch.tensor([864.0, 480.0])
-        wh = torch.rand(b, n, 2, generator=gen) * 200.0 + 4.0
+        xy = torch.rand(b, n, 2, generator=gen) * torch.tensor([float(iw), float(ih)])
+        wh = (torch.rand(b, n, 2, generator=gen) * 200.0 + 4.0) * (ih / 480.0)
     else:
         k = 40
         ctr = torch.rand(b, k, 2, generator=gen) * torch.tensor([864.0, 480.0])
@@ -225,18 +258,21 @@ def nms_inputs(torch, gen, b, n, clustered=False):
 
 
 # The NMS rows of phase 3: (B, N, max_outputs, IoU threshold, score
-# threshold, clustered): the RPN's, the detection's, and the RPN's on
-# clustered boxes (drawn from a generator of its own, so the other rows'
-# inputs stay those of earlier runs).
-NMS_CASES = ((8, 2384, 256, 0.7, 0.0, False), (8, 256, 32, 0.5, 0.05, False),
-             (8, 2384, 256, 0.7, 0.0, True))
+# threshold, clustered, image): the RPN's, the detection's, the RPN's on
+# clustered boxes, and the fine-tune's RPN (the last two each drawn from a
+# generator of its own, so the other rows' inputs stay those of earlier
+# runs).
+NMS_CASES = ((8, 2384, 256, 0.7, 0.0, False, (480, 864)),
+             (8, 256, 32, 0.5, 0.05, False, (480, 864)),
+             (8, 2384, 256, 0.7, 0.0, True, (480, 864)),
+             (FT_BATCH, FT_NMS_BOXES, 256, 0.7, 0.0, False, FT_HW))
 
 
 def check_nms(torch, gen, dev, case):
     from premvos_tpu_torch.ops.nms import nms_cuda, nms_reference
 
-    b, n, k, thr, score_thr, clustered = case
-    boxes, scores = (t.to(dev) for t in nms_inputs(torch, gen, b, n, clustered))
+    b, n, k, thr, score_thr, clustered, image_hw = case
+    boxes, scores = (t.to(dev) for t in nms_inputs(torch, gen, b, n, clustered, image_hw))
     got = nms_cuda(boxes, scores, k, thr, score_thr)
     want = nms_reference(boxes, scores, k, thr, score_thr)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
@@ -255,10 +291,26 @@ def check_nms(torch, gen, dev, case):
         last = int(pos[-1]) if len(pos) == k else n - 1
         pairs += int((last - pos).sum())
     bnd = bound_ms(b * n * 20 + b * k * 5, pairs * 12)
-    return dict(shape=f"boxes [{b},{n},4]{' clustered' if clustered else ''}, keep {k}, "
-                      f"iou {thr}",
+    return dict(shape=f"boxes [{b},{n},4]{' clustered' if clustered else ''} on "
+                      f"{image_hw[0]}x{image_hw[1]}, keep {k}, iou {thr}",
                 max_abs_err=err, tol="exact", ms=ms, plain_ms=plain, bound=bnd,
                 library_ms=None, kept=int(want[1].sum()), pairs=pairs)
+
+
+def check_finetune_shapes(cfg) -> None:
+    """FT_HW, FT_BATCH and FT_NMS_BOXES are the fine-tune's proposal net's
+    at `cfg`, with 256 RoIs per image."""
+    from premvos_tpu_torch.finetune.fused import proposal_finetune_hw
+    from premvos_tpu_torch.models.anchors import pyramid_anchors
+
+    pc, ft = cfg.proposal, cfg.finetune
+    hw = proposal_finetune_hw((cfg.pipeline.image_height, cfg.pipeline.image_width), ft)
+    anchors = pyramid_anchors(*hw, pc.anchor_scales, pc.anchor_ratios)
+    boxes = sum(min(pc.rpn_pre_nms_topk, len(a)) for a in anchors.values())
+    got = (hw, max(1, ft.batch_size // 2), boxes, pc.rpn_post_nms_topk)
+    if got != (FT_HW, FT_BATCH, FT_NMS_BOXES, 256):
+        fail(f"the fine-tune's proposal shapes (image, batch, NMS boxes, RoIs) are {got}, "
+             f"not {(FT_HW, FT_BATCH, FT_NMS_BOXES, 256)}")
 
 
 def level_shapes(image_hw):
@@ -351,18 +403,22 @@ def check_roi_align(torch, gen, dev, case, timed=True):
     return row
 
 
-# The training RoIAlign forward rows of phase 3: (P, dtype).
+# The training RoIAlign forward rows of phase 3: (P, dtype) at training's
+# shapes (batch 2 of 480×864); and the fine-tune's proposal net's (phase 7,
+# added after them): bf16 features, batch 4 of 256×448, the box head's
+# P = 7 and the mask head's 14.
 TRAIN_ALIGN_CASES = ((7, "float32"), (14, "float32"), (7, "bfloat16"))
+FT_ALIGN_PS = (7, 14)
 
 
-def check_roi_align_train(torch, gen, dev, p, dtype):
+def check_roi_align_train(torch, gen, dev, p, dtype, b=2, image_hw=(480, 864)):
     """The training align's forward (ops/roi_align.py::roi_align_levels on
     CUDA: the single-level kernel once per level P2..P5, each launch on the
     RoIs of its level, into one output) vs its plain version."""
     from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_reference, roi_align_levels
 
-    b, n, c, s = 2, 256, 256, 2
-    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, dtype)
+    n, c, s = 256, 256, 2
+    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, dtype, image_hw)
     got = roi_align_levels(feats, boxes, levels, p, s)
     want = multilevel_roi_align_reference(feats, boxes, levels, p, s)
     err = max_abs(got, want)
@@ -376,11 +432,11 @@ def check_roi_align_train(torch, gen, dev, p, dtype):
     # Bytes: the sampled feature pixels (each once), boxes, levels, output.
     # Ops: 4 taps × 2 + 2 per sample per channel.
     size = feats[0].element_size()
-    nbytes = (sampled_pixels(torch, boxes, levels, p, s) * c * size + b * n * 20
+    nbytes = (sampled_pixels(torch, boxes, levels, p, s, image_hw) * c * size + b * n * 20
               + got.numel() * size)
     flops = b * n * p * p * c * s * s * 10
-    return dict(shape=f"P2..P5 {str(dtype)[6:]} [2,H,W,256], 256 RoIs/image, P={p}, "
-                      "4 launches (one per level)",
+    return dict(shape=f"P2..P5 {str(dtype)[6:]} [{b},H,W,256] of {image_hw[0]}x{image_hw[1]}, "
+                      f"256 RoIs/image, P={p}, 4 launches (one per level)",
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                 bound=bound_ms(nbytes, flops), library_ms=None)
 
@@ -417,42 +473,46 @@ def second_path(fh, fw, p):
     return (p * torch.maximum(fh, fw) > 2048) | (torch.maximum(fh, fw) > 512)
 
 
-def backward_inputs(torch, gen, dev, p, kind="dense"):
+def backward_inputs(torch, gen, dev, p, kind="dense", b=2, image_hw=(480, 864),
+                    grad_dtype="float32"):
     """Features, boxes, levels and an output gradient for a backward row:
-    phase 3's training shapes (P2..P5 float32 [2, H, W, 256] of 480×864,
-    256 RoIs per image), with the boxes of `kind`."""
+    P2..P5 float32 [b, H, W, 256] of image_hw (training's: batch 2 of
+    480×864), 256 RoIs per image, with the boxes of `kind`, and the output
+    gradient in `grad_dtype` (the forward's output dtype)."""
     from premvos_tpu_torch.models.maskrcnn import roi_levels
 
-    b, n, c = 2, 256, 256
-    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, torch.float32)
+    n, c = 256, 256
+    feats, boxes, levels = roi_case(torch, gen, dev, b, n, c, torch.float32, image_hw)
     if kind == "contention":
         ctr = torch.tensor([432.0, 240.0]) + torch.rand(b, n, 2, generator=gen) * 12.0
         half = 4.0 + torch.rand(b, n, 1, generator=gen)
         boxes = torch.cat([ctr - half, ctr + half], -1).to(dev)
         levels = roi_levels(boxes)
-    grad_out = torch.randn(b, n, p, p, c, generator=gen).to(dev)
+    grad_out = torch.randn(b, n, p, p, c, generator=gen).to(dev, getattr(torch, grad_dtype))
     return feats, boxes, levels, grad_out
 
 
-def backward_run(torch, boxes, levels, grad_out, p, kind="dense"):
+def backward_run(torch, boxes, levels, grad_out, p, kind="dense", image_hw=(480, 864)):
     """The backward launches of a row: training's backward (one launch per
     level with the level filter), or one unfiltered launch on P2."""
     from premvos_tpu_torch.ops.roi_align import roi_align_backward_cuda, roi_align_levels_backward
 
     if kind == "unfiltered":
         return [roi_align_backward_cuda(grad_out, boxes, LEVEL_SHAPES[0], 2, 0.25)]
-    return roi_align_levels_backward(grad_out, boxes, levels, LEVEL_SHAPES, 2)
+    return roi_align_levels_backward(grad_out, boxes, levels, level_shapes(image_hw), 2)
 
 
-def check_roi_align_backward(torch, gen, dev, p, kind="dense"):
-    """The backward kernel vs the autograd of the plain version; each
-    level's gradient within 1e-4 of its largest |grad| (float32 atomics add
-    in a varying order)."""
+def check_roi_align_backward(torch, gen, dev, p, kind="dense", b=2, image_hw=(480, 864),
+                             grad_dtype="float32"):
+    """The backward kernel vs the autograd of the plain version (float32
+    features, the output gradient in float32); each level's gradient within
+    1e-4 of its largest |grad| (float32 atomics add in a varying order)."""
     from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_reference, roi_align_reference
 
-    b, n, c, s = 2, 256, 256, 2
-    feats, boxes, levels, grad_out = backward_inputs(torch, gen, dev, p, kind)
-    run = lambda: backward_run(torch, boxes, levels, grad_out, p, kind)  # noqa: E731
+    n, c, s = 256, 256, 2
+    feats, boxes, levels, grad_out = backward_inputs(torch, gen, dev, p, kind, b, image_hw,
+                                                     grad_dtype)
+    run = lambda: backward_run(torch, boxes, levels, grad_out, p, kind, image_hw)  # noqa: E731
     got = run()
     if kind == "unfiltered":
         big = second_path(*footprint_sides(torch, boxes, p, s, 4, LEVEL_SHAPES[0]), p)
@@ -464,7 +524,8 @@ def check_roi_align_backward(torch, gen, dev, p, kind="dense"):
     else:
         leaves = [f.clone().requires_grad_(True) for f in feats]
         out = multilevel_roi_align_reference(leaves, boxes, levels, p, s)
-    want = torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+    grad32 = grad_out.float()
+    want = torch.autograd.grad(out, leaves, grad32, retain_graph=True)
     err = 0.0
     for li, (g, w) in enumerate(zip(got, want)):
         e, tol = max_abs(g, w), 1e-4 * float(w.abs().max())
@@ -472,14 +533,15 @@ def check_roi_align_backward(torch, gen, dev, p, kind="dense"):
             fail(f"roi_align_backward P={p} {kind}, level P{li + 2}: max |diff| {e} > {tol}")
         err = max(err, e)
     ms = cuda_ms(run, 20)
-    plain = cuda_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True), 3,
+    plain = cuda_ms(lambda: torch.autograd.grad(out, leaves, grad32, retain_graph=True), 3,
                     warmup=1)
     # Bytes: the output gradient read once, boxes and levels, and every
     # element of the float32 feature gradients written once (the zero fill;
     # the sampled pixels are among them). Ops: 4 taps × (2 mul + 1 add) per
     # sample per channel. Beside them, the bytes the kernel's vector atomics
     # move: each RoI's footprint (on its level) once.
-    nbytes = grad_out.numel() * 4 + b * n * 20 + sum(g.numel() for g in got) * 4
+    nbytes = (grad_out.numel() * grad_out.element_size() + b * n * 20
+              + sum(g.numel() for g in got) * 4)
     flops = b * n * p * p * c * s * s * 12
     if kind == "unfiltered":
         fh, fw = footprint_sides(torch, boxes, p, s, 4, LEVEL_SHAPES[0])
@@ -487,11 +549,13 @@ def check_roi_align_backward(torch, gen, dev, p, kind="dense"):
         shape = f"grad [2,256,{p},{p},256] f32 → P2 [2,120,216,256] f32, 1 unfiltered launch"
     else:
         fp = 0
-        for li, (hw, st) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES)):
+        for li, (hw, st) in enumerate(zip(level_shapes(image_hw), LEVEL_STRIDES)):
             fh, fw = footprint_sides(torch, boxes, p, s, st, hw)
             fp = fp + (fh * fw)[levels == li + 2].sum()
-        shape = (f"grad [2,256,{p},{p},256] f32 → P2..P5 [2,H,W,256] f32, 4 launches "
-                 f"(one per level){', 8-px boxes on P2' if kind == 'contention' else ''}")
+        gd = "f32" if grad_dtype == "float32" else grad_dtype
+        shape = (f"grad [{b},256,{p},{p},256] {gd} → P2..P5 [{b},H,W,256] f32 of "
+                 f"{image_hw[0]}x{image_hw[1]}, 4 launches (one per level)"
+                 f"{', 8-px boxes on P2' if kind == 'contention' else ''}")
     return dict(shape=shape, max_abs_err=err, tol="1e-4 of each level's max |grad|", ms=ms,
                 plain_ms=plain, bound=bound_ms(nbytes, flops), library_ms=None,
                 footprint_bytes=int(fp.sum()) * c * 4)
@@ -538,9 +602,7 @@ def resample_inputs(torch, gen, dev, b, c, h, w, dtype):
     yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
     smooth = torch.stack([9.0 + 30 * torch.sin(yy / 40.0), -6.0 + 20 * torch.cos(xx / 50.0)])
     flow = (smooth[None] + torch.randn(b, 2, h, w, generator=gen)).to(dev)
-    gx = (torch.arange(w, device=dev) + flow[:, 0]) / (w - 1) * 2 - 1
-    gy = (torch.arange(h, device=dev)[:, None] + flow[:, 1]) / (h - 1) * 2 - 1
-    return src, flow, torch.stack([gx, gy], -1)
+    return src, flow, grid_of(torch, flow)
 
 
 def check_correlation(torch, gen, dev, dtype, case):
@@ -582,17 +644,73 @@ def check_correlation(torch, gen, dev, dtype, case):
 
 
 def check_resample(torch, gen, dev, b, c, h, w, dtype):
+    src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, dtype)
+    return resample_row(torch, src, flow, grid,
+                        f"src [{b},{c},{h},{w}] {str(dtype)[6:]}, flow f32")
+
+
+def grid_of(torch, flow):
+    """grid_sample's grid for the same clamped bilinear warp (border
+    padding, align_corners=True)."""
+    _, _, h, w = flow.shape
+    gx = (torch.arange(w, device=flow.device) + flow[:, 0]) / (w - 1) * 2 - 1
+    gy = (torch.arange(h, device=flow.device)[:, None] + flow[:, 1]) / (h - 1) * 2 - 1
+    return torch.stack([gx, gy], -1)
+
+
+# The resample2d rows of the fine-tune's lucid warps (phase 3, added after
+# the others): the backgrounds of a refine batch and the object patches of
+# two valid slots × 8 and of all 8 slots × 8.
+LUCID_RESAMPLE_CASES = ("background", "patches16", "patches64")
+
+
+def lucid_resample_inputs(torch, gen, dev, kind):
+    """Unit-scale sources and the lucid warps' flows: the backgrounds
+    [8, 3, 480, 864] under the largest background affine (5°, scale 0.9,
+    shift 5 %), or object patches [N, 4, 256, 256] under rotations of
+    ±15°, scales 0.9-1.1 and the elastic field."""
+    from premvos_tpu_torch.finetune.lucid_device import rot_scale_flow, smooth_field
+
+    if kind == "background":
+        h, w = 480, 864
+        src = torch.rand(8, 3, h, w, generator=gen).to(dev)
+        ang, sc = torch.deg2rad(torch.tensor(5.0)), 0.9
+        yy = torch.arange(h, dtype=torch.float32)[:, None] - (h - 1) / 2
+        xx = torch.arange(w, dtype=torch.float32)[None, :] - (w - 1) / 2
+        cos, sin = torch.cos(ang) / sc, torch.sin(ang) / sc
+        fx = cos * (xx - 0.05 * w) + sin * (yy - 0.05 * h) - xx
+        fy = -sin * (xx - 0.05 * w) + cos * (yy - 0.05 * h) - yy
+        flow = torch.stack([fx, fy])[None].expand(8, 2, h, w).contiguous().to(dev)
+    else:
+        n = int(kind[len("patches"):])
+        src = torch.rand(n, 4, 256, 256, generator=gen).to(dev)
+        ang = torch.deg2rad(torch.rand(n, generator=gen) * 30 - 15)
+        sc = torch.rand(n, generator=gen) * 0.2 + 0.9
+        noise = torch.rand(n, 2, 32, 32, generator=gen) * 2 - 1
+        flow = rot_scale_flow(256, ang, sc, smooth_field(noise, 256, 256)).contiguous().to(dev)
+    return src, flow, grid_of(torch, flow)
+
+
+def check_lucid_resample(torch, gen, dev, kind):
+    src, flow, grid = lucid_resample_inputs(torch, gen, dev, kind)
+    b, c, h, w = src.shape
+    return resample_row(torch, src, flow, grid,
+                        f"src [{b},{c},{h},{w}] f32, flow f32 (lucid {kind})")
+
+
+def resample_row(torch, src, flow, grid, shape):
+    """The kernel vs the plain version (atol 1e-5) and grid_sample on one
+    input, with times and the byte bound (source, flow and output once)."""
     import torch.nn.functional as F
 
     from premvos_tpu_torch.ops.resample2d import resample2d_cuda, resample2d_reference
 
-    src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, dtype)
     got = resample2d_cuda(src, flow)
     want = resample2d_reference(src, flow)
     err = max_abs(got, want)
     tol = 1e-5
     if not err <= tol:
-        fail(f"resample2d {src.shape}: max |diff| {err} > {tol}")
+        fail(f"resample2d {shape}: max |diff| {err} > {tol}")
     ms = cuda_ms(lambda: resample2d_cuda(src, flow), 50)
     plain = cuda_ms(lambda: resample2d_reference(src, flow), 10)
     srcf = src.float()
@@ -602,11 +720,12 @@ def check_resample(torch, gen, dev, b, c, h, w, dtype):
 
     lib_err = max_abs(lib(), want)
     lib_ms = cuda_ms(lib, 50)
+    b, c, h, w = src.shape
     nbytes = src.numel() * src.element_size() + flow.numel() * 4 + got.numel() * 4
     flops = b * c * h * w * 8.0
-    return dict(shape=f"src [{b},{c},{h},{w}] {str(dtype)[6:]}, flow f32",
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                bound=bound_ms(nbytes, flops), library_ms=lib_ms, library_err=lib_err)
+    return dict(shape=shape, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                bound=bound_ms(nbytes, flops), bound_bytes=nbytes, library_ms=lib_ms,
+                library_err=lib_err)
 
 
 # ------------------------------------------------------------- phase 8
@@ -632,13 +751,17 @@ def device_times(torch, dev, checks) -> None:
         roi_align_levels,
     )
 
-    gen = torch.Generator().manual_seed(1)
-    for row, (b, n, k, thr, sthr, clustered) in zip(checks["nms"], NMS_CASES):
-        boxes, scores = (t.to(dev) for t in nms_inputs(torch, gen, b, n, clustered))
+    def nms_row(row, gen, case):
+        b, n, k, thr, sthr, clustered, image_hw = case
+        boxes, scores = (t.to(dev) for t in nms_inputs(torch, gen, b, n, clustered, image_hw))
         parts = nms_parts(kernel_times(lambda: nms_cuda(boxes, scores, k, thr, sthr), 20,
                                        ("nms_mask", "nms_sweep"), nms_cuda))
         row["device_parts_ms"] = parts
         row["device_ms"] = parts["mask"] + parts["sweep"]
+
+    gen = torch.Generator().manual_seed(1)
+    for row, case in zip(checks["nms"][:3], NMS_CASES[:3]):
+        nms_row(row, gen, case)
     for row, case in zip(checks["multilevel_roi_align"], ROI_CASES[:2]):
         feats, boxes, levels = roi_inputs(torch, gen, dev, case)
         row["device_ms"] = device_ms(
@@ -648,8 +771,12 @@ def device_times(torch, dev, checks) -> None:
         f1, f2 = corr_inputs(torch, gen, dev, getattr(torch, dtype), case)
         row["device_ms"] = device_ms(lambda: correlation_cuda(f1, f2, *case[4:]), "corr", 20,
                                      correlation_cuda)
-    for row, (b, c, h, w, dtype) in zip(checks["resample2d"], RESAMPLE_CASES):
-        src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, getattr(torch, dtype))
+    lucid = [(row, lucid_resample_inputs(torch, torch.Generator().manual_seed(20 + i), dev, kind))
+             for i, (row, kind) in enumerate(zip(checks["resample2d"][len(RESAMPLE_CASES):],
+                                                 LUCID_RESAMPLE_CASES))]
+    plain = [(row, resample_inputs(torch, gen, dev, b, c, h, w, getattr(torch, dtype)))
+             for row, (b, c, h, w, dtype) in zip(checks["resample2d"], RESAMPLE_CASES)]
+    for row, (src, flow, grid) in plain + lucid:
         srcf = src.float()
         row["device_ms"] = device_ms(lambda: resample2d_cuda(src, flow), "resample",
                                      wrapper=resample2d_cuda)
@@ -663,14 +790,32 @@ def device_times(torch, dev, checks) -> None:
         row["device_ms"] = device_ms(
             lambda: roi_align_levels(feats, boxes, levels, p, 2), "single_kernel", 20,
             roi_align_cuda, per_call=4)
-    for row, (p, kind) in zip(checks["roi_align_backward"],
-                              ((7, "dense"), (14, "dense"), *BACKWARD_CASES)):
-        _, boxes, levels, grad_out = backward_inputs(torch, gen, dev, p, kind)
-        times = kernel_times(lambda: backward_run(torch, boxes, levels, grad_out, p, kind), 20,
-                             ("backward_kernel",), roi_align_backward_cuda,
-                             per_call=1 if kind == "unfiltered" else 4)
+    def backward_row(row, gen, p, kind, b=2, image_hw=(480, 864), grad_dtype="float32"):
+        _, boxes, levels, grad_out = backward_inputs(torch, gen, dev, p, kind, b, image_hw,
+                                                     grad_dtype)
+        times = kernel_times(
+            lambda: backward_run(torch, boxes, levels, grad_out, p, kind, image_hw), 20,
+            ("backward_kernel",), roi_align_backward_cuda,
+            per_call=1 if kind == "unfiltered" else 4)
         row["device_ms"] = named_ms(times, "backward_kernel")
         row["device_all_ms"] = sum(times.values())  # with the gradients' zero fill
+
+    for row, (p, kind) in zip(checks["roi_align_backward"],
+                              ((7, "dense"), (14, "dense"), *BACKWARD_CASES)):
+        backward_row(row, gen, p, kind)
+    # The fine-tune's rows, added later: a generator of their own.
+    gen = torch.Generator().manual_seed(3)
+    nms_row(checks["nms"][3], gen, NMS_CASES[3])
+    n_train = len(TRAIN_ALIGN_CASES)
+    for row, p in zip(checks["roi_align"][n_train:], FT_ALIGN_PS):
+        feats, boxes, levels = roi_case(torch, gen, dev, FT_BATCH, 256, 256, torch.bfloat16,
+                                        FT_HW)
+        row["device_ms"] = device_ms(
+            lambda: roi_align_levels(feats, boxes, levels, p, 2), "single_kernel", 20,
+            roi_align_cuda, per_call=4)
+    n_train = 2 + len(BACKWARD_CASES)
+    for row, p in zip(checks["roi_align_backward"][n_train:], FT_ALIGN_PS):
+        backward_row(row, gen, p, "dense", FT_BATCH, FT_HW, "bfloat16")
 
 
 # ------------------------------------------------------------- phase 4
@@ -803,6 +948,131 @@ def tiny_train_parity(np, torch):
     return dict(loss_cuda=lc, loss_cpu=lp, loss_rel_diff=rel, worst_grad_ratios=ratios[:5])
 
 
+def to_device(x, device):
+    """Tensors (in NamedTuples, at any depth) moved to `device`."""
+    if hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, device) for v in x))
+    return x.to(device)
+
+
+def tiny_finetune_case(np, torch):
+    """The fused fine-tune at phase 4's tiny configuration (batch 2, patch
+    32): a frame with two objects and its labels, seeded refine and
+    proposal nets (RPN delta head zeroed, as in phase 6), both nets' fused
+    steps, and one set of draws of each made on the CPU."""
+    import dataclasses
+
+    from premvos_tpu_torch.data.lucid import inpaint_background
+    from premvos_tpu_torch.finetune import fused
+    from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.maskrcnn import MaskRCNN
+
+    cfg = tiny_config()
+    ft = dataclasses.replace(cfg.finetune, batch_size=2, aug_patch=32)
+    p = cfg.pipeline
+    hw, k = (p.image_height, p.image_width), p.max_objects
+    frames, gt = synthetic_video(np, 1, *hw, k, seed=3)
+    lab = (np.arange(1, k + 1)[:, None, None] * (gt > 0.5)).max(0).astype(np.int32)
+    refine, maskrcnn = DeepLabV3Plus(cfg.refine), MaskRCNN(cfg.proposal)
+    init_module(refine, torch.Generator().manual_seed(0))
+    init_module(maskrcnn, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for t in maskrcnn.rpn.Conv_2.parameters():
+            t.zero_()
+    prop_hw = fused.proposal_finetune_hw(hw, ft)
+    runs = {"refine": fused.build_refine_fused_runs(hw, cfg.refine, ft, k),
+            "proposal": fused.build_proposal_fused_runs(cfg.proposal, prop_hw, ft, k, "cpu")}
+    gen, host_gen = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    draws = {name: run.draw(gen, host_gen) for name, run in runs.items()}
+    return dict(cfg=cfg, ft=ft, frame=frames[0], lab=lab, bg=inpaint_background(frames[0], lab),
+                nets={"refine": refine, "proposal": maskrcnn}, draws=draws, prop_hw=prop_hw)
+
+
+def tiny_finetune_on(torch, case, device: str):
+    """Each net's fused batch loss and gradients on `device` from the CPU
+    draws (TF32 off), and the refine batch's lucid canvases and masks."""
+    import copy
+
+    from premvos_tpu_torch.finetune import fused
+    from premvos_tpu_torch.finetune.lucid_device import lucid_frames
+    from premvos_tpu_torch.pipeline.runner import float32_precision, place
+
+    cfg, ft, k = case["cfg"], case["ft"], case["cfg"].pipeline.max_objects
+    hw = case["frame"].shape[:2]
+    runs = {"refine": fused.build_refine_fused_runs(hw, cfg.refine, ft, k),
+            "proposal": fused.build_proposal_fused_runs(cfg.proposal, case["prop_hw"], ft, k,
+                                                        device)}
+    consts = {"refine": fused._prep_consts(case["frame"], case["lab"], k, device, case["bg"]),
+              "proposal": fused._prep_consts(case["frame"], case["lab"], k, device, case["bg"],
+                                             hw=case["prop_hw"])}
+    out = {}
+    for name, run in runs.items():
+        draws = case["draws"][name]
+        if name == "proposal":  # the RPN seeds stay on the host
+            draws = draws._replace(lucid=to_device(draws.lucid, device))
+        else:
+            draws = to_device(draws, device)
+        m = place(copy.deepcopy(case["nets"][name]), torch.device(device))
+        with float32_precision():
+            loss = run.loss(m, run.batch(draws, consts[name]))
+            loss.backward()
+        out[name] = (loss.item(), {n: t.grad.detach().float().cpu()
+                                   for n, t in m.named_parameters()})
+    lucid = to_device(case["draws"]["refine"].lucid, device)
+    canvas, masks = lucid_frames(lucid, *consts["refine"], min(ft.aug_patch, *hw),
+                                 cfg.refine.interp_precision)
+    out["lucid"] = (canvas.cpu(), masks.cpu())
+    return out
+
+
+def tiny_finetune_parity(np, torch):
+    """One fused fine-tune step of each net at the tiny configuration on
+    CUDA (kernels) and on the CPU (plain versions) from the same weights
+    and draws: each loss within 1e-4 relative, every gradient within 1e-3
+    of its parameter's largest |grad| (phase 6's bounds); the lucid masks
+    equal except where a pasted value lies within 1e-4 of 0.5, the
+    canvases within 1e-3 of 255 where the labels agree. Returns a report
+    dict."""
+    from premvos_tpu_torch.finetune.lucid_device import object_patches
+    from premvos_tpu_torch.ops.masks import paste_mask
+
+    case = tiny_finetune_case(np, torch)
+    got, want = tiny_finetune_on(torch, case, "cuda"), tiny_finetune_on(torch, case, "cpu")
+    report = {}
+    for name in ("refine", "proposal"):
+        (lc, gc), (lp, gp) = got[name], want[name]
+        rel = abs(lc - lp) / abs(lp)
+        if not (np.isfinite(lc) and rel <= 1e-4):
+            fail(f"tiny fine-tune {name} loss: CUDA {lc} vs CPU {lp} (relative {rel} > 1e-4)")
+        ratios = grad_ratios(gc, gp)
+        if not ratios[0][0] <= 1e-3:
+            fail(f"tiny fine-tune {name} gradient {ratios[0][1]}: max |diff| {ratios[0][0]} of "
+                 "its max |grad| > 1e-3")
+        report[name] = dict(loss_cuda=lc, loss_cpu=lp, loss_rel_diff=rel,
+                            worst_grad_ratios=ratios[:3])
+    (cc, mc), (cp, mp) = got["lucid"], want["lucid"]
+    differ = (mc != mp).any(1)
+    if bool(differ.any()):
+        k = case["cfg"].pipeline.max_objects
+        img, masks = (torch.from_numpy(case["frame"]).permute(2, 0, 1).float(),
+                      torch.from_numpy(case["lab"] == np.arange(1, k + 1)[:, None, None]).float())
+        slots = [j for j in range(k) if bool(masks[j].any())]
+        _, m, dst, on = object_patches(case["draws"]["refine"].lucid, img, masks, slots,
+                                       min(case["ft"].aug_patch, *case["frame"].shape[:2]))
+        h, w = case["frame"].shape[:2]
+        soft = torch.stack([paste_mask(m[:, i], dst[:, i], h, w) * on[i]
+                            for i in range(len(slots))], 1)
+        if not bool(((soft - 0.5).abs() <= 1e-4).any(1)[differ].all()):
+            fail("tiny fine-tune: CUDA and CPU lucid masks differ away from the 0.5 threshold")
+    keep = ~differ[:, None].expand_as(cc)
+    canvas_err = float((cc - cp).abs()[keep].max())
+    if not canvas_err <= 1e-3 * 255:
+        fail(f"tiny fine-tune: lucid canvas max |diff| {canvas_err} > 1e-3 of 255")
+    report["lucid"] = dict(mask_pixels_differ=int(differ.sum()), canvas_max_abs_err=canvas_err)
+    return report
+
+
 # ------------------------------------------------------------- phase 7
 
 class SyntheticDavis:
@@ -883,6 +1153,97 @@ def train_full_width(np, torch, wrappers, n_steps: int = 5):
                 wall_s_per_step=wall / n_steps, peak_bytes=peak, launches=launches)
 
 
+def bench_finetune_frame(np, h, w):
+    """bench.py's fine-tune input: a uniform-noise frame (seed 0) and two
+    rectangular objects."""
+    r = np.random.default_rng(0)
+    frame0 = r.integers(0, 255, (h, w, 3)).astype(np.uint8)
+    lab0 = np.zeros((h, w), np.int32)
+    lab0[100:200, 150:300] = 1
+    lab0[250:350, 500:650] = 2
+    return frame0, lab0
+
+
+def changed(a, b) -> bool:
+    """Whether any parameter of module b differs from module a's."""
+    pa = dict(a.named_parameters())
+    return any(not bool((pa[n] == t).all()) for n, t in b.named_parameters())
+
+
+def finetune_full_width(np, torch, wrappers, cfg, steps: int = 40):
+    """The fused per-video fine-tune of both nets at `cfg` (davis2017_val)
+    with FinetuneConfig(steps=steps), seeded random weights: a warm-up run,
+    then a timed run with the launch counters zeroed just before it and
+    read just after. Returns (report dict, fine-tuned models)."""
+    import dataclasses
+
+    from premvos_tpu_torch.finetune.fused import finetune_video_fused
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params
+
+    ft = dataclasses.replace(cfg.finetune, steps=steps)
+    p = cfg.pipeline
+    models = init_params(build_models(cfg), cfg, seed=0)
+    frame0, lab0 = bench_finetune_frame(np, p.image_height, p.image_width)
+    t0 = time.perf_counter()
+    _, warm = finetune_video_fused(models, frame0, lab0, cfg, ft_cfg=ft)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    tuned, losses = finetune_video_fused(models, frame0, lab0, cfg, ft_cfg=ft, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    report = dict(config="configs/davis2017_val.json, FinetuneConfig(steps=%d): refine batch "
+                         "%d at %d^2 crops on 480x864 lucid frames, proposals batch %d at "
+                         "proposal_finetune_hw, patch %d, chunk %d, Adam %g, bf16 compute"
+                         % (steps, ft.batch_size, cfg.refine.crop_size,
+                            max(1, ft.batch_size // 2), ft.aug_patch, ft.chunk,
+                            ft.learning_rate),
+                  warmup_s=warm_s, warmup_losses=warm, wall_s=wall, losses=losses,
+                  inpaint_s=stats["inpaint_s"], peak_bytes=peak, launches=launches)
+    for net, mod in (("refine", "refine"), ("proposal", "maskrcnn")):
+        chunks = stats[net]["chunks"]
+        if not all(np.isfinite(loss) for _, _, loss in chunks):
+            fail(f"fine-tune {net} losses not finite: {chunks}")
+        if not changed(getattr(models, mod), getattr(tuned, mod)):
+            fail(f"fine-tune {net}: no parameter changed")
+        report[net] = dict(chunks=chunks, s_per_step=sum(c[1] for c in chunks) / steps,
+                           chunk_s_per_step=[c[1] / c[0] for c in chunks])
+    # Each net launches resample2d twice a step (backgrounds, patches).
+    if launches["resample2d"] != 4 * steps:
+        fail(f"fine-tune: resample2d launched {launches['resample2d']} times, not "
+             f"2 per step for each net ({4 * steps})")
+    missing = [k for k in FINETUNE_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched on the fine-tune path: {missing}")
+    del models
+    return report, tuned
+
+
+def track_after_finetune(np, torch, tuned, cfg, n_frames: int = 9):
+    """`run_sequence` with the fine-tuned models on phase 5's frames:
+    labels of the right shape and ids, frame 0 the annotation."""
+    from premvos_tpu_torch.pipeline.runner import run_sequence
+
+    p = cfg.pipeline
+    frames, gt = synthetic_video(np, n_frames, p.image_height, p.image_width, p.max_objects,
+                                 seed=2)
+    lab = run_sequence(tuned, cfg, frames, gt, 2).cpu().numpy()
+    if lab.shape != (n_frames, p.image_height, p.image_width) or lab.dtype != np.int32:
+        fail(f"labels after the fine-tune: {lab.shape} {lab.dtype}")
+    if not set(np.unique(lab)) <= {0, 1, 2}:
+        fail(f"labels after the fine-tune hold ids {np.unique(lab)}")
+    ids = (np.arange(1, p.max_objects + 1)[:, None, None] * (gt > 0.5)).max(0)
+    if not np.array_equal(lab[0], ids):
+        fail("frame 0 labels after the fine-tune differ from the annotation")
+    return [int((lab[t] > 0).sum()) for t in range(n_frames)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     ap.add_argument("--json", help="also write the full report (JSON) here")
@@ -933,6 +1294,8 @@ def main() -> int:
     report["ptxas"] = ptxas
 
     # Phase 3 — each kernel vs its plain version at production shapes.
+    cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
+    check_finetune_shapes(cfg)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     checks = {
@@ -957,6 +1320,19 @@ def main() -> int:
     for i, (p_bw, kind) in enumerate(BACKWARD_CASES):
         checks["roi_align_backward"].append(check_roi_align_backward(
             torch, torch.Generator().manual_seed(5 + i), dev, p_bw, kind))
+    for i, kind in enumerate(LUCID_RESAMPLE_CASES):
+        checks["resample2d"].append(
+            check_lucid_resample(torch, torch.Generator().manual_seed(20 + i), dev, kind))
+    # The fine-tune's proposal net: its RPN's NMS, and the training
+    # RoIAlign forward and backward of its box and mask heads.
+    checks["nms"].append(check_nms(torch, torch.Generator().manual_seed(30), dev, NMS_CASES[3]))
+    for i, p_ft in enumerate(FT_ALIGN_PS):
+        checks["roi_align"].append(check_roi_align_train(
+            torch, torch.Generator().manual_seed(31 + i), dev, p_ft, torch.bfloat16, FT_BATCH,
+            FT_HW))
+        checks["roi_align_backward"].append(check_roi_align_backward(
+            torch, torch.Generator().manual_seed(33 + i), dev, p_ft, "dense", FT_BATCH, FT_HW,
+            "bfloat16"))
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
     for name, rows in checks.items():
@@ -982,7 +1358,6 @@ def main() -> int:
         fail(f"tiny config: CUDA vs CPU agreement {agree} < 0.99 or frame 0 differs")
 
     # Phase 5 — the production preset on 9 frames.
-    cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
     p = cfg.pipeline
     t0 = time.perf_counter()
     models = init_params(build_models(cfg), cfg, seed=0)
@@ -1041,6 +1416,8 @@ def main() -> int:
     # Phase 6 — tiny training step: CUDA (kernels) vs CPU (plain versions).
     report["tiny_training"] = tiny_train_parity(np, torch)
     log(f"tiny training: {report['tiny_training']}")
+    report["tiny_finetune"] = tiny_finetune_parity(np, torch)
+    log(f"tiny fine-tune: {report['tiny_finetune']}")
 
     # Phase 7 — Mask R-CNN training at full width.
     tr = train_full_width(np, torch, wrappers)
@@ -1048,6 +1425,17 @@ def main() -> int:
     log(f"training at full width: median {tr['median_s_per_step']:.4f} s/step → "
         f"{tr['images_per_s']:.2f} images/s, peak {tr['peak_bytes'] / 2**30:.2f} GiB, "
         f"losses {tr['losses']}, launches {tr['launches']}")
+
+    # Phase 7, continued — the per-video fused fine-tune at full width.
+    ftr, tuned = finetune_full_width(np, torch, wrappers, cfg)
+    report["finetune"] = ftr
+    log(f"fine-tune at davis2017_val, 40 steps per net: refine {ftr['refine']['s_per_step']:.4f} "
+        f"s/step, proposal {ftr['proposal']['s_per_step']:.4f} s/step, inpaint "
+        f"{ftr['inpaint_s']:.3f} s (host), peak {ftr['peak_bytes'] / 2**30:.2f} GiB, "
+        f"losses {ftr['losses']}, launches {ftr['launches']}")
+    ftr["tracked_labels_per_frame"] = track_after_finetune(np, torch, tuned, cfg)
+    del tuned
+    torch.cuda.empty_cache()
 
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
@@ -1061,15 +1449,18 @@ def main() -> int:
                 + (f", grid_sample device {r['library_device_ms']:.5f} ms"
                    if "library_device_ms" in r else ""))
 
-    # Each kernel's launches on the path that runs it.
-    path_launches = {k: launches[k] for k in INFERENCE_KERNELS}
-    path_launches.update({k: tr["launches"][k] for k in TRAINING_KERNELS if k != "nms"})
+    # Each kernel's launches in each path's own zeroed window, and their sum.
+    by_path = {name: {path: counts[name] for path, counts, names in (
+        ("inference", launches, INFERENCE_KERNELS),
+        ("training", tr["launches"], TRAINING_KERNELS),
+        ("finetune", ftr["launches"], FINETUNE_KERNELS)) if name in names} for name in KERNELS}
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():
         main = checks[name][0]
         kernels_line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[name], "max_abs_err": main["max_abs_err"],
+            "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+            "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
             "library_ms": main["library_ms"],

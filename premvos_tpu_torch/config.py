@@ -3,7 +3,7 @@
 The port keeps its own copy of the JAX package's config tree so that it
 imports nothing from that package; both load the same JSON presets
 (configs/*.json), and field names and defaults are identical. Fields the
-port does not read yet (the fine-tuning tree, `mesh_axis`, the loss
+port does not read yet (`mesh_axis`, `num_augmentations`, the loss
 settings) stay so that every preset parses. The `warp_impl` switches are
 read by the JAX package only: the port's warp is always the exact bilinear
 warp (ops/resample2d.py).
@@ -134,16 +134,20 @@ class PipelineConfig:
 
 @dataclass(frozen=True)
 class FinetuneConfig:
-    """Per-video fine-tuning (not ported yet; kept so presets parse)."""
+    """Per-video lucid-dream fine-tuning (finetune/fused.py).
 
-    num_augmentations: int = 2500
+    method "fused" (default): every step draws its augmentations on the
+    device. method "pool" (the host-pool oracle) is not ported yet.
+    """
+
+    num_augmentations: int = 2500  # pool method only; fused draws per step
     steps: int = 500
     learning_rate: float = 1e-4
-    batch_size: int = 8
-    method: str = "fused"
-    chunk: int = 16
-    aug_patch: int = 256
-    proposal_scale: float = 0.5
+    batch_size: int = 8  # refine batch; the proposal batch is half
+    method: str = "fused"  # "fused" | "pool"
+    chunk: int = 16  # steps between two host reads of the loss
+    aug_patch: int = 256  # object patch side of the lucid warps
+    proposal_scale: float = 0.5  # proposal fine-tune size / frame size
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,13 @@
-"""Image preprocessing (port of premvos_tpu/data/preprocess.py)."""
+"""Image preprocessing (port of premvos_tpu/data/preprocess.py), and the
+two host resizes of the fused fine-tune's set-up (finetune/fused.py), which
+the JAX package does with OpenCV: `resize_area_u8` (INTER_AREA) and
+`resize_nearest` (INTER_NEAREST), in numpy."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 # ImageNet statistics (the backbones' pretraining convention).
@@ -25,3 +31,54 @@ def normalize(image: torch.Tensor) -> torch.Tensor:
 def to_unit(image: torch.Tensor) -> torch.Tensor:
     """uint8 RGB → [0,1] float32 (flow net convention)."""
     return image.to(torch.float32) / 255.0
+
+
+def _area_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] weights of OpenCV's INTER_AREA along one axis (the
+    overlap of each destination cell, `src / dst` source pixels wide, with
+    each source pixel, over the cell's width), for src ≥ dst."""
+    scale = src / dst
+    m = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        width = min(scale, src - f1)
+        s1 = min(math.ceil(f1), min(math.floor(f2), src - 1))
+        s2 = min(math.floor(f2), src - 1)
+        if s1 - f1 > 1e-3:
+            m[d, s1 - 1] = np.float32((s1 - f1) / width)
+        m[d, s1:s2] = np.float32(1.0 / width)
+        if f2 - s2 > 1e-3:
+            m[d, s2] = np.float32(min(min(f2 - s2, 1.0), width) / width)
+    return m
+
+
+def resize_area_u8(image: np.ndarray, hw: tuple) -> np.ndarray:
+    """uint8 [H, W, C] → [h, w, C] downscale as `cv2.resize(...,
+    interpolation=cv2.INTER_AREA)`: separable box-overlap weights, rounded
+    half to even and saturated as OpenCV rounds (the sums run in another
+    order, so a value may land one level apart); for integer factors the
+    block mean rounded half up. Needs h ≤ H and w ≤ W."""
+    h, w = hw
+    src_h, src_w = image.shape[:2]
+    if h > src_h or w > src_w:
+        raise ValueError(f"resize_area_u8 downscales only: {image.shape[:2]} → {hw}")
+    if src_h % h == 0 and src_w % w == 0:
+        # Integer factors: OpenCV's block mean, rounded half up.
+        fy, fx = src_h // h, src_w // w
+        blocks = image.reshape(h, fy, w, fx, -1).astype(np.int64).sum((1, 3))
+        return ((blocks + fy * fx // 2) // (fy * fx)).astype(np.uint8).reshape(h, w, *image.shape[2:])
+    ay, ax = _area_weights(src_h, h), _area_weights(src_w, w)
+    rows = ay @ image.astype(np.float64).reshape(src_h, -1)  # [h, W·C]
+    out = np.tensordot(rows.reshape(h, src_w, -1), ax, ([1], [1])).transpose(0, 2, 1)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape(h, w, *image.shape[2:])
+
+
+def resize_nearest(labels: np.ndarray, hw: tuple) -> np.ndarray:
+    """[H, W] → [h, w] as `cv2.resize(..., interpolation=cv2.INTER_NEAREST)`:
+    source index floor(dst · src / dst_size), clamped to the last one."""
+    h, w = hw
+    src_h, src_w = labels.shape[:2]
+    ys = np.minimum(np.floor(np.arange(h) * (src_h / h)).astype(np.int64), src_h - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (src_w / w)).astype(np.int64), src_w - 1)
+    return labels[ys[:, None], xs[None, :]]

@@ -1,0 +1,319 @@
+"""Fused per-video fine-tuning on one device (port of
+premvos_tpu/finetune/fused.py).
+
+PReMVOS fine-tunes the refinement net (DeepLabv3+) and the proposal net
+(Mask R-CNN) on lucid-dream augmentations of each video's first frame
+before it tracks the video. As in the JAX package's default
+(`FinetuneConfig.method = "fused"`), every step generates its batch on the
+device (finetune/lucid_device.py): the host's one job is inpainting the
+background, once per video (data/lucid.py). Each step is draws → batch →
+loss → backward → Adam, with no read back to the host; `chunk` is the
+number of steps between two host reads of the loss (one `.item()` per
+chunk).
+
+  * Refine net: batch `batch_size` of RGB crops (crop_size²) around a
+    jittered, margin-expanded object box, with the object's mask perturbed
+    as the fourth channel; sigmoid cross-entropy on the crop's mask, masked
+    by whether the example holds an object. Crops and pastes at
+    RefineConfig.interp_precision.
+  * Proposal net: batch `batch_size // 2` of whole lucid frames at
+    `proposal_finetune_hw` (the frame scaled by `proposal_scale`, on the
+    backbone's 32-px grid), anchors rebuilt for that size, the Mask R-CNN
+    training loss (train/detection.py::maskrcnn_loss_fn, proposals held
+    constant). Crops and pastes in float32.
+
+The caller's modules are never changed: each net is deep-copied with a
+fresh Adam (`_fresh_state`), and `finetune_video_fused` returns new
+`Models` with the two fine-tuned nets. Random streams are explicit
+`torch.Generator`s seeded from `seed`: one on the device per net for the
+augmentation draws, one on the host for the proposal batch's RPN sampling
+seeds.
+
+Left out, by design: the JAX package's `shard_map`/`pmean` data
+parallelism (one device here), and `chunk_lengths` and `steps_list`, which
+exist only to pre-compile XLA scan programs per chunk length.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from premvos_tpu_torch.config import FinetuneConfig, RefineConfig
+from premvos_tpu_torch.data.lucid import inpaint_background
+from premvos_tpu_torch.data.preprocess import resize_area_u8, resize_nearest
+from premvos_tpu_torch.finetune.finetune import labels_to_boxes_masks
+from premvos_tpu_torch.finetune.lucid_device import (
+    proposal_batch,
+    refine_examples,
+    sample_proposal_draws,
+    sample_refine_draws,
+)
+from premvos_tpu_torch.models.anchors import pyramid_anchors
+from premvos_tpu_torch.pipeline.runner import resolve_device
+from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
+from premvos_tpu_torch.train.losses import sigmoid_xent
+from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
+
+
+class Consts(NamedTuple):
+    """A video's fine-tune constants on the device: the first frame and its
+    inpainted background [3, H, W] (float32, 0..255), the object masks
+    [K, H, W], and which slots hold an object (host booleans [K])."""
+
+    image255: torch.Tensor
+    masks: torch.Tensor
+    valid: np.ndarray
+    background255: torch.Tensor
+
+
+class FusedRun(NamedTuple):
+    """One net's fused step, built for a frame size, in three parts (none
+    syncs with the host): `draw(gen, host_gen)` draws a batch's random
+    values, `batch(draws, consts)` builds the batch from them on the
+    device, `loss(module, batch)` is the batch loss of `module`."""
+
+    draw: Callable
+    batch: Callable
+    loss: Callable
+    image_hw: tuple
+
+
+def _prep_consts(frame0, lab0, max_objects: int, device, background=None, hw=None) -> Consts:
+    """Host-side set-up, once per video: inpaint the background (unless
+    given), resize to `hw` (area for images, nearest for labels), split the
+    labels into padded mask slots, upload."""
+    frame0 = np.asarray(frame0, np.uint8)
+    lab0 = np.asarray(lab0).astype(np.int32)
+    if background is None:
+        background = inpaint_background(frame0, lab0)
+    if hw is not None and tuple(hw) != frame0.shape[:2]:
+        frame0 = resize_area_u8(frame0, hw)
+        background = resize_area_u8(np.asarray(background, np.uint8), hw)
+        lab0 = resize_nearest(lab0, hw)
+    _, masks, valid = labels_to_boxes_masks(lab0, max_objects)
+    chw = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).permute(2, 0, 1)  # noqa: E731
+    return Consts(
+        image255=chw(frame0).contiguous().to(device),
+        masks=torch.from_numpy(masks).to(device),
+        valid=valid,
+        background255=chw(background).contiguous().to(device),
+    )
+
+
+def _fresh_state(module: torch.nn.Module, learning_rate: float):
+    """A copy of `module` to train (the caller's stays as it is) and a fresh
+    Adam over it."""
+    return create_train_state(copy.deepcopy(module), learning_rate)
+
+
+def _run_chunks(run: FusedRun, state, consts: Consts, seed: int, steps: int, chunk: int,
+                log_every: int = 0, label: str = "", stats: dict | None = None):
+    """`steps` steps, reading the loss on the host once per `chunk` steps.
+    Returns (module, final loss). `stats`, where given, gets "chunks": one
+    (steps, seconds, loss) per chunk, the seconds on the host clock from the
+    chunk's first step to its loss read."""
+    if steps < 1:
+        raise ValueError(
+            f"fused fine-tune needs steps >= 1 (got {steps}); with 0 steps "
+            "there is no loss to report — use the initial modules directly"
+        )
+    module = state.model
+    dev = next(module.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    host_gen = torch.Generator().manual_seed(seed)
+    step = make_train_step(lambda d: run.loss(module, run.batch(d, consts)), state.optimizer)
+    chunks = []
+    loss, done = float("nan"), 0
+    while done < steps:
+        n = min(chunk, steps - done)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            last = step(run.draw(gen, host_gen))
+        loss = last.item()
+        chunks.append((n, time.perf_counter() - t0, loss))
+        done += n
+        if log_every and (done % max(log_every, 1) < chunk):
+            print(f"[finetune-fused{label}] step {done}/{steps} loss={loss:.4f}", flush=True)
+    if stats is not None:
+        stats["chunks"] = chunks
+    return module, loss
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous(memory_format=torch.channels_last) if x.is_cuda else x
+
+
+def build_refine_fused_runs(image_hw, refine_cfg: RefineConfig = RefineConfig(),
+                            ft_cfg: FinetuneConfig = FinetuneConfig(),
+                            max_objects: int = 8) -> FusedRun:
+    """The refine net's fused step at frame size `image_hw`."""
+    h, w = image_hw
+    bs = max(ft_cfg.batch_size, 1)
+    patch = min(ft_cfg.aug_patch, min(h, w))
+
+    def draw(gen, host_gen):
+        return sample_refine_draws(gen, bs, max_objects, h, w, patch)
+
+    def batch(draws, consts):
+        return refine_examples(draws, consts, patch, refine_cfg.crop_size,
+                               refine_cfg.box_margin, refine_cfg.interp_precision)
+
+    def loss(module, examples):
+        x, tgt, ok = examples
+        logits = module(_channels_last(x))
+        mask = ok[:, None, None].expand_as(logits).to(torch.float32)
+        return sigmoid_xent(logits, tgt, mask=mask)
+
+    return FusedRun(draw, batch, loss, (h, w))
+
+
+def finetune_refine_fused(model, frame0, lab0, refine_cfg: RefineConfig = RefineConfig(),
+                          ft_cfg: FinetuneConfig = FinetuneConfig(), seed: int = 0,
+                          max_objects: int = 8, log_every: int = 0, background=None,
+                          built: FusedRun | None = None, stats: dict | None = None):
+    """Per-video refine-net fine-tune on the device `model` lives on.
+    Returns (fine-tuned copy of `model`, final loss)."""
+    dev = next(model.parameters()).device
+    consts = _prep_consts(frame0, lab0, max_objects, dev, background)
+    hw = tuple(consts.image255.shape[1:])
+    run = built or build_refine_fused_runs(hw, refine_cfg, ft_cfg, max_objects)
+    state = _fresh_state(model, ft_cfg.learning_rate)
+    return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1),
+                       log_every, "-refine", stats)
+
+
+def proposal_finetune_hw(frame_hw, ft_cfg: FinetuneConfig) -> tuple:
+    """Mask R-CNN fine-tune resolution: the frame scaled by
+    ft_cfg.proposal_scale, rounded (half to even, Python's round) to the
+    backbone's 32-px grid, at least 64."""
+    fh, fw = frame_hw
+    sc = float(ft_cfg.proposal_scale)
+    return (max(round(fh * sc / 32) * 32, 64), max(round(fw * sc / 32) * 32, 64))
+
+
+def build_proposal_fused_runs(proposal_cfg, image_hw, ft_cfg: FinetuneConfig = FinetuneConfig(),
+                              max_objects: int = 8, device=None) -> FusedRun:
+    """The Mask R-CNN fused step at `image_hw`, with anchors rebuilt for it
+    on `device`."""
+    h, w = image_hw
+    anchors = {
+        k: torch.from_numpy(v).to(resolve_device(device))
+        for k, v in pyramid_anchors(h, w, proposal_cfg.anchor_scales,
+                                    proposal_cfg.anchor_ratios).items()
+    }
+    bs = max(1, ft_cfg.batch_size // 2)
+    patch = min(ft_cfg.aug_patch, min(h, w))
+
+    def draw(gen, host_gen):
+        return sample_proposal_draws(gen, host_gen, bs, max_objects, h, w, patch)
+
+    def batch(draws, consts):
+        return proposal_batch(draws, consts, patch)
+
+    def loss(module, images):
+        return maskrcnn_loss_fn(module, anchors, proposal_cfg, (h, w))(images)
+
+    return FusedRun(draw, batch, loss, (h, w))
+
+
+def finetune_proposals_fused(model, proposal_cfg, frame0, lab0,
+                             ft_cfg: FinetuneConfig = FinetuneConfig(), seed: int = 0,
+                             max_objects: int = 8, log_every: int = 0, background=None,
+                             image_hw=None, built: FusedRun | None = None,
+                             stats: dict | None = None):
+    """Per-video Mask R-CNN fine-tune on the device `model` lives on, at
+    `image_hw` (default: proposal_finetune_hw of the frame). Returns
+    (fine-tuned copy of `model`, final loss)."""
+    dev = next(model.parameters()).device
+    if image_hw is None:
+        image_hw = built.image_hw if built else proposal_finetune_hw(
+            np.asarray(frame0).shape[:2], ft_cfg)
+    run = built or build_proposal_fused_runs(proposal_cfg, image_hw, ft_cfg, max_objects, dev)
+    consts = _prep_consts(frame0, lab0, max_objects, dev, background, hw=image_hw)
+    state = _fresh_state(model, ft_cfg.learning_rate)
+    return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1),
+                       log_every, "-prop", stats)
+
+
+def finetune_video(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None = None,
+                   seed: int = 0, log_every: int = 0, built: dict | None = None,
+                   device=None, stats: dict | None = None):
+    """Method-dispatching per-video fine-tune of both nets: "fused" (the
+    default) runs finetune_video_fused; the host-pool oracle ("pool") is
+    not ported yet. Returns (models', {"refine": loss, "proposal": loss})."""
+    ft = ft_cfg or cfg.finetune
+    if ft.method == "fused":
+        return finetune_video_fused(models, frame0, lab0, cfg, ft, seed, log_every, built,
+                                    device, stats)
+    if ft.method == "pool":
+        raise NotImplementedError(
+            'FinetuneConfig.method "pool" (the host-pool oracle) is not ported yet: '
+            "ROADMAP.md, queue 1, item 2 (the pool oracle, with cv2-free warpAffine, "
+            "remap, GaussianBlur, dilate and erode)"
+        )
+    raise ValueError(f"unknown FinetuneConfig.method {ft.method!r}")
+
+
+def build_fused_runner(models, cfg, ft_cfg: FinetuneConfig | None = None, image_hw=None,
+                       device=None) -> dict:
+    """Both nets' fused steps for one frame size (every sequence of a
+    dataset run shares the pipeline canvas), to pass to finetune_video as
+    `built`."""
+    ft = ft_cfg or cfg.finetune
+    if image_hw is None:
+        image_hw = (cfg.pipeline.image_height, cfg.pipeline.image_width)
+    prop_hw = proposal_finetune_hw(image_hw, ft)
+    k = cfg.pipeline.max_objects
+    return {
+        "refine": build_refine_fused_runs(image_hw, cfg.refine, ft, k),
+        "proposal": build_proposal_fused_runs(cfg.proposal, prop_hw, ft, k,
+                                              device or next(models.maskrcnn.parameters()).device),
+        "proposal_hw": prop_hw,
+        "image_hw": tuple(image_hw),
+    }
+
+
+def finetune_video_fused(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None = None,
+                         seed: int = 0, log_every: int = 0, built: dict | None = None,
+                         device=None, stats: dict | None = None):
+    """Fine-tune both nets for one video, sharing one host inpainting.
+
+    models: the pipeline's `Models` (build_models), on `device` (CUDA
+    unless the caller passes one; without a card and without device="cpu"
+    this raises). frame0 [H, W, 3] uint8 and lab0 [H, W] int labels of the
+    first frame. Returns (models with new `refine` and `maskrcnn` modules,
+    {"refine": loss, "proposal": loss}); the other two modules and the
+    caller's are untouched. `stats`, where given, gets "inpaint_s" (host
+    seconds) and each net's chunk log under "refine" and "proposal".
+    """
+    dev = resolve_device(device)
+    for name in ("refine", "maskrcnn"):
+        on = next(getattr(models, name).parameters()).device
+        if on.type != dev.type:
+            raise ValueError(f"finetune_video_fused: models.{name} is on {on}, not {dev}")
+    ft = ft_cfg or cfg.finetune
+    frame0 = np.asarray(frame0, np.uint8)
+    lab0 = np.asarray(lab0)
+    t0 = time.perf_counter()
+    bg = inpaint_background(frame0, lab0.astype(np.int32))
+    if stats is not None:
+        stats["inpaint_s"] = time.perf_counter() - t0
+    sub = (lambda key: stats.setdefault(key, {})) if stats is not None else (lambda key: None)
+    k = cfg.pipeline.max_objects
+    refine, loss_r = finetune_refine_fused(
+        models.refine, frame0, lab0, cfg.refine, ft, seed=seed, max_objects=k,
+        log_every=log_every, background=bg, built=built["refine"] if built else None,
+        stats=sub("refine"),
+    )
+    maskrcnn, loss_p = finetune_proposals_fused(
+        models.maskrcnn, cfg.proposal, frame0, lab0, ft, seed=seed, max_objects=k,
+        log_every=log_every, background=bg,
+        image_hw=built["proposal_hw"] if built else None,
+        built=built["proposal"] if built else None, stats=sub("proposal"),
+    )
+    return models._replace(refine=refine, maskrcnn=maskrcnn), {"refine": loss_r, "proposal": loss_p}

@@ -197,6 +197,16 @@ def stream_of(t: torch.Tensor) -> int:
     return _raw_stream(t.get_device())
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Check of the forward-only wrappers: with grad enabled, no input may
+    require grad (the kernel's output would silently carry no graph)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: the CUDA kernel has no backward; call it on inputs that "
+            "do not require grad, or under torch.no_grad()"
+        )
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Shared argument check of the kernel wrappers: every tensor on one
     CUDA device. The wrappers pass contiguous tensors (they call

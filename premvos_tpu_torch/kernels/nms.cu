@@ -51,6 +51,11 @@
 //        - the kept boxes write their original index at their rank, so no
 //          compaction pass follows; the sweep stops once max_outputs boxes
 //          are kept and fills the slots past the last kept box with -1.
+//      Where the ring does not fit in shared memory (n above about 14,000
+//      boxes, sweep_smem > kMaxSweepSmem), the same sweep reads each tile's
+//      rows and original indices straight from global memory (the
+//      kStaged = false instance); only the alive and removed words stay in
+//      shared memory, so n may reach about 900,000.
 // What holds it (PERF.md, section 6): the wrapper's host path, most of it
 // PyTorch's sort; on the card, the mask pass's instructions per box pair
 // (22.7 M pairs at the RPN's shape) and the sweep's fixed cost per tile
@@ -279,6 +284,9 @@ __device__ __forceinline__ u64 resolve_tile(u64 cand, const u64* rows, int strid
   return kept;
 }
 
+// kStaged: tiles go through the shared-memory ring; otherwise each tile's
+// rows and original indices are read from global memory where they lie.
+template <bool kStaged>
 __global__ void __launch_bounds__(kSweepThreads)
 nms_sweep_kernel(const u64* __restrict__ mask, const long long* __restrict__ order,
                  const float* __restrict__ neg_sorted, int n, int words,
@@ -287,8 +295,10 @@ nms_sweep_kernel(const u64* __restrict__ mask, const long long* __restrict__ ord
   extern __shared__ u64 smem[];
   u64* removed = smem;               // [words]
   u64* alive = removed + words;      // [words]
-  long long* stage_ord = reinterpret_cast<long long*>(alive + words);  // [kStages][64]
-  u64* stage = alive + words + kStages * kBits;  // [kStages][64][stride], 16-byte aligned
+  // The ring, kStaged only: [kStages][64] indices, [kStages][64][stride] rows
+  // (16-byte aligned).
+  long long* stage_ord = reinterpret_cast<long long*>(alive + words);
+  u64* stage = alive + words + kStages * kBits;
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31;
   const int stride = row_stride(words);
@@ -311,24 +321,35 @@ nms_sweep_kernel(const u64* __restrict__ mask, const long long* __restrict__ ord
     }
   }
   __syncthreads();
-  stage_tile(stage, stage_ord, m, ord, alive[0], 0, n, words);
-  cp_async_commit();
+  if (kStaged) {
+    stage_tile(stage, stage_ord, m, ord, alive[0], 0, n, words);
+    cp_async_commit();
+  }
 
   int kept_total = 0;
   for (int t = 0; t < words && kept_total < max_outputs; ++t) {
-    // Tile t's rows have landed and the earlier tiles' removed words are
-    // written; tile t-1's buffer is free for tile t + 1, whose rows already
-    // removed need no copy (a removed box is never kept).
-    cp_async_wait<0>();
-    __syncthreads();
-    const int next = t + 1;
-    if (next < words) {
-      const u64 gone = *reinterpret_cast<volatile u64*>(&removed[next]);
-      stage_tile(stage + (next % kStages) * kBits * stride, stage_ord + (next % kStages) * kBits,
-                 m, ord, alive[next] & ~gone, next, n, words);
+    const u64* rows;
+    const long long* tile_ord;
+    if (kStaged) {
+      // Tile t's rows have landed and the earlier tiles' removed words are
+      // written; tile t-1's buffer is free for tile t + 1, whose rows
+      // already removed need no copy (a removed box is never kept).
+      cp_async_wait<0>();
+      __syncthreads();
+      const int next = t + 1;
+      if (next < words) {
+        const u64 gone = *reinterpret_cast<volatile u64*>(&removed[next]);
+        stage_tile(stage + (next % kStages) * kBits * stride, stage_ord + (next % kStages) * kBits,
+                   m, ord, alive[next] & ~gone, next, n, words);
+      }
+      cp_async_commit();
+      rows = stage + (t % kStages) * kBits * stride;
+      tile_ord = stage_ord + (t % kStages) * kBits;
+    } else {
+      __syncthreads();  // the earlier tiles' removed words are written
+      rows = m + (size_t)t * kBits * stride;
+      tile_ord = ord + (size_t)t * kBits;
     }
-    cp_async_commit();
-    const u64* rows = stage + (t % kStages) * kBits * stride;
 
     const u64 cand = alive[t] & ~removed[t];
     u64 kept = cand == 0ULL ? 0ULL : resolve_tile(cand, rows, stride, words);
@@ -350,12 +371,12 @@ nms_sweep_kernel(const u64* __restrict__ mask, const long long* __restrict__ ord
     }
     if (tid < kBits && ((kept >> tid) & 1ULL)) {
       const int rank = kept_total + __popcll(kept & ((1ULL << tid) - 1ULL));
-      idx_out[rank] = (int)stage_ord[(t % kStages) * kBits + tid];
+      idx_out[rank] = (int)tile_ord[tid];
       val_out[rank] = 1;
     }
     kept_total += __popcll(kept);
   }
-  cp_async_wait<0>();
+  if (kStaged) cp_async_wait<0>();
   for (int r = kept_total + tid; r < max_outputs; r += kSweepThreads) {
     idx_out[r] = -1;
     val_out[r] = 0;
@@ -375,8 +396,12 @@ extern "C" int premvos_nms(const float* boxes, const int64_t* order,
                            int* indices, uint8_t* valid, cudaStream_t stream) {
   if (batch <= 0 || n <= 0 || max_outputs <= 0) return 0;
   const int words = (n + kBits - 1) / kBits;
-  const size_t smem = sweep_smem(words);
-  if (smem > (size_t)kMaxSweepSmem) return (int)cudaErrorInvalidValue;  // n above ~14,000
+  // The ring while it fits (n up to about 14,000), else rows from global
+  // memory with only the alive and removed words in shared memory.
+  const bool staged = sweep_smem(words) <= (size_t)kMaxSweepSmem;
+  const size_t smem = staged ? sweep_smem(words) : 2 * (size_t)words * sizeof(u64);
+  if (smem > (size_t)kMaxSweepSmem) return (int)cudaErrorInvalidValue;  // n above ~900,000
+  const auto sweep = staged ? nms_sweep_kernel<true> : nms_sweep_kernel<false>;
   const long long* ord = reinterpret_cast<const long long*>(order);
   nms_mask_kernel<<<dim3(words + 1, (words + 1) / 2, batch), kBits, 0, stream>>>(
       boxes, ord, neg_sorted, n, words, make_threshold(iou_threshold), score_threshold,
@@ -384,11 +409,10 @@ extern "C" int premvos_nms(const float* boxes, const int64_t* order,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  nms_sweep_kernel<<<batch, kSweepThreads, smem, stream>>>(
+  sweep<<<batch, kSweepThreads, smem, stream>>>(
       mask_scratch, ord, neg_sorted, n, words, score_threshold, max_outputs, indices, valid);
   return (int)cudaGetLastError();
 }

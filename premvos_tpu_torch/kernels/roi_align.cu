@@ -83,9 +83,11 @@
 //     and adds the bin's merged taps straight into the gradient with vector
 //     atomics. Where C is not a multiple of 4 or a base pointer is not
 //     16-byte aligned, both paths go one channel at a time.
-// With a level filter, n is at most kMaxRois (the compacted list lives in
-// shared memory); a larger n is refused. In-image offsets of the forward
-// are 32-bit and checked at the entry points.
+// With a level filter and n at most kMaxRois per image, the compacted list
+// lives in shared memory; above that, both kernels take their second form
+// of the filter: items run over every RoI of the image and a block skips
+// the items of RoIs on other levels (it reads each RoI's level). In-image
+// offsets of the forward are 32-bit and checked at the entry points.
 
 #include <cuda_bf16.h>
 
@@ -97,7 +99,7 @@ namespace {
 
 constexpr int kMaxSamples = 64;  // P * s per axis
 constexpr int kFwThreads = 256;  // forward: 8 warps, one output bin each
-constexpr int kMaxRois = 4096;   // n with a level filter: the compacted list
+constexpr int kMaxRois = 4096;   // n up to which a level filter compacts its list
 // Backward: blocks of 256 threads; an item is a kChunks-th of a RoI's
 // footprint. A footprint takes the first path while P times its longer
 // side is at most kWRows (the weight tables) and each side at most
@@ -360,7 +362,9 @@ __device__ __forceinline__ int small_div(int a, float inv_b) {
 
 // The indices (in order) of the RoIs of one image whose level, clamped to
 // 2..5, is `level`, into `list`; returns their count. With `levels` NULL
-// every RoI is on the list, which is then not written (item j is RoI j).
+// every RoI is on the list, which is then not written (item j is RoI j):
+// callers pass NULL also where n is above kMaxRois, and then skip the items
+// of RoIs on other levels themselves (on_level).
 // Warps ballot over blocks of the `levels` row and each RoI's place is the
 // popc of the RoIs before it. Ends with a barrier.
 __device__ int compact_rois(const int* __restrict__ levels, int level, int n,
@@ -388,6 +392,14 @@ __device__ int compact_rois(const int* __restrict__ levels, int level, int n,
   return count;
 }
 
+// Whether a block must skip RoI j of image img: a level filter without
+// the compacted list (n above kMaxRois) and j on another level. The same in
+// every thread of the block, so the barriers of the items it keeps line up.
+__device__ __forceinline__ bool off_level(const int* __restrict__ levels, bool listed,
+                                          int level, int img, int n, int j) {
+  return levels != nullptr && !listed && clamp_level(levels[(size_t)img * n + j]) != level;
+}
+
 // Block (block of the image, image): the image's RoIs on `level`, then the
 // items (RoI of the list, chunk of bins_per_block bins) striding by the
 // grid, each its RoI's sample tables and a warp per bin.
@@ -400,8 +412,8 @@ single_kernel(Level lv, int c, const float* __restrict__ boxes,
   const int img = blockIdx.y;
   __shared__ unsigned short list[kMaxRois];
   __shared__ Samples t;
-  const int count = compact_rois(levels == nullptr ? nullptr : levels + (size_t)img * n,
-                                 level, n, list);
+  const bool listed = levels != nullptr && n <= kMaxRois;
+  const int count = compact_rois(listed ? levels + (size_t)img * n : nullptr, level, n, list);
   const T* feat = static_cast<const T*>(lv.data) + (size_t)img * lv.h * lv.w * c;
   const int bins = p * p;
   const int chunks = (bins + bins_per_block - 1) / bins_per_block;
@@ -410,10 +422,11 @@ single_kernel(Level lv, int c, const float* __restrict__ boxes,
     const int j = item / chunks;
     const int first = (item - j * chunks) * bins_per_block;
     const int last = min(first + bins_per_block, bins);
-    const size_t roi = (size_t)img * n + (levels == nullptr ? j : list[j]);
+    if (off_level(levels, listed, level, img, n, j)) continue;
+    const size_t roi = (size_t)img * n + (listed ? list[j] : j);
     if (threadIdx.x == 0 && item + gridDim.x < count * chunks) {
       const int jn = (item + gridDim.x) / chunks;
-      prefetch_box(boxes + ((size_t)img * n + (levels == nullptr ? jn : list[jn])) * 4);
+      prefetch_box(boxes + ((size_t)img * n + (listed ? list[jn] : jn)) * 4);
     }
     sample_tables(t, boxes + roi * 4, lv.scale, lv.h, lv.w, p * s);
     for (int bin = first + (threadIdx.x >> 5); bin < last; bin += kFwThreads / 32) {
@@ -528,8 +541,8 @@ backward_kernel(int h, int w, int c, float scale, const float* __restrict__ boxe
   __shared__ Taps ty, tx;
   __shared__ short band_y[kMaxSpan][2], band_x[kMaxSpan][2];
   const int img = blockIdx.y;
-  const int count = compact_rois(levels == nullptr ? nullptr : levels + (size_t)img * n,
-                                 level, n, list);
+  const bool listed = levels != nullptr && n <= kMaxRois;
+  const int count = compact_rois(listed ? levels + (size_t)img * n : nullptr, level, n, list);
   float* g = grad + (size_t)img * h * w * c;
   const int bins = p * p;
   const float inv = 1.f / (float)(s * s);
@@ -539,11 +552,12 @@ backward_kernel(int h, int w, int c, float scale, const float* __restrict__ boxe
   for (int item = blockIdx.x; item < count * kChunks; item += gridDim.x) {
     const int j = item / kChunks;
     const int chunk = item - j * kChunks;
-    const size_t roi = (size_t)img * n + (levels == nullptr ? j : list[j]);
+    if (off_level(levels, listed, level, img, n, j)) continue;
+    const size_t roi = (size_t)img * n + (listed ? list[j] : j);
     const float* go = grad_out + roi * bins * c;
     if (threadIdx.x == 0 && item + gridDim.x < count * kChunks) {
       const int jn = (item + gridDim.x) / kChunks;
-      prefetch_box(boxes + ((size_t)img * n + (levels == nullptr ? jn : list[jn])) * 4);
+      prefetch_box(boxes + ((size_t)img * n + (listed ? list[jn] : jn)) * 4);
     }
     sample_tables(t, boxes + roi * 4, scale, h, w, p * s);
     // The footprint: the pixels the taps span (sample positions grow with
@@ -781,7 +795,7 @@ extern "C" int premvos_roi_align(const void* features, int h, int w, int c,
                                  int level, int batch, int n, int p, int s,
                                  void* out, cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (p * s > kMaxSamples || batch > 65535 || (levels != nullptr && n > kMaxRois) ||
+  if (p * s > kMaxSamples || batch > 65535 ||
       (long long)h * w * c >= (1LL << 31))  // in-image offsets are 32-bit
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -817,8 +831,7 @@ extern "C" int premvos_roi_align_backward(const float* grad_out, int h, int w,
                                           int s, float* grad_features,
                                           cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (p * s > kMaxSamples || batch > 65535 || (levels != nullptr && n > kMaxRois))
-    return (int)cudaErrorInvalidValue;
+  if (p * s > kMaxSamples || batch > 65535) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = sm_count(&dev, &sms);
   if (err != cudaSuccess) return (int)err;

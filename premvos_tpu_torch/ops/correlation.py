@@ -64,7 +64,10 @@ def correlation_cuda(
     """The CUDA kernel (kernels/correlation.cu); same contract as
     correlation_reference, for any max displacement and stride.
     bfloat16 and float32 inputs go to the kernel as they are, others as
-    float32. `correlation_cuda.launches` counts its launches."""
+    float32. Forward only: with grad enabled and an input that requires
+    grad it raises instead of returning a result without a graph.
+    `correlation_cuda.launches` counts its launches."""
+    kernels.refuse_grad("correlation", f1, f2)
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(
             f"correlation: f1 {tuple(f1.shape)} and f2 {tuple(f2.shape)} must be "

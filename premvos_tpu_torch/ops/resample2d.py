@@ -62,7 +62,10 @@ def resample2d_reference(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 def resample2d_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel (kernels/resample2d.cu); same contract as
-    resample2d_reference. `resample2d_cuda.launches` counts its launches."""
+    resample2d_reference, forward only: with grad enabled and an input that
+    requires grad it raises instead of returning a result without a graph.
+    `resample2d_cuda.launches` counts its launches."""
+    kernels.refuse_grad("resample2d", src, flow)
     b, c, h, w = src.shape
     if src.dtype not in _KERNEL_DTYPES or flow.dtype != torch.float32:
         raise ValueError(
@@ -86,6 +89,6 @@ resample2d_cuda.launches = 0
 
 
 def resample2d(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Dispatching entry point."""
+    """Dispatching entry point (differentiable on the CPU only)."""
     fn = resample2d_cuda if src.is_cuda else resample2d_reference
     return fn(src, flow)

@@ -283,8 +283,7 @@ def roi_align_cuda(
 
     With `levels` [B, N] given, only the RoIs whose level (clamped to 2..5)
     is `level` are sampled, into `out` (required then; the other RoIs' rows
-    are left as they are); N is then at most 4096 (the kernel refuses more).
-    `roi_align_cuda.launches` counts its launches.
+    are left as they are). `roi_align_cuda.launches` counts its launches.
     """
     features = features.contiguous()
     dtype = features.dtype

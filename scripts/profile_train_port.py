@@ -3,6 +3,7 @@
 CUDA card.
 
     python3 scripts/profile_train_port.py [--steps N] [--json PATH]
+    python3 scripts/profile_train_port.py --finetune [--steps N] [--json PATH]
 
 The step of chip_smoke.py's phase 7: ProposalConfig() defaults (ResNet-101
 FPN, 256 channels, 256 RoIs per image), 480×864 images, batch 2, 8 object
@@ -17,6 +18,13 @@ fixed batch from the in-memory synthetic dataset. After two warm-up steps:
      counts to it;
   2. torch.profiler over `--steps` steps: device time by kernel name and
      the device's busy share of the wall time.
+
+With --finetune, the fused per-video fine-tune step of each net instead
+(finetune/fused.py at configs/davis2017_val.json, FinetuneConfig()
+defaults, seeded random weights, bench.py's synthetic 480×864 frame): CUDA
+event spans of the step's parts (draws; the batch, i.e. lucid augmentation
+and example assembly; forward + loss; backward; Adam), then the device's
+busy share and the largest kernels by name under torch.profiler.
 
 Prints both as text (and with --json writes them to PATH). Imports nothing
 of JAX.
@@ -39,6 +47,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--json", help="also write the results (JSON) here")
+    ap.add_argument("--finetune", action="store_true",
+                    help="profile the fused fine-tune step of each net instead")
     args = ap.parse_args()
 
     import numpy as np
@@ -48,6 +58,8 @@ def main() -> int:
         print("profile_train_port: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.finetune:
+        return profile_finetune(args)
     import chip_smoke
     from premvos_tpu_torch.config import ProposalConfig
     from premvos_tpu_torch.models.anchors import pyramid_anchors
@@ -168,6 +180,118 @@ def main() -> int:
             "profiled_wall_ms_per_step": prof_wall_ms, "device_busy_ms_per_step": busy_ms,
             "kernels_per_step": [{"name": k, "ms": ms, "count": n} for k, ms, n in rows[:60]],
         }, f, indent=1)
+    return 0
+
+
+def device_profile(torch, fn, steps: int, top: int = 15):
+    """(wall ms per call, device busy ms per call, [(kernel, ms, count)]) of
+    `steps` calls of fn() under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = sorted(((ev.key, ev.self_device_time_total / 1e3 / steps, ev.count / steps)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)), key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows), rows[:top]
+
+
+def profile_finetune(args) -> int:
+    """Spans and kernel profile of each net's fused fine-tune step."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from premvos_tpu_torch.config import load_config
+    from premvos_tpu_torch.finetune import fused
+    from premvos_tpu_torch.pipeline.runner import build_models, float32_precision, init_params
+
+    cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
+    ft, p = cfg.finetune, cfg.pipeline
+    hw, k = (p.image_height, p.image_width), p.max_objects
+    dev = torch.device("cuda")
+    models = init_params(build_models(cfg), cfg, seed=0)
+    frame0, lab0 = chip_smoke.bench_finetune_frame(np, *hw)
+    t0 = time.perf_counter()
+    bg = fused.inpaint_background(frame0, lab0)
+    inpaint_s = time.perf_counter() - t0
+    prop_hw = fused.proposal_finetune_hw(hw, ft)
+    nets = {
+        "refine": (models.refine, fused.build_refine_fused_runs(hw, cfg.refine, ft, k),
+                   fused._prep_consts(frame0, lab0, k, dev, bg)),
+        "proposal": (models.maskrcnn,
+                     fused.build_proposal_fused_runs(cfg.proposal, prop_hw, ft, k, dev),
+                     fused._prep_consts(frame0, lab0, k, dev, bg, hw=prop_hw)),
+    }
+    out = {"inpaint_s": inpaint_s}
+    print(f"inpaint_background at {hw[0]}x{hw[1]}: {inpaint_s:.3f} s (host)")
+    for name, (module, run, consts) in nets.items():
+        state = fused._fresh_state(module, ft.learning_rate)
+        m, opt = state.model, state.optimizer
+        gen = torch.Generator(device=dev).manual_seed(0)
+        host_gen = torch.Generator().manual_seed(0)
+        spans = {}
+        recording = [False]
+
+        def timed(label, fn, *a):
+            if not recording[0]:
+                return fn(*a)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = fn(*a)
+            end.record()
+            spans.setdefault(label, []).append((start, end))
+            return r
+
+        def step():
+            with float32_precision():
+                draws = timed("1 draws", run.draw, gen, host_gen)
+                batch = timed("2 batch (lucid augmentation + examples)", run.batch, draws, consts)
+                loss = timed("3 forward + loss", run.loss, m, batch)
+                timed("4 backward", loss.backward)
+                timed("5 Adam + zero_grad", lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
+            return loss
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        recording[0] = True
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / args.steps
+        recording[0] = False
+        span_ms = {lb: sum(a.elapsed_time(b) for a, b in v) / args.steps
+                   for lb, v in sorted(spans.items())}
+        prof_wall, busy, rows = device_profile(torch, step, args.steps)
+        print(f"fine-tune step, {name} net: wall {wall:.2f} ms/step")
+        for lb, v in span_ms.items():
+            print(f"  {lb:44s} {v:9.3f} ms/step")
+        print(f"  profiled: wall {prof_wall:.2f} ms/step, device busy {busy:.2f} ms/step "
+              f"({100 * busy / prof_wall:.1f} %)")
+        for key, ms, n in rows:
+            print(f"    {ms:9.3f} ms  {n:7.1f}  {key[:90]}")
+        out[name] = {"wall_ms_per_step": wall, "span_ms_per_step": span_ms,
+                     "profiled_wall_ms_per_step": prof_wall, "device_busy_ms_per_step": busy,
+                     "kernels_per_step": [{"name": kk, "ms": ms, "count": n}
+                                          for kk, ms, n in rows]}
+        del state, m, opt
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi)
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump({"card": smi, "steps": args.steps, **out}, f, indent=1)
     return 0
 
 

@@ -10,6 +10,9 @@ a machine without them:
 comparisons at the production shapes.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -104,18 +107,23 @@ def test_nms_kernel_sizes(dev, n, b):
 
 
 def test_nms_kernel_large_n(dev):
-    """N = 10,000 (157 mask words, 165 KB of sweep shared memory): exact on
-    clustered boxes, which the sweep visits to the end; past the shared
-    memory (N = 16,000) the launch is refused and raises."""
+    """N = 10,000 (157 mask words, 165 KB of sweep shared memory: the
+    staged sweep) and, past the shared memory's ring, N = 16,000 and 20,000
+    per image (the sweep reading its rows from global memory): exact on
+    clustered boxes, which the sweep visits to the end, and with an early
+    stop."""
     gen = torch.Generator().manual_seed(15)
     n = 10_000
     boxes = _clustered(gen, 1, n, 200, 0.03).to(dev)
     scores = torch.rand(1, n, generator=gen).to(dev)
     kept = _nms_equal(boxes, scores, 1000, 0.7, 0.0)[1]
     assert int(kept.sum()) < 1000  # no early stop: every tile swept
-    big = _clustered(gen, 1, 16_000, 8, 0.03).to(dev)
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        tnms.nms_cuda(big, torch.rand(1, 16_000, generator=gen).to(dev), 10, 0.7, 0.0)
+    for n, b in ((16_000, 1), (20_000, 2)):
+        big = _clustered(gen, b, n, 300, 0.03).to(dev)
+        scores = torch.rand(b, n, generator=gen).to(dev)
+        kept = _nms_equal(big, scores, 2000, 0.7, 0.0)[1]
+        assert int(kept.sum(1).max()) < 2000  # every tile swept
+        assert bool(_nms_equal(big, scores, 50, 0.5, 0.2)[1].all())  # early stop
 
 
 def test_nms_kernel_dead_and_identical(dev):
@@ -465,31 +473,33 @@ def test_roi_align_train_kernels_cases(dev, case):
                                    msg=f"P{li + 2}")
 
 
-def test_roi_align_kernels_compaction_limit(dev):
+@pytest.mark.parametrize("n", [4096, 4097, 5000])
+def test_roi_align_kernels_compaction_limit(dev, n):
     """With a level filter, n = 4096 RoIs per image (the compacted list's
-    limit) agree with the plain version; n = 4097 is refused by both
-    kernels and raises."""
+    limit) and n = 4097 and 5,000 (above it, the kernels' second form of
+    the filter: every RoI walked, those of other levels skipped), one
+    forward and one backward launch per level vs the plain version and its
+    autograd: forward 1e-5, each level's gradient 1e-4 of its largest
+    |grad|."""
     gen = torch.Generator().manual_seed(22)
-    feats, boxes, levels = _ml_case(gen, dev, 8, torch.float32, n=4097)
-    f, scale, hw = feats[0], 0.25, tuple(feats[0].shape[1:3])
-    cot = torch.randn(2, 4097, 7, 7, 8, generator=gen).to(dev)
-    out = torch.zeros(2, 4096, 7, 7, 8, device=dev)
-    got = roi_align_cuda(f, boxes[:, :4096], 7, 2, scale, levels[:, :4096], 2, out)
-    got_g = roi_align_backward_cuda(cot[:, :4096], boxes[:, :4096], hw, 2, scale,
-                                    levels[:, :4096], 2)
+    feats, boxes, levels = _ml_case(gen, dev, 8, torch.float32, n=n)
+    cot = torch.randn(2, n, 7, 7, 8, generator=gen).to(dev)
+    got = torch.full((2, n, 7, 7, 8), 7.0, device=dev)
+    grads = []
+    for li, (f, st) in enumerate(zip(feats, LEVEL_STRIDES)):
+        roi_align_cuda(f, boxes, 7, 2, 1.0 / st, levels, li + 2, got)
+        grads.append(roi_align_backward_cuda(cot, boxes, tuple(f.shape[1:3]), 2, 1.0 / st,
+                                             levels, li + 2))
     torch.cuda.synchronize()
-    on = (levels[:, :4096] == 2)[..., None, None, None]
-    want = torch.where(on, roi_align_reference(f, boxes[:, :4096], 7, 2, scale), 0.0)
+    want = multilevel_roi_align_reference(feats, boxes, levels, 7, 2)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    leaf = f.clone().requires_grad_(True)
-    (want_g,) = torch.autograd.grad(roi_align_reference(leaf, boxes[:, :4096], 7, 2, scale),
-                                    leaf, cot[:, :4096] * on)
-    torch.testing.assert_close(got_g, want_g, rtol=0, atol=1e-4 * float(want_g.abs().max()))
-    out = torch.zeros(2, 4097, 7, 7, 8, device=dev)
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        roi_align_cuda(f, boxes, 7, 2, scale, levels, 2, out)
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        roi_align_backward_cuda(cot, boxes, hw, 2, scale, levels, 2)
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    want_g = torch.autograd.grad(multilevel_roi_align_reference(leaves, boxes, levels, 7, 2),
+                                 leaves, cot)
+    assert all(float(w.abs().max()) > 0 for w in want_g)  # every level holds RoIs
+    for li, (g, w) in enumerate(zip(grads, want_g)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()),
+                                   msg=f"P{li + 2}")
 
 
 def test_roi_align_levels_trains_through_the_kernels(dev):
@@ -546,3 +556,78 @@ def test_resample2d_kernel_cases(dev, dtype, c, hw):
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and got.shape == src.shape
         torch.testing.assert_close(got, resample2d_reference(src, flow), rtol=0, atol=1e-5)
+
+
+def test_forward_only_kernels_refuse_grad(dev):
+    """resample2d_cuda and correlation_cuda have no backward: with grad
+    enabled and an input that requires grad they raise; under no_grad and
+    inference_mode they run."""
+    src = torch.randn(1, 3, 16, 20, device=dev)
+    flow = torch.zeros(1, 2, 16, 20, device=dev)
+    f = torch.randn(1, 8, 16, 20, device=dev)
+    for fn, args in ((resample2d_cuda, (src, flow)), (correlation_cuda, (f, f, 4, 1))):
+        leaf = args[0].clone().requires_grad_(True)
+        with pytest.raises(ValueError, match="no backward"):
+            fn(leaf, *args[1:])
+        with torch.no_grad():
+            fn(leaf, *args[1:])
+        with torch.inference_mode():
+            fn(*args)
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repo's root, which builds the lucid warps'
+    inputs for its phase 3 rows."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("kind", ["background", "patches16", "patches64"])
+def test_resample2d_kernel_lucid_shapes(dev, kind):
+    """The fine-tune's two warps at their shapes and flows (chip_smoke.py's
+    phase 3 inputs: backgrounds [8, 3, 480, 864] under the largest
+    background affine, patches [16 | 64, 4, 256, 256] under rotation, scale
+    and the elastic field) vs resample2d_reference on unit-scale values,
+    atol 1e-5."""
+    gen = torch.Generator().manual_seed(31)
+    src, flow, _ = _chip_smoke().lucid_resample_inputs(torch, gen, dev, kind)
+    got = resample2d_cuda(src, flow)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, resample2d_reference(src, flow), rtol=0, atol=1e-5)
+
+
+def test_lucid_frames_cuda_matches_cpu(dev):
+    """A batch of 4 lucid draws (3 slots, 2 valid, patch 64) made on the CPU,
+    composited on the card (the resample2d kernel) and on the CPU (the plain
+    warp): masks equal except where a pasted value lies within 1e-4 of
+    0.5, canvases within 1e-3 of 255 where the labels agree."""
+    from premvos_tpu_torch.finetune import lucid_device as tl
+    from premvos_tpu_torch.ops.masks import paste_mask
+
+    h, w, k, patch = 96, 160, 3, 64
+    gen = torch.Generator().manual_seed(4)
+    img = torch.rand(3, h, w, generator=gen) * 255
+    bg = torch.rand(3, h, w, generator=gen) * 255
+    masks = torch.zeros(k, h, w)
+    masks[0, 20:52, 30:78] = 1
+    masks[1, 48:80, 90:132] = 1
+    valid = [True, True, False]
+    draws = tl.sample_lucid_draws(gen, 4, k, h, w, patch)
+    out = {}
+    for d in ("cpu", "cuda"):
+        dd = tl.LucidDraws(*[x.to(d) for x in draws])
+        before = resample2d_cuda.launches
+        out[d] = [x.cpu() for x in tl.lucid_frames(dd, img.to(d), masks.to(d), valid,
+                                                   bg.to(d), patch)]
+        assert resample2d_cuda.launches - before == (2 if d == "cuda" else 0)
+    differ = (out["cuda"][1] != out["cpu"][1]).any(1)
+    if bool(differ.any()):
+        _, m, dst, on = tl.object_patches(draws, img, masks, [0, 1], patch)
+        soft = torch.stack([paste_mask(m[:, i], dst[:, i], h, w) * on[i] for i in range(2)], 1)
+        assert bool(((soft - 0.5).abs() <= 1e-4).any(1)[differ].all())
+    keep = ~differ[:, None].expand(-1, 3, -1, -1)
+    torch.testing.assert_close(out["cuda"][0][keep], out["cpu"][0][keep], rtol=0, atol=1e-3 * 255)

@@ -41,6 +41,29 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_finetune_imports_no_jax_cv2_or_pil():
+    """Importing the fine-tune (and with it the host inpainting and
+    resizes) in a fresh interpreter loads no jax*, no premvos_tpu(.*), no
+    cv2 and no PIL: the card's machine has neither JAX nor OpenCV."""
+    code = (
+        "import sys\n"
+        "import premvos_tpu_torch.finetune.fused\n"
+        "import premvos_tpu_torch.finetune.lucid_device\n"
+        "import premvos_tpu_torch.data.lucid\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'premvos_tpu', 'cv2', 'PIL'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("entry", ["build_models", "init_params", "run_sequence"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     from premvos_tpu_torch.config import PremvosConfig
