@@ -16,7 +16,10 @@ Phases (any failure raises and exits non-zero):
      (the sweep visits every box); multilevel RoIAlign also in float32 at
      C = 32 (the tiny configuration's shape, checked only); correlation
      with bf16 inputs (the path's), float32 inputs and, at a small size,
-     stride 1 with max displacement 20 (D = 41); the RoIAlign backward also
+     stride 1 with max displacement 20 (D = 41), and in float32 at
+     FlowNetC training's shapes [8, 256, 32, 32] and [8, 256, 8, 8] (md 20,
+     stride 2); the correlation bounds count only the products whose
+     displaced pixel lies on the image; the RoIAlign backward also
      on 8-px boxes piled on one point of P2 (contention) and in one
      unfiltered launch on P2 whose largest RoIs are too large for the
      kernel's shared-memory tables (its second path); resample2d also at
@@ -25,7 +28,11 @@ Phases (any failure raises and exits non-zero):
      and elastic flows); and NMS and the training RoIAlign forward and
      backward at the fine-tune's proposal net (batch 4 at 256×448: 1956
      RPN boxes per image, bf16 features at P = 7 and 14, a bf16 output
-     gradient);
+     gradient); and the correlation backward (float32, each gradient within
+     1e-5 of its largest |grad|; library: autograd's backward through the
+     21-bmm formulation) at FlowNetC's training shapes [8, 256, 32, 32]
+     (256² crops) and [8, 256, 8, 8] (64²), md 20, stride 2, and at an odd
+     [2, 64, 23, 37] at stride 2 (D = 21) and 1 (D = 41);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -40,7 +47,9 @@ Phases (any failure raises and exits non-zero):
      configuration from the same seeded weights and one set of draws made
      on the CPU: the same bounds, and the lucid canvases within 1e-3 of
      255 and masks equal (except where a pasted value lies within 1e-4 of
-     0.5);
+     0.5); then FlowNetC's multi-scale EPE (64×64, batch 2, md 4) and the
+     ReID net's batch-hard triplet loss (R26, P = 2, K = 2) at the same
+     bounds;
   7. Mask R-CNN training at full width (ProposalConfig() defaults, 480×864,
      batch 2, 8 object slots, Adam 1e-4, float32): one step through
      `train_maskrcnn` on an in-memory synthetic dataset, then 5 timed steps
@@ -55,11 +64,20 @@ Phases (any failure raises and exits non-zero):
      every loss finite, both nets' parameters changed, resample2d launched
      by both nets (two launches a step each), NMS, RoIAlign and its
      backward by the proposal net; then `run_sequence` with the fine-tuned
-     models on phase 5's 9 frames (shape, ids, frame 0 = annotation);
+     models on phase 5's 9 frames (shape, ids, frame 0 = annotation); then
+     FlowNetC training at full width (batch 8 of 256² crops of 384×512
+     pairs written as PPM files, md 20, stride 2, Adam 1e-4, float32): one
+     step through `train_flownet_c`, then 5 timed steps on one fixed batch
+     with the correlation forward and backward launched exactly 5 times
+     each; and ReID training at ReIDConfig() (R50, 128² crops, P = 8,
+     K = 4) on an in-memory PK sampler: one step through `train_reid`, then
+     5 timed steps; for both every loss finite and the last below the
+     first;
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
-     RoIAlign, correlation, resample2d and the training RoIAlign forward
-     and backward (four launches a head) beside phase 3's wrapper times,
+     RoIAlign, correlation and its backward, resample2d and the training
+     RoIAlign forward and backward (four launches a head) beside phase 3's
+     wrapper times,
      on fresh inputs of the same shapes: last, because the end-to-end
      phases ran slower after a profiled run in the same process.
 
@@ -114,6 +132,11 @@ KERNELS = {
         "premvos_tpu_torch/kernels/roi_align.cu",
         "premvos_tpu/ops/roi_align.py:113 (autodiff of roi_align_matmul)",
     ),
+    # Nor for the cost volume's gradient: an XLA scan in its custom VJP.
+    "correlation_backward": (
+        "premvos_tpu_torch/kernels/correlation.cu",
+        "premvos_tpu/ops/correlation.py:113 (_correlation_grads, an XLA scan)",
+    ),
 }
 
 # The kernels each main path must launch: inference (phase 5) and training
@@ -121,6 +144,9 @@ KERNELS = {
 INFERENCE_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d")
 TRAINING_KERNELS = ("nms", "roi_align", "roi_align_backward")
 FINETUNE_KERNELS = ("resample2d", "nms", "roi_align", "roi_align_backward")
+# FlowNetC training (phase 7) launches the cost volume's forward and
+# backward once a step each; ReID training runs no kernel of the port.
+FLOW_TRAIN_KERNELS = ("correlation", "correlation_backward")
 
 # FPN levels P2..P5 at 480×864 and their strides.
 LEVEL_SHAPES = [(120, 216), (60, 108), (30, 54), (15, 27)]
@@ -584,7 +610,23 @@ def corr_bmm(torch, f1, f2, md, stride):
 # stride)) and the resample2d rows (B, C, H, W, src dtype) of phase 3.
 CORR_CASES = (("bfloat16", (8, 256, 56, 104, 20, 2)), ("float32", (8, 256, 56, 104, 20, 2)),
               ("float32", (2, 64, 24, 48, 20, 1)))
+# FlowNetC training's forward, float32, at 256² crops (phase 7's shape) and
+# at 64² crops (the JAX engine's default: most displacements read only
+# padding); added later, so checked last from a generator of their own.
+CORR_TRAIN_CASES = (("float32", (8, 256, 32, 32, 20, 2)), ("float32", (8, 256, 8, 8, 20, 2)))
 RESAMPLE_CASES = ((8, 3, 448, 832, "bfloat16"), (1, 8, 240, 432, "float32"))
+
+
+def corr_pairs(h, w, md, st):
+    """(pixel, displacement) pairs of one image whose displaced pixel lies
+    on the image: the products the cost volume and its gradients need (the
+    others read or land in the zero padding)."""
+    r = md // st
+
+    def on_image(n):
+        return sum(1 for y in range(n) for i in range(-r, r + 1) if 0 <= y + i * st < n)
+
+    return on_image(h) * on_image(w)
 
 
 def corr_inputs(torch, gen, dev, dtype, case):
@@ -607,11 +649,11 @@ def resample_inputs(torch, gen, dev, b, c, h, w, dtype):
 
 def check_correlation(torch, gen, dev, dtype, case):
     """The kernel with `dtype` inputs (channels-last, as FlowNetC gives them)
-    vs the plain version on their float32 values, atol 1e-5. Bound: for bf16
-    inputs the least time of the call (bytes, or the products on the tensor
-    cores); for float32 inputs the yardstick the first kernel was held to,
-    the products as float32 FMAs outside the tensor cores, with the byte
-    bound beside it."""
+    vs the plain version on their float32 values, atol 1e-5. Bound: the
+    inputs read and the whole volume written once, against the on-image
+    products (corr_pairs); for bf16 inputs on the tensor cores, for float32
+    inputs as float32 FMAs outside them (the yardstick the first kernel was
+    held to), with the byte bound beside it."""
     from premvos_tpu_torch.ops.correlation import correlation_cuda, correlation_reference
 
     b, c, h, w, md, st = case
@@ -626,7 +668,7 @@ def check_correlation(torch, gen, dev, dtype, case):
     plain = cuda_ms(lambda: correlation_reference(f1, f2, md, st), 3, warmup=1)
     d2 = (2 * (md // st) + 1) ** 2
     nbytes = 2 * b * c * h * w * f1.element_size() + b * d2 * h * w * 4
-    flops = 2.0 * b * h * w * d2 * c
+    flops = 2.0 * b * corr_pairs(h, w, md, st) * c
     row = dict(shape=f"f1, f2 [{b},{c},{h},{w}] {str(dtype)[6:]} → [{b},{d2},{h},{w}], "
                      f"md {md}, stride {st}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain, library_ms=None)
@@ -641,6 +683,70 @@ def check_correlation(torch, gen, dev, dtype, case):
         row["bmm_formulation_ms"] = cuda_ms(lambda: corr_bmm(torch, f1, f2, md, st), 5)
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     return row
+
+
+# The correlation backward rows of phase 3, (B, C, H, W, max displacement,
+# stride), float32: FlowNetC's training shape at 256² crops (the main row)
+# and at 64² crops (the JAX engine's default), and an odd shape at stride
+# 2 (D = 21) and at stride 1 (D = 41).
+CORR_GRAD_CASES = ((8, 256, 32, 32, 20, 2), (8, 256, 8, 8, 20, 2), (2, 64, 23, 37, 20, 2),
+                   (2, 64, 23, 37, 20, 1))
+
+
+def corr_grad_inputs(torch, gen, dev, case):
+    """f1, f2 [B, C, H, W] channels-last and g [B, D², H, W], float32."""
+    b, c, h, w, md, st = case
+    d = 2 * (md // st) + 1
+    f1, f2 = corr_inputs(torch, gen, dev, torch.float32, case)
+    return f1, f2, torch.randn(b, d * d, h, w, generator=gen).to(dev)
+
+
+def check_correlation_backward(torch, gen, dev, case):
+    """The backward kernel vs correlation_grads_reference, each gradient
+    within 1e-5 of its largest |value|. Library: autograd's backward
+    through the 21-bmm formulation (corr_bmm; TF32 off), the graph built
+    once. Bound: f1, f2, df1, df2 and the entries of g at on-image pairs
+    (corr_pairs) once, against both gradients' 2·B·pairs·C FLOP each as
+    float32 FMAs: the products whose displaced pixel is off the image are
+    zero and need no work."""
+    from premvos_tpu_torch.ops.correlation import (
+        correlation_backward_cuda,
+        correlation_grads_reference,
+    )
+
+    b, c, h, w, md, st = case
+    f1, f2, g = corr_grad_inputs(torch, gen, dev, case)
+    got = correlation_backward_cuda(f1, f2, g, md, st)
+    want = correlation_grads_reference(f1, f2, g, md, st)
+    errs = []
+    for name, x, y in zip(("df1", "df2"), got, want):
+        scale = float(y.abs().max())
+        errs.append(max_abs(x, y) / max(scale, 1e-30))
+        if not errs[-1] <= 1e-5:
+            fail(f"correlation backward {case} {name}: max |diff| {errs[-1]} of its max "
+                 "|grad| > 1e-5")
+    ms = cuda_ms(lambda: correlation_backward_cuda(f1, f2, g, md, st), 20)
+    plain = cuda_ms(lambda: correlation_grads_reference(f1, f2, g, md, st), 3, warmup=1)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, v = f1.detach().requires_grad_(True), f2.detach().requires_grad_(True)
+    out = corr_bmm(torch, a, v, md, st)
+    lib_err = max(max_abs(x, y) for x, y in zip(torch.autograd.grad(out, (a, v), g,
+                                                                    retain_graph=True), want))
+    library = cuda_ms(lambda: torch.autograd.grad(out, (a, v), g, retain_graph=True), 5)
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    del out
+    d2 = (2 * (md // st) + 1) ** 2
+    pairs = corr_pairs(h, w, md, st)
+    nbytes = 4 * (b * pairs + 4 * b * c * h * w)
+    flops = 2 * 2.0 * b * pairs * c
+    return dict(shape=f"g [{b},{d2},{h},{w}], f1, f2 [{b},{c},{h},{w}] f32 → df1, df2, "
+                      f"md {md}, stride {st}",
+                max_abs_err=max(max_abs(x, y) for x, y in zip(got, want)),
+                on_image_pairs=b * pairs,
+                max_err_of_max_grad=max(errs), tol="1e-5 of each gradient's max |grad|",
+                ms=ms, plain_ms=plain, library_ms=library, library_max_abs_err=lib_err,
+                bound=bound_ms(nbytes, flops))
 
 
 def check_resample(torch, gen, dev, b, c, h, w, dtype):
@@ -741,7 +847,7 @@ def device_times(torch, dev, checks) -> None:
     section 6)."""
     import torch.nn.functional as F
 
-    from premvos_tpu_torch.ops.correlation import correlation_cuda
+    from premvos_tpu_torch.ops.correlation import correlation_backward_cuda, correlation_cuda
     from premvos_tpu_torch.ops.nms import nms_cuda
     from premvos_tpu_torch.ops.resample2d import resample2d_cuda
     from premvos_tpu_torch.ops.roi_align import (
@@ -771,6 +877,20 @@ def device_times(torch, dev, checks) -> None:
         f1, f2 = corr_inputs(torch, gen, dev, getattr(torch, dtype), case)
         row["device_ms"] = device_ms(lambda: correlation_cuda(f1, f2, *case[4:]), "corr", 20,
                                      correlation_cuda)
+    # Added later, each from a generator of its own: the forward at
+    # FlowNetC training's shapes, and the backward (two kernels, df1 and
+    # df2, a wrapper call).
+    train_gen = torch.Generator().manual_seed(5)
+    for row, (dtype, case) in zip(checks["correlation"][len(CORR_CASES):], CORR_TRAIN_CASES):
+        f1, f2 = corr_inputs(torch, train_gen, dev, getattr(torch, dtype), case)
+        row["device_ms"] = device_ms(lambda: correlation_cuda(f1, f2, *case[4:]), "corr", 20,
+                                     correlation_cuda)
+    grad_gen = torch.Generator().manual_seed(4)
+    for row, case in zip(checks["correlation_backward"], CORR_GRAD_CASES):
+        f1, f2, g = corr_grad_inputs(torch, grad_gen, dev, case)
+        row["device_ms"] = device_ms(
+            lambda: correlation_backward_cuda(f1, f2, g, *case[4:]), "corr_grad", 20,
+            correlation_backward_cuda)
     lucid = [(row, lucid_resample_inputs(torch, torch.Generator().manual_seed(20 + i), dev, kind))
              for i, (row, kind) in enumerate(zip(checks["resample2d"][len(RESAMPLE_CASES):],
                                                  LUCID_RESAMPLE_CASES))]
@@ -904,19 +1024,16 @@ def tiny_train_case(np, torch):
     return cfg, hw, model, anchors, (images, gt_boxes, gt_masks, gt_valid)
 
 
-def tiny_loss_grads(torch, case, device: str):
-    """The training loss of `case` on `device` and every parameter's
-    gradient (float32 on the CPU), with TF32 off."""
+def tiny_loss_grads(torch, model, loss_fn_of, batch, device: str):
+    """The loss `loss_fn_of(m)(batch)` of a copy m of `model` on `device`
+    and every parameter's gradient (float32 on the CPU), with TF32 off."""
     import copy
 
     from premvos_tpu_torch.pipeline.runner import float32_precision, place
-    from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
 
-    cfg, hw, model, anchors, batch = case
     m = place(copy.deepcopy(model), torch.device(device)).train()
-    anc = {k: v.to(device) for k, v in anchors.items()}
     with float32_precision():
-        loss = maskrcnn_loss_fn(m, anc, cfg, hw)(tuple(x.to(device) for x in batch))
+        loss = loss_fn_of(m)(tuple(x.to(device) for x in batch))
         loss.backward()
     return loss.item(), {n: t.grad.detach().float().cpu() for n, t in m.named_parameters()}
 
@@ -930,22 +1047,38 @@ def grad_ratios(got: dict, want: dict) -> list:
     return sorted(out, reverse=True)
 
 
+def tiny_loss_parity(np, torch, name, model, loss_fn_of, batch, top: int = 3):
+    """One loss of `model` and its gradients on CUDA and on the CPU from the
+    same weights and batch: the loss within 1e-4 relative, every gradient
+    within 1e-3 of its parameter's largest |grad| (phase 6's bounds).
+    Returns (report dict, the CPU's gradients)."""
+    lc, gc = tiny_loss_grads(torch, model, loss_fn_of, batch, "cuda")
+    lp, gp = tiny_loss_grads(torch, model, loss_fn_of, batch, "cpu")
+    rel = abs(lc - lp) / abs(lp)
+    if not (np.isfinite(lc) and lp > 0 and rel <= 1e-4):
+        fail(f"tiny {name} loss: CUDA {lc} vs CPU {lp} (relative {rel} > 1e-4)")
+    ratios = grad_ratios(gc, gp)
+    if not ratios[0][0] <= 1e-3:
+        fail(f"tiny {name} gradient {ratios[0][1]}: max |diff| {ratios[0][0]} of its "
+             "max |grad| > 1e-3")
+    return dict(loss_cuda=lc, loss_cpu=lp, loss_rel_diff=rel, worst_grad_ratios=ratios[:top]), gp
+
+
 def tiny_train_parity(np, torch):
     """One loss and its gradients of the tiny Mask R-CNN on CUDA and on the
     CPU from the same seeded weights and batch. Returns a report dict."""
-    case = tiny_train_case(np, torch)
-    lc, gc = tiny_loss_grads(torch, case, "cuda")
-    lp, gp = tiny_loss_grads(torch, case, "cpu")
-    rel = abs(lc - lp) / abs(lp)
-    if not (np.isfinite(lc) and rel <= 1e-4):
-        fail(f"tiny training loss: CUDA {lc} vs CPU {lp} (relative {rel} > 1e-4)")
-    ratios = grad_ratios(gc, gp)
-    if not ratios[0][0] <= 1e-3:
-        fail(f"tiny training gradient {ratios[0][1]}: max |diff| {ratios[0][0]} of its "
-             "max |grad| > 1e-3")
+    from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
+
+    cfg, hw, model, anchors, batch = tiny_train_case(np, torch)
+
+    def loss_fn_of(m):
+        dev = next(m.parameters()).device
+        return maskrcnn_loss_fn(m, {k: v.to(dev) for k, v in anchors.items()}, cfg, hw)
+
+    report, gp = tiny_loss_parity(np, torch, "training", model, loss_fn_of, batch, top=5)
     if not any(n.startswith("mask_head.") and float(g.abs().max()) > 0 for n, g in gp.items()):
         fail("tiny training: the mask loss gave no gradient")
-    return dict(loss_cuda=lc, loss_cpu=lp, loss_rel_diff=rel, worst_grad_ratios=ratios[:5])
+    return report
 
 
 def to_device(x, device):
@@ -1073,6 +1206,37 @@ def tiny_finetune_parity(np, torch):
     return report
 
 
+def tiny_flow_reid_parity(np, torch):
+    """FlowNetC's multi-scale EPE at 64×64, batch 2, max displacement 4
+    (the cost volume's forward and backward kernels on CUDA), and the ReID
+    net's batch-hard triplet loss (R26, 8-dim embeddings, 32² crops, P = 2,
+    K = 2), each on CUDA and on the CPU from the same seeded weights."""
+    from premvos_tpu_torch.config import ReIDConfig
+    from premvos_tpu_torch.models.flownet import FlowNetC
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.reid import ReIDNet
+    from premvos_tpu_torch.train.train_flow import flow_loss_fn
+    from premvos_tpu_torch.train.train_reid import reid_loss_fn
+
+    rng = np.random.default_rng(6)
+    flownet = FlowNetC(max_displacement=4)
+    init_module(flownet, torch.Generator().manual_seed(0))
+    i1, i2 = (torch.from_numpy(rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32))
+              for _ in range(2))
+    gt = torch.from_numpy(rng.normal(0, 4, (2, 2, 64, 64)).astype(np.float32))
+    report = {"flow": tiny_loss_parity(np, torch, "FlowNetC", flownet, flow_loss_fn,
+                                       (i1, i2, gt))[0]}
+    cfg = ReIDConfig(backbone_depth=26, embedding_dim=8, crop_size=32)
+    reid = ReIDNet(cfg)
+    init_module(reid, torch.Generator().manual_seed(0))
+    crops = torch.from_numpy(rng.standard_normal((4, 3, 32, 32)).astype(np.float32))
+    ids = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
+    report["reid"] = tiny_loss_parity(np, torch, "ReID", reid,
+                                      lambda m: reid_loss_fn(m, cfg.triplet_margin),
+                                      (crops, ids))[0]
+    return report
+
+
 # ------------------------------------------------------------- phase 7
 
 class SyntheticDavis:
@@ -1090,6 +1254,37 @@ class SyntheticDavis:
         ids = np.arange(1, max_objects + 1)[:, None, None]
         labels = (ids * (gt > 0.5)).max(0).astype(np.int32)
         return {"frames": frames, "gt_labels": labels[None]}
+
+
+def timed_steps(np, torch, wrappers, step, batch, n_steps: int = 5):
+    """`n_steps` steps of `step` on one batch, back to back as the trainers
+    run them (no loss read between steps), with the launch counters zeroed
+    just before and read just after; CUDA events between steps give each
+    step's span on the device's timeline. Fails unless every loss is
+    finite and the last is below the first."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    out = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n_steps):
+        out.append(step(batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    losses = [float(x) for x in out]
+    if not all(np.isfinite(x) for x in losses):
+        fail(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall over {n_steps} steps on one batch: {losses}")
+    return dict(losses=losses, step_s=times, median_s_per_step=statistics.median(times),
+                wall_s_per_step=wall / n_steps, peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches)
 
 
 def train_full_width(np, torch, wrappers, n_steps: int = 5):
@@ -1117,40 +1312,14 @@ def train_full_width(np, torch, wrappers, n_steps: int = 5):
     state = create_train_state(model, 1e-4)
     step = make_train_step(maskrcnn_loss_fn(model, anchors, cfg, hw), state.optimizer)
     batch = sample_batch(ds, np.random.default_rng(1), hw, slots, bs, dev)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
-    # The steps run back to back as in train_maskrcnn, which reads no loss
-    # between steps; CUDA events between steps give each step's span on the
-    # device's timeline, idle gaps included.
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
-    out = []
-    t0 = time.perf_counter()
-    events[0].record()
-    for i in range(n_steps):
-        out.append(step(batch))
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
-    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
-    losses = [float(x) for x in out]
-    if not all(np.isfinite(x) for x in losses):
-        fail(f"training losses not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"training loss did not fall over {n_steps} steps on one batch: {losses}")
-    missing = [k for k in TRAINING_KERNELS if launches[k] <= 0]
+    rep = timed_steps(np, torch, wrappers, step, batch, n_steps)
+    missing = [k for k in TRAINING_KERNELS if rep["launches"][k] <= 0]
     if missing:
         fail(f"kernels not launched on the training path: {missing}")
-    med = statistics.median(times)
     return dict(config="ProposalConfig() (R101-FPN, 256 ch, 256 RoIs/image), 480x864, "
                        "batch 2, 8 slots, Adam 1e-4, float32 without TF32",
-                first_step_s_incl_init=first_s, warmup_loss=warm_loss, losses=losses,
-                step_s=times, median_s_per_step=med, images_per_s=bs / med,
-                wall_s_per_step=wall / n_steps, peak_bytes=peak, launches=launches)
+                first_step_s_incl_init=first_s, warmup_loss=warm_loss,
+                images_per_s=bs / rep["median_s_per_step"], **rep)
 
 
 def bench_finetune_frame(np, h, w):
@@ -1225,6 +1394,94 @@ def finetune_full_width(np, torch, wrappers, cfg, steps: int = 40):
     return report, tuned
 
 
+def train_flow_full_width(np, torch, wrappers, n_steps: int = 5):
+    """FlowNetC training at full width: batch 8 of 256×256 crops
+    (flownet2-pytorch's --crop_size) of 384×512 pairs (FlyingChairs' size),
+    max displacement 20, stride 2, Adam 1e-4, float32: a synthetic
+    FlyingChairs tree written with the numpy PPM writer, one step through
+    `train_flownet_c`, then `n_steps` timed steps on one fixed batch; the
+    cost volume's forward and backward must each launch once a step."""
+    import tempfile
+
+    from premvos_tpu_torch.data.flow_pairs import FlowPairDataset, make_synthetic_chairs
+    from premvos_tpu_torch.train.train_flow import device_batch, flow_loss_fn, train_flownet_c
+    from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    bs, crop = 8, (256, 256)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = FlowPairDataset(make_synthetic_chairs(tmp, n=bs, hw=(384, 512)))
+        t0 = time.perf_counter()
+        model, warm_loss = train_flownet_c(ds, steps=1, batch_size=bs, crop_hw=crop,
+                                           max_displacement=20, seed=0, log_every=0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        batch = device_batch(ds.batch(np.random.default_rng(1), bs, crop), torch.device("cuda"))
+    if not np.isfinite(warm_loss):
+        fail(f"flow training warm-up step: loss {warm_loss}")
+    state = create_train_state(model, 1e-4)
+    step = make_train_step(flow_loss_fn(model), state.optimizer)
+    rep = timed_steps(np, torch, wrappers, step, batch, n_steps)
+    wrong = {k: rep["launches"][k] for k in FLOW_TRAIN_KERNELS if rep["launches"][k] != n_steps}
+    if wrong:
+        fail(f"flow training: kernels not launched once a step ({n_steps} steps): {wrong}")
+    return dict(config="FlowNetC (md 20, stride 2), batch 8 of 256x256 crops of 384x512 pairs, "
+                       "multi-scale EPE, Adam 1e-4, float32 without TF32",
+                first_step_s_incl_init=first_s, warmup_loss=warm_loss,
+                images_per_s=bs / rep["median_s_per_step"], **rep)
+
+
+class SyntheticCrops:
+    """An in-memory PK sampler (the crop readers' `pk_batch` interface):
+    `identities` smooth random images of S×S; a view is its identity's
+    image under a random flip, shift and brightness, with noise."""
+
+    def __init__(self, np, size: int, identities: int = 32, seed: int = 0):
+        self.np = np
+        r = np.random.default_rng(seed)
+        coarse = r.uniform(0, 1, (identities, size // 8, size // 8, 3))
+        self.images = np.repeat(np.repeat(coarse, 8, 1), 8, 2).astype(np.float32)
+
+    def pk_batch(self, rng, p: int = 8, k: int = 4):
+        np = self.np
+        chosen = rng.choice(len(self.images), size=p, replace=False)
+        crops, ids = [], []
+        for ident, idx in enumerate(chosen):
+            for _ in range(k):
+                v = np.roll(self.images[idx], rng.integers(-8, 9, 2), (0, 1))
+                v = v[:, ::-1] if rng.uniform() < 0.5 else v
+                v = v * rng.uniform(0.8, 1.2) + rng.normal(0, 0.05, v.shape)
+                crops.append(np.clip(v, 0, 1))
+                ids.append(ident)
+        return np.stack(crops).astype(np.float32), np.asarray(ids, np.int32)
+
+
+def train_reid_full_width(np, torch, wrappers, n_steps: int = 5):
+    """ReID training at ReIDConfig() (R50, 128² crops, 128-dim), P = 8,
+    K = 4 (batch 32), Adam 1e-4, float32: one step through `train_reid` on
+    an in-memory PK sampler, then `n_steps` timed steps on one fixed
+    batch."""
+    from premvos_tpu_torch.config import ReIDConfig
+    from premvos_tpu_torch.train.train_reid import pk_device_batch, reid_loss_fn, train_reid
+    from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg, p, k = ReIDConfig(), 8, 4
+    ds = SyntheticCrops(np, cfg.crop_size)
+    t0 = time.perf_counter()
+    model, warm_loss = train_reid(ds, cfg, steps=1, p=p, k=k, seed=0, log_every=0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if not np.isfinite(warm_loss):
+        fail(f"ReID training warm-up step: loss {warm_loss}")
+    batch = pk_device_batch(ds, np.random.default_rng(1), p, k, torch.device("cuda"))
+    state = create_train_state(model, 1e-4)
+    step = make_train_step(reid_loss_fn(model, cfg.triplet_margin), state.optimizer)
+    rep = timed_steps(np, torch, wrappers, step, batch, n_steps)
+    return dict(config="ReIDConfig() (R50, 128x128 crops, 128-dim), P 8 x K 4 = 32 crops, "
+                       "batch-hard triplet (margin 0.2), Adam 1e-4, float32 without TF32",
+                first_step_s_incl_init=first_s, warmup_loss=warm_loss,
+                images_per_s=p * k / rep["median_s_per_step"], **rep)
+
+
 def track_after_finetune(np, torch, tuned, cfg, n_frames: int = 9):
     """`run_sequence` with the fine-tuned models on phase 5's frames:
     labels of the right shape and ids, frame 0 the annotation."""
@@ -1271,6 +1528,7 @@ def main() -> int:
         "resample2d": resample2d.resample2d_cuda,
         "roi_align": roi_align.roi_align_cuda,
         "roi_align_backward": roi_align.roi_align_backward_cuda,
+        "correlation_backward": correlation.correlation_backward_cuda,
     }
     report = {}
 
@@ -1333,6 +1591,13 @@ def main() -> int:
         checks["roi_align_backward"].append(check_roi_align_backward(
             torch, torch.Generator().manual_seed(33 + i), dev, p_ft, "dense", FT_BATCH, FT_HW,
             "bfloat16"))
+    # FlowNetC training's cost volume, forward and gradient.
+    train_gen = torch.Generator().manual_seed(41)
+    checks["correlation"] += [check_correlation(torch, train_gen, dev, getattr(torch, dt), case)
+                              for dt, case in CORR_TRAIN_CASES]
+    grad_gen = torch.Generator().manual_seed(40)
+    checks["correlation_backward"] = [check_correlation_backward(torch, grad_gen, dev, case)
+                                      for case in CORR_GRAD_CASES]
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
     for name, rows in checks.items():
@@ -1395,6 +1660,8 @@ def main() -> int:
     missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels not launched on the inference path: {missing}")
+    if launches["correlation_backward"]:
+        fail("inference launched the correlation backward (it runs without grad)")
     with torch.inference_mode():
         f = frames_d[1:9].float() / 255.0
         outs = stages_batch(models, cfg, get_anchors(cfg, "cuda"), f, frames_d[0:8].float() / 255.0)
@@ -1418,6 +1685,8 @@ def main() -> int:
     log(f"tiny training: {report['tiny_training']}")
     report["tiny_finetune"] = tiny_finetune_parity(np, torch)
     log(f"tiny fine-tune: {report['tiny_finetune']}")
+    report["tiny_flow_reid"] = tiny_flow_reid_parity(np, torch)
+    log(f"tiny FlowNetC and ReID training: {report['tiny_flow_reid']}")
 
     # Phase 7 — Mask R-CNN training at full width.
     tr = train_full_width(np, torch, wrappers)
@@ -1437,6 +1706,20 @@ def main() -> int:
     del tuned
     torch.cuda.empty_cache()
 
+    # Phase 7, continued — FlowNetC and ReID training at full width.
+    flow_tr = train_flow_full_width(np, torch, wrappers)
+    report["train_flow"] = flow_tr
+    log(f"FlowNetC training at full width: median {flow_tr['median_s_per_step']:.4f} s/step → "
+        f"{flow_tr['images_per_s']:.2f} pairs/s, peak {flow_tr['peak_bytes'] / 2**30:.2f} GiB, "
+        f"losses {flow_tr['losses']}, launches {flow_tr['launches']}")
+    torch.cuda.empty_cache()
+    reid_tr = train_reid_full_width(np, torch, wrappers)
+    report["train_reid"] = reid_tr
+    log(f"ReID training at full width: median {reid_tr['median_s_per_step']:.4f} s/step → "
+        f"{reid_tr['images_per_s']:.2f} crops/s, peak {reid_tr['peak_bytes'] / 2**30:.2f} GiB, "
+        f"losses {reid_tr['losses']}, launches {reid_tr['launches']}")
+    torch.cuda.empty_cache()
+
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
     for name in KERNELS:
@@ -1453,7 +1736,9 @@ def main() -> int:
     by_path = {name: {path: counts[name] for path, counts, names in (
         ("inference", launches, INFERENCE_KERNELS),
         ("training", tr["launches"], TRAINING_KERNELS),
-        ("finetune", ftr["launches"], FINETUNE_KERNELS)) if name in names} for name in KERNELS}
+        ("finetune", ftr["launches"], FINETUNE_KERNELS),
+        ("train_flow", flow_tr["launches"], FLOW_TRAIN_KERNELS)) if name in names}
+        for name in KERNELS}
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():
         main = checks[name][0]

@@ -1,7 +1,8 @@
 """Image preprocessing (port of premvos_tpu/data/preprocess.py), and the
-two host resizes of the fused fine-tune's set-up (finetune/fused.py), which
-the JAX package does with OpenCV: `resize_area_u8` (INTER_AREA) and
-`resize_nearest` (INTER_NEAREST), in numpy."""
+host resizes the JAX package does with OpenCV, in numpy: `resize_area_u8`
+(INTER_AREA) and `resize_nearest` (INTER_NEAREST) of the fused fine-tune's
+set-up (finetune/fused.py), and `resize_linear` (INTER_LINEAR on float32)
+of the ReID crops (data/crops.py)."""
 
 from __future__ import annotations
 
@@ -82,3 +83,34 @@ def resize_nearest(labels: np.ndarray, hw: tuple) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(h) * (src_h / h)).astype(np.int64), src_h - 1)
     xs = np.minimum(np.floor(np.arange(w) * (src_w / w)).astype(np.int64), src_w - 1)
     return labels[ys[:, None], xs[None, :]]
+
+
+def _linear_taps(src: int, dst: int):
+    """Source indices (i0, i1) and the weight of i1 along one axis, as
+    OpenCV's INTER_LINEAR computes them: half-pixel centres
+    (dst + 0.5) · src / dst − 0.5, the fraction taken in float64 and
+    rounded to float32, clamped to the first and last pixel (weight 0
+    there)."""
+    f = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    i0 = np.floor(f).astype(np.int64)
+    frac = (f - i0).astype(np.float32)
+    low, high = i0 < 0, i0 >= src - 1
+    frac[low | high] = 0.0
+    i0 = np.clip(i0, 0, src - 1)
+    return i0, np.minimum(i0 + 1, src - 1), frac
+
+
+def resize_linear(image: np.ndarray, hw: tuple) -> np.ndarray:
+    """float32 [H, W, C] → [h, w, C] as `cv2.resize(image, (w, h))`
+    (INTER_LINEAR): half-pixel centres, no antialias when shrinking, edge
+    pixels repeated; the rows first, then the columns, in float32."""
+    h, w = hw
+    src_h, src_w = image.shape[:2]
+    x = np.asarray(image, np.float32)
+    x0, x1, fx = _linear_taps(src_w, w)
+    y0, y1, fy = _linear_taps(src_h, h)
+    shape = (1, w) + (1,) * (x.ndim - 2)
+    fx = fx.reshape(shape)
+    rows = x[:, x0] * (np.float32(1) - fx) + x[:, x1] * fx
+    fy = fy.reshape((h, 1) + (1,) * (x.ndim - 2))
+    return (rows[y0] * (np.float32(1) - fy) + rows[y1] * fy).astype(np.float32)

@@ -7,7 +7,9 @@ JAX package:
   roi_align.cu    ← premvos_tpu/ops/pallas/multilevel_roi_align_pallas.py and
                     premvos_tpu/ops/pallas/roi_align_pallas.py (with the
                     single-level kernel's backward)
-  correlation.cu  ← premvos_tpu/ops/pallas/correlation_pallas.py
+  correlation.cu  ← premvos_tpu/ops/pallas/correlation_pallas.py (with the
+                    gradient, which the JAX package computes with the XLA
+                    scan premvos_tpu/ops/correlation.py::_correlation_grads)
   resample2d.cu   ← premvos_tpu/ops/pallas/resample2d_pallas.py
 
 Each exports a plain C function (pointers, sizes, a CUDA stream) that

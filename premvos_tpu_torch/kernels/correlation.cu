@@ -447,3 +447,234 @@ extern "C" int premvos_correlation(const void* f1, const void* f2, int is_bf16,
                                   : launch<float>(p, b, stream);
   return (int)err;
 }
+
+// ---------------------------------------------------------------------------
+// The cost volume's gradient (backward).
+//
+// Replaces the VJP of premvos_tpu/ops/correlation.py::correlation, the XLA
+// scan premvos_tpu/ops/correlation.py::_correlation_grads (no Pallas
+// kernel). Contract (ops/correlation.py::correlation_grads_reference), with
+// g = dL/dout float32 [B, D*D, H, W] and (dy, dx) = (i*s - md, j*s - md):
+//   df1[b, y, x, c] = (1/C) * sum_{i,j} g[b, iD+j, y, x] * f2[b, y+dy, x+dx, c]
+//   df2[b, v, u, c] = (1/C) * sum_{i,j} g[b, iD+j, v-dy, u-dx] * f1[b, v-dy, u-dx, c]
+// with f1, f2 float32 channels-last [B, H, W, C] and zero outside the
+// image; df1 and df2 are float32 channels-last. df2 is written as a gather
+// over its own pixels (terms whose source pixel is off the image are
+// dropped), not as the reference's scatter: no atomics, so every run gives
+// the same bits.
+//
+// What bounds it on the H100: operations. Only the (pixel, displacement)
+// pairs whose displaced pixel lies on the image need work: 452 x 452 of
+// 672 x 672 per image at FlowNetC's training shape [8, 256, 32, 32],
+// D = 21 (45 %). Each gradient is then 2*B*pairs*C FLOP (0.84 G) against
+// 40.1 MB of f1, f2, df1, df2 and the g entries at those pairs: 25 us at
+// 67 TFLOP/s float32 against 12 us at 3.35 TB/s, for both gradients.
+//
+// Design (a float32 SIMT kernel; the forward's mma.sync tiling is later
+// work): both gradients have one shape,
+//   out[b, y, x0 + s*q, c] = sum_i sum_k W_i[k][q] * src[b, ys(i), xs(k), c]
+// for 16 output columns x0 + s*q (q < 16) of one residue class mod s, with
+// source row ys(i) and source columns xs(k) = xbase + s*k, k < D + 15: one
+// source column serves every (q, j) with k = q + j (df1) or
+// k = q - j + D - 1 (df2), and W_i holds the matching g value (zero off the
+// band). A block takes one output row and those 16 columns over all
+// channels, two channels a thread (lanes on neighbouring channels, so each
+// source column is read coalesced), and walks only the source rows and
+// columns on the image (each a contiguous range of i and k), so a
+// displacement that reads only padding costs nothing and adds nothing.
+// For each row i it reads the source columns 8 at a time into registers
+// (16 loads in flight a thread) and multiplies each into 16 x 2 sums, the
+// 16 weights read as four float4 broadcasts from shared memory; W_i is
+// staged there by cp.async into one of two buffers while the row before
+// it is summed. Each output element is written once.
+// What holds it (PERF.md, section 6): the L2 latency of those reads, at 16
+// warps an SM (128 registers a thread).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kGQ = 16;   // output columns per block (one residue class)
+constexpr int kGCPT = 2;  // channels per thread
+constexpr int kGK = 8;    // source columns read per batch of loads
+constexpr int kGMaxThreads = 128;
+
+struct GradParams {
+  const float* src;  // f2 (df1) or f1 (df2), [B, H, W, C]
+  const float* g;    // [B, D*D, H, W]
+  float* out;        // [B, H, W, C]
+  int h, w, c, md, s, d, k;  // k = D + kGQ - 1 source columns
+  float inv_c;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+template <bool kDf2>
+__global__ void __launch_bounds__(kGMaxThreads, 4)
+corr_grad_kernel(const GradParams p) {
+  extern __shared__ float4 wsm4[];  // two buffers of W_i [k][q]
+  const int s = p.s, d = p.d, wn = p.k * kGQ;
+  const int tile = blockIdx.x / s, r = blockIdx.x - tile * s;
+  const int x0 = tile * s * kGQ + r;
+  const int y = blockIdx.y, b = blockIdx.z;
+  const size_t plane = (size_t)p.h * p.w;
+  const float* gb = p.g + (size_t)b * d * d * plane;
+  const float* src = p.src + (size_t)b * plane * p.c;
+  const int nt = blockDim.x, tid = threadIdx.x;
+
+  // Source columns xs(k) = xbase + s*k; those on the image are k_lo..k_hi.
+  const int xbase = kDf2 ? x0 + p.md - s * (d - 1) : x0 - p.md;
+  const int k_lo = xbase >= 0 ? 0 : (-xbase + s - 1) / s;
+  const int k_hi = xbase > p.w - 1 ? -1 : min(p.k - 1, (p.w - 1 - xbase) / s);
+  // Source rows ys(i) = y + (i*s - md) (df1) or y - (i*s - md) (df2); those
+  // on the image are i_lo..i_hi.
+  const int top = kDf2 ? y + p.md - (p.h - 1) : p.md - y;  // i*s >= top
+  const int bottom = kDf2 ? y + p.md : p.h - 1 - y + p.md;  // i*s <= bottom
+  const int i_lo = top > 0 ? (top + s - 1) / s : 0;
+  const int i_hi = min(d - 1, bottom / s);  // bottom >= 0
+
+  // W_i into buffer `buf` with cp.async (zeros off the band and off the
+  // image): df1 reads g at its output pixel, df2 at its source pixel.
+  auto stage = [&](int i, int buf) {
+    float* wsm = reinterpret_cast<float*>(wsm4) + buf * wn;
+    const int ys = kDf2 ? y - (i * s - p.md) : y;
+    for (int e = tid; e < wn; e += nt) {
+      const int k = e / kGQ, q = e - k * kGQ;
+      const int j = kDf2 ? q - k + d - 1 : k - q;
+      const int xg = kDf2 ? xbase + s * k : x0 + s * q;
+      const bool on = j >= 0 && j < d && xg >= 0 && xg < p.w;
+      cp_async4(wsm + e, on ? gb + (size_t)(i * d + j) * plane + (size_t)ys * p.w + xg : gb, on);
+    }
+    cp_async_commit();
+  };
+
+  for (int c0 = 0; c0 < p.c; c0 += nt * kGCPT) {
+    float acc[kGQ][kGCPT];
+#pragma unroll
+    for (int q = 0; q < kGQ; ++q) {
+#pragma unroll
+      for (int t = 0; t < kGCPT; ++t) acc[q][t] = 0.f;
+    }
+    bool ch_on[kGCPT];
+#pragma unroll
+    for (int t = 0; t < kGCPT; ++t) ch_on[t] = c0 + tid + t * nt < p.c;
+
+    if (k_lo <= k_hi && i_lo <= i_hi) {
+      __syncthreads();  // the previous channel block is done with both buffers
+      stage(i_lo, 0);
+      for (int i = i_lo; i <= i_hi; ++i) {
+        const int buf = (i - i_lo) & 1;
+        __syncthreads();  // every warp is done with the other buffer (row i - 1)
+        if (i < i_hi) {
+          stage(i + 1, buf ^ 1);
+        } else {
+          cp_async_commit();  // an empty group, so that one group may stay pending
+        }
+        cp_async_wait<1>();  // this thread's copies of W_i have landed
+        __syncthreads();     // and every thread's
+        const float4* wb = wsm4 + buf * (wn / 4);
+        const int ys = kDf2 ? y - (i * s - p.md) : y + i * s - p.md;
+        const float* row = src + (size_t)ys * p.w * p.c + c0 + tid;
+        for (int k = k_lo; k <= k_hi; k += kGK) {
+          float v[kGK][kGCPT];
+#pragma unroll
+          for (int u = 0; u < kGK; ++u) {
+            const float* px = row + (size_t)(xbase + s * (k + u)) * p.c;
+#pragma unroll
+            for (int t = 0; t < kGCPT; ++t) {
+              v[u][t] = (k + u <= k_hi && ch_on[t]) ? __ldg(px + t * nt) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kGK; ++u) {
+            if (k + u <= k_hi) {
+              const float4* wk = wb + (k + u) * (kGQ / 4);
+#pragma unroll
+              for (int q4 = 0; q4 < kGQ / 4; ++q4) {
+                const float4 wv = wk[q4];
+#pragma unroll
+                for (int t = 0; t < kGCPT; ++t) {
+                  acc[4 * q4 + 0][t] = fmaf(wv.x, v[u][t], acc[4 * q4 + 0][t]);
+                  acc[4 * q4 + 1][t] = fmaf(wv.y, v[u][t], acc[4 * q4 + 1][t]);
+                  acc[4 * q4 + 2][t] = fmaf(wv.z, v[u][t], acc[4 * q4 + 2][t]);
+                  acc[4 * q4 + 3][t] = fmaf(wv.w, v[u][t], acc[4 * q4 + 3][t]);
+                }
+              }
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();
+    }
+
+    float* orow = p.out + ((size_t)b * plane + (size_t)y * p.w) * p.c + c0 + tid;
+#pragma unroll
+    for (int q = 0; q < kGQ; ++q) {
+      const int x = x0 + s * q;
+      if (x < p.w) {
+#pragma unroll
+        for (int t = 0; t < kGCPT; ++t) {
+          if (ch_on[t]) orow[(size_t)x * p.c + t * nt] = acc[q][t] * p.inv_c;
+        }
+      }
+    }
+  }
+}
+
+template <bool kDf2>
+cudaError_t launch_grad(const GradParams& p, int b, cudaStream_t stream) {
+  // Two channels a thread, whole warps, at most kGMaxThreads.
+  const int warps = (p.c + 32 * kGCPT - 1) / (32 * kGCPT);
+  const int threads = warps * 32 < kGMaxThreads ? warps * 32 : kGMaxThreads;
+  const int bytes = 2 * p.k * kGQ * (int)sizeof(float);
+  if (bytes > kSmemMax) return cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        corr_grad_kernel<kDf2>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles = (p.w + p.s * kGQ - 1) / (p.s * kGQ);
+  const dim3 grid(tiles * p.s, p.h, b);
+  corr_grad_kernel<kDf2><<<grid, threads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int premvos_correlation_backward(const float* f1, const float* f2,
+                                            const float* grad, int b, int h,
+                                            int w, int c, int md, int stride,
+                                            float* df1, float* df2,
+                                            cudaStream_t stream) {
+  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
+  if (md < 0 || stride <= 0 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
+  GradParams p{};
+  p.g = grad;
+  p.h = h;
+  p.w = w;
+  p.c = c;
+  p.md = md;
+  p.s = stride;
+  p.d = 2 * (md / stride) + 1;
+  p.k = p.d + kGQ - 1;
+  p.inv_c = 1.f / (float)c;
+  if ((long long)((w + stride * kGQ - 1) / (stride * kGQ)) * stride > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSuccess;
+  if (df1 != nullptr) {
+    p.src = f2;
+    p.out = df1;
+    err = launch_grad<false>(p, b, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (df2 != nullptr) {
+    p.src = f1;
+    p.out = df2;
+    err = launch_grad<true>(p, b, stream);
+  }
+  return (int)err;
+}

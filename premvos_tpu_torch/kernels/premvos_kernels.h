@@ -60,6 +60,15 @@ int premvos_correlation(const void* f1, const void* f2, int is_bf16, int b,
                         int h, int w, int c, int md, int stride, float* out,
                         cudaStream_t stream);
 
+// Its gradient: grad float32 [b, D*D, h, w] (the forward's output layout);
+// f1, f2, df1 and df2 float32 channels-last [b, h, w, c]. Each of df1 and
+// df2 is written whole (no zero fill needed), and one that is NULL is not
+// computed.
+int premvos_correlation_backward(const float* f1, const float* f2,
+                                 const float* grad, int b, int h, int w,
+                                 int c, int md, int stride, float* df1,
+                                 float* df2, cudaStream_t stream);
+
 int premvos_resample2d(const void* src, int is_bf16, const float* flow, int b,
                        int c, int h, int w, float* out, cudaStream_t stream);
 

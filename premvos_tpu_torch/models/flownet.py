@@ -59,7 +59,8 @@ class PredictFlow(nn.Module):
 
 
 class FlowDecoder(nn.Module):
-    """Coarse-to-fine refinement over a feature tower → finest flow.
+    """Coarse-to-fine refinement over a feature tower → (finest flow, all
+    flows coarse → fine).
 
     feat_channels: channel counts of the tower, coarse → fine; deconv_ch[i]
     is the upsampling width into level i+1.
@@ -83,13 +84,15 @@ class FlowDecoder(nn.Module):
     def forward(self, feats):
         coarsest, *finer = feats
         flow = self.predict_flow6(coarsest)
+        flows = [flow]
         x = coarsest
         for lvl, feat in zip(self.levels, finer):
             up_feat = getattr(self, f"deconv{lvl}")(x)
             up_flow = getattr(self, f"upsampled_flow{lvl + 1}_to_{lvl}")(flow)
             x = torch.cat([feat, up_feat, up_flow], dim=1)
             flow = getattr(self, f"predict_flow{lvl}")(x)
-        return flow
+            flows.append(flow)
+        return flow, flows
 
 
 def upsample_flow(flow: torch.Tensor, hw, scale: float = 1.0) -> torch.Tensor:
@@ -116,7 +119,8 @@ _TOWER = (1024, 512, 512, 256, 128)  # C/S/SD decoder inputs, coarse → fine
 
 
 class FlowNetC(nn.Module):
-    """(img1, img2) [B, 3, H, W] → flow/div_flow at 1/4 resolution."""
+    """(img1, img2) [B, 3, H, W] → (flow/div_flow at 1/4 resolution, the
+    coarse → fine flow list that multi-scale EPE training supervises)."""
 
     def __init__(self, max_displacement=20, corr_stride=2, dtype=torch.float32):
         super().__init__()
@@ -172,7 +176,7 @@ class FlowNetS(nn.Module):
         c4 = self.conv4_1(self.conv4(c3))
         c5 = self.conv5_1(self.conv5(c4))
         c6 = self.conv6_1(self.conv6(c5))
-        return self.decoder((c6, c5, c4, c3, c2))
+        return self.decoder((c6, c5, c4, c3, c2))[0]
 
 
 class FlowNetSD(nn.Module):
@@ -201,7 +205,7 @@ class FlowNetSD(nn.Module):
         c4 = self.conv4_1(self.conv4(c3))
         c5 = self.conv5_1(self.conv5(c4))
         c6 = self.conv6_1(self.conv6(c5))
-        return self.decoder((c6, c5, c4, c3, c2))
+        return self.decoder((c6, c5, c4, c3, c2))[0]
 
 
 class FlowNetFusion(nn.Module):
@@ -220,7 +224,7 @@ class FlowNetFusion(nn.Module):
         c0 = self.conv0(x)
         c1 = self.conv1_1(self.conv1(c0))
         c2 = self.conv2_1(self.conv2(c1))
-        return self.decoder((c2, c1, c0))
+        return self.decoder((c2, c1, c0))[0]
 
 
 class FlowNet2(nn.Module):
@@ -264,7 +268,7 @@ class FlowNet2(nn.Module):
         i1 = (img1 - mean).to(self.dtype)
         i2 = (img2 - mean).to(self.dtype)
 
-        flow_c = self.flownetc(i1, i2)
+        flow_c = self.flownetc(i1, i2)[0]
         flow_px = upsample_flow(flow_c.to(torch.float32), hw, 4.0 * self.div_flow)
         if self.variant == "flownetc":
             return flow_px

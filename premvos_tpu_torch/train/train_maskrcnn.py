@@ -27,9 +27,7 @@ from premvos_tpu_torch.models.layers import init_module
 from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 from premvos_tpu_torch.pipeline.runner import place, resolve_device
 from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
-from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
-
-log = logging.getLogger(__name__)
+from premvos_tpu_torch.train.trainer import run_steps
 
 
 def sample_batch(ds, rng: np.random.Generator, image_hw, max_objects: int,
@@ -90,15 +88,13 @@ def train_maskrcnn(
         k: torch.from_numpy(v).to(device)
         for k, v in pyramid_anchors(h, w, cfg.anchor_scales, cfg.anchor_ratios).items()
     }
-    state = create_train_state(model, learning_rate)
-    step = make_train_step(maskrcnn_loss_fn(model, anchors, cfg, image_hw), state.optimizer)
     rng = np.random.default_rng(seed)
-    loss = torch.tensor(float("nan"))
-    for it in range(steps):
-        loss = step(sample_batch(ds, rng, image_hw, max_objects, batch_size, device))
-        if log_every and (it + 1) % log_every == 0:
-            log.info("maskrcnn step %d/%d loss %.4f", it + 1, steps, float(loss))
-    return model, float(loss)
+    loss = run_steps(
+        model, maskrcnn_loss_fn(model, anchors, cfg, image_hw),
+        lambda: sample_batch(ds, rng, image_hw, max_objects, batch_size, device),
+        steps, learning_rate, log_every, "maskrcnn",
+    )
+    return model, loss
 
 
 def main(argv=None):

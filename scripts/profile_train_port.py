@@ -4,6 +4,7 @@ CUDA card.
 
     python3 scripts/profile_train_port.py [--steps N] [--json PATH]
     python3 scripts/profile_train_port.py --finetune [--steps N] [--json PATH]
+    python3 scripts/profile_train_port.py --flow_reid [--steps N] [--json PATH]
 
 The step of chip_smoke.py's phase 7: ProposalConfig() defaults (ResNet-101
 FPN, 256 channels, 256 RoIs per image), 480×864 images, batch 2, 8 object
@@ -25,6 +26,12 @@ defaults, seeded random weights, bench.py's synthetic 480×864 frame): CUDA
 event spans of the step's parts (draws; the batch, i.e. lucid augmentation
 and example assembly; forward + loss; backward; Adam), then the device's
 busy share and the largest kernels by name under torch.profiler.
+
+With --flow_reid, the FlowNetC and ReID training steps of chip_smoke.py's
+phase 7 instead (FlowNetC md 20, stride 2, batch 8 of 256² crops of
+synthetic 384×512 pairs; ReIDConfig(), P 8 × K 4 synthetic 128² crops;
+Adam 1e-4, float32 without TF32, seeded random weights, one fixed batch
+each): the same spans (forward + loss; backward; Adam) and profile.
 
 Prints both as text (and with --json writes them to PATH). Imports nothing
 of JAX.
@@ -49,6 +56,8 @@ def main() -> int:
     ap.add_argument("--json", help="also write the results (JSON) here")
     ap.add_argument("--finetune", action="store_true",
                     help="profile the fused fine-tune step of each net instead")
+    ap.add_argument("--flow_reid", action="store_true",
+                    help="profile the FlowNetC and ReID training steps instead")
     args = ap.parse_args()
 
     import numpy as np
@@ -60,6 +69,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if args.finetune:
         return profile_finetune(args)
+    if args.flow_reid:
+        return profile_flow_reid(args)
     import chip_smoke
     from premvos_tpu_torch.config import ProposalConfig
     from premvos_tpu_torch.models.anchors import pyramid_anchors
@@ -202,6 +213,64 @@ def device_profile(torch, fn, steps: int, top: int = 15):
     return wall, sum(r[1] for r in rows), rows[:top]
 
 
+def profile_parts(torch, name, step_of, steps: int, warmup: int = 3, top: int = 15) -> dict:
+    """Spans and kernel profile of one training step. `step_of(timed)`
+    returns the step, which runs each part as `timed(label, fn, *args)`:
+    CUDA events around each part, summed over `steps` steps after `warmup`
+    ones, then the device's busy share and the largest kernels by name
+    under torch.profiler. Prints them and returns them as a dict."""
+    spans = {}
+    recording = [False]
+
+    def timed(label, fn, *a):
+        if not recording[0]:
+            return fn(*a)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = fn(*a)
+        end.record()
+        spans.setdefault(label, []).append((start, end))
+        return r
+
+    step = step_of(timed)
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    recording[0] = True
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    recording[0] = False
+    span_ms = {lb: sum(a.elapsed_time(b) for a, b in v) / steps for lb, v in sorted(spans.items())}
+    prof_wall, busy, rows = device_profile(torch, step, steps, top)
+    print(f"{name}: wall {wall:.2f} ms/step")
+    for lb, v in span_ms.items():
+        print(f"  {lb:44s} {v:9.3f} ms/step")
+    print(f"  profiled: wall {prof_wall:.2f} ms/step, device busy {busy:.2f} ms/step "
+          f"({100 * busy / prof_wall:.1f} %)")
+    for key, ms, n in rows:
+        print(f"    {ms:9.3f} ms  {n:7.1f}  {key[:90]}")
+    return {"wall_ms_per_step": wall, "span_ms_per_step": span_ms,
+            "profiled_wall_ms_per_step": prof_wall, "device_busy_ms_per_step": busy,
+            "kernels_per_step": [{"name": kk, "ms": ms, "count": n} for kk, ms, n in rows]}
+
+
+def write_report(args, out: dict) -> int:
+    """Print the card; with --json write `out` (and the card) there."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi)
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump({"card": smi, "steps": args.steps, **out}, f, indent=1)
+    return 0
+
+
 def profile_finetune(args) -> int:
     """Spans and kernel profile of each net's fused fine-tune step."""
     import numpy as np
@@ -236,63 +305,73 @@ def profile_finetune(args) -> int:
         m, opt = state.model, state.optimizer
         gen = torch.Generator(device=dev).manual_seed(0)
         host_gen = torch.Generator().manual_seed(0)
-        spans = {}
-        recording = [False]
 
-        def timed(label, fn, *a):
-            if not recording[0]:
-                return fn(*a)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            r = fn(*a)
-            end.record()
-            spans.setdefault(label, []).append((start, end))
-            return r
+        def step_of(timed):
+            def step():
+                with float32_precision():
+                    draws = timed("1 draws", run.draw, gen, host_gen)
+                    batch = timed("2 batch (lucid augmentation + examples)", run.batch, draws,
+                                  consts)
+                    loss = timed("3 forward + loss", run.loss, m, batch)
+                    timed("4 backward", loss.backward)
+                    timed("5 Adam + zero_grad",
+                          lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
+                return loss
+            return step
 
-        def step():
-            with float32_precision():
-                draws = timed("1 draws", run.draw, gen, host_gen)
-                batch = timed("2 batch (lucid augmentation + examples)", run.batch, draws, consts)
-                loss = timed("3 forward + loss", run.loss, m, batch)
-                timed("4 backward", loss.backward)
-                timed("5 Adam + zero_grad", lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
-            return loss
-
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        recording[0] = True
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / args.steps
-        recording[0] = False
-        span_ms = {lb: sum(a.elapsed_time(b) for a, b in v) / args.steps
-                   for lb, v in sorted(spans.items())}
-        prof_wall, busy, rows = device_profile(torch, step, args.steps)
-        print(f"fine-tune step, {name} net: wall {wall:.2f} ms/step")
-        for lb, v in span_ms.items():
-            print(f"  {lb:44s} {v:9.3f} ms/step")
-        print(f"  profiled: wall {prof_wall:.2f} ms/step, device busy {busy:.2f} ms/step "
-              f"({100 * busy / prof_wall:.1f} %)")
-        for key, ms, n in rows:
-            print(f"    {ms:9.3f} ms  {n:7.1f}  {key[:90]}")
-        out[name] = {"wall_ms_per_step": wall, "span_ms_per_step": span_ms,
-                     "profiled_wall_ms_per_step": prof_wall, "device_busy_ms_per_step": busy,
-                     "kernels_per_step": [{"name": kk, "ms": ms, "count": n}
-                                          for kk, ms, n in rows]}
+        out[name] = profile_parts(torch, f"fine-tune step, {name} net", step_of, args.steps)
         del state, m, opt
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi)
-    if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump({"card": smi, "steps": args.steps, **out}, f, indent=1)
-    return 0
+    return write_report(args, out)
+
+
+def profile_flow_reid(args) -> int:
+    """Spans and kernel profile of the FlowNetC and ReID training steps."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from premvos_tpu_torch.config import ReIDConfig
+    from premvos_tpu_torch.data.flow_pairs import FlowPairDataset, make_synthetic_chairs
+    from premvos_tpu_torch.models.flownet import FlowNetC
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.reid import ReIDNet
+    from premvos_tpu_torch.pipeline.runner import float32_precision, place
+    from premvos_tpu_torch.train.train_flow import device_batch, flow_loss_fn
+    from premvos_tpu_torch.train.train_reid import pk_device_batch, reid_loss_fn
+    from premvos_tpu_torch.train.trainer import create_train_state
+
+    dev = torch.device("cuda")
+    flownet = FlowNetC(max_displacement=20)
+    reid = ReIDNet(ReIDConfig())
+    for model in (flownet, reid):
+        init_module(model, torch.Generator().manual_seed(0))
+        place(model, dev).train()
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = FlowPairDataset(make_synthetic_chairs(tmp, n=8, hw=(384, 512)))
+        flow_batch = device_batch(pairs.batch(np.random.default_rng(1), 8, (256, 256)), dev)
+    reid_batch = pk_device_batch(chip_smoke.SyntheticCrops(np, 128), np.random.default_rng(1),
+                                 8, 4, dev)
+    nets = {"flow": (flownet, flow_loss_fn(flownet), flow_batch),
+            "reid": (reid, reid_loss_fn(reid, ReIDConfig().triplet_margin), reid_batch)}
+    out = {}
+    for name, (model, loss_fn, batch) in nets.items():
+        opt = create_train_state(model, 1e-4).optimizer
+
+        def step_of(timed):
+            def step():
+                with float32_precision():
+                    loss = timed("1 forward + loss", loss_fn, batch)
+                    timed("2 backward", loss.backward)
+                    timed("3 Adam + zero_grad",
+                          lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
+                return loss
+            return step
+
+        out[name] = profile_parts(torch, f"{name} training step", step_of, args.steps, top=20)
+        del opt
+    return write_report(args, out)
 
 
 if __name__ == "__main__":

@@ -50,7 +50,11 @@ replaced: four launches, each with its gradient's zero fill) at the box
 head (P = 7) and the mask head (P = 14): float32 P2..P5 [2, H, W, 256] of a
 480×864 image, 256 RoIs per image. Their `device_ms` is the kernel's own
 four launches; `device_all_ms` adds everything else the call ran on the
-card (for the backward, its gradients' zero fill). The
+card (for the backward, its gradients' zero fill). In a tree that has it,
+the correlation's backward at chip_smoke.py's four rows (FlowNetC
+training's [8, 256, 32, 32] and [8, 256, 8, 8] at max displacement 20,
+stride 2, and [2, 64, 23, 37] at stride 2 and 1); its `device_ms` is its
+two kernels (df1, df2). The
 profiled runs come after
 every other timing (a profiled run slows what follows it in the process).
 Prints one JSON object. Imports nothing of JAX.
@@ -125,10 +129,12 @@ def main() -> int:
     sys.path.insert(0, REPO)
     # This checkout's helpers and inputs, whichever tree is timed.
     from chip_smoke import (
+        CORR_GRAD_CASES,
         LEVEL_SHAPES,
         LEVEL_STRIDES,
         NMS_CASES,
         ROI_CASES,
+        corr_grad_inputs,
         cuda_ms,
         kernel_times,
         named_ms,
@@ -142,6 +148,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     from premvos_tpu_torch import kernels
     from premvos_tpu_torch.ops import nms as nms_mod
+    from premvos_tpu_torch.ops import correlation as corr_mod
     from premvos_tpu_torch.ops.correlation import correlation_cuda
     from premvos_tpu_torch.ops.resample2d import resample2d_cuda
     from premvos_tpu_torch.ops import roi_align as roi_mod
@@ -153,9 +160,10 @@ def main() -> int:
     cases = [(dict(kernel="empty", shape="torch.cuda._sleep(0)"),
               lambda: torch.cuda._sleep(0), "spin", None)]
 
-    for i, (b, n, k, thr, sthr, clustered) in enumerate(NMS_CASES):
+    # The inference rows (the fine-tune's fourth row has no place here).
+    for i, (b, n, k, thr, sthr, clustered, image_hw) in enumerate(NMS_CASES[:3]):
         boxes, scores = (t.to(dev) for t in nms_inputs(
-            torch, torch.Generator().manual_seed(10 + i), b, n, clustered))
+            torch, torch.Generator().manual_seed(10 + i), b, n, clustered, image_hw))
         ref = nms_mod.nms_reference(boxes, scores, k, thr, sthr)
         order = torch.sort(-scores, dim=-1, stable=True).indices
         kept = torch.zeros(b, n, dtype=torch.bool, device=dev)
@@ -193,6 +201,14 @@ def main() -> int:
         row = dict(kernel="correlation",
                    shape=f"f1, f2 [{b},{c},{h},{w}] {str(dtype)[6:]} channels-last")
         cases.append((row, lambda a=(f1, f2, md, st): correlation_cuda(*a), "corr", None))
+
+    grad_fn = getattr(corr_mod, "correlation_backward_cuda", None)
+    for i, case in enumerate(CORR_GRAD_CASES if grad_fn is not None else ()):
+        f1, f2, g = corr_grad_inputs(torch, torch.Generator().manual_seed(50 + i), dev, case)
+        b, c, h, w, md, st = case
+        row = dict(kernel="correlation_backward",
+                   shape=f"f1, f2 [{b},{c},{h},{w}] f32, md {md}, stride {st}")
+        cases.append((row, lambda a=(f1, f2, g, md, st): grad_fn(*a), "corr_grad", None))
 
     # The training RoIAligns (chip_smoke.py phase 3's rows): the forward
     # kernel is `single_kernel`, the backward `backward_kernel` in both the

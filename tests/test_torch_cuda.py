@@ -19,7 +19,12 @@ import torch
 
 from premvos_tpu_torch.models.maskrcnn import multilevel_roi_align_auto
 from premvos_tpu_torch.ops import nms as tnms
-from premvos_tpu_torch.ops.correlation import correlation_cuda, correlation_reference
+from premvos_tpu_torch.ops.correlation import (
+    correlation_backward_cuda,
+    correlation_cuda,
+    correlation_grads_reference,
+    correlation_reference,
+)
 from premvos_tpu_torch.ops.resample2d import resample2d_cuda, resample2d_reference
 from premvos_tpu_torch.ops.roi_align import (
     multilevel_roi_align_reference,
@@ -188,6 +193,83 @@ def test_correlation_kernel_cases(dev, dtype, case):
     assert correlation_cuda.launches == before + 1
     want = correlation_reference(f1.float(), f2.float(), md, stride)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+# The backward's shapes: FlowNetC's training shape at 256² and at 64²
+# crops (the JAX default), and an odd one at stride 2 (D = 21) and 1
+# (D = 41), as chip_smoke.py phase 3 runs them; and C = 3 with a max
+# displacement that is not a multiple of the stride.
+CORR_GRAD_CASES = {
+    "train256": (8, 256, 32, 32, 20, 2),
+    "train64": (8, 256, 8, 8, 20, 2),
+    "odd_s2": (2, 64, 23, 37, 20, 2),
+    "odd_s1": (2, 64, 23, 37, 20, 1),
+    "c3_md9": (1, 3, 7, 20, 9, 2),
+}
+
+
+def _corr_grad_inputs(dev, case, seed=11):
+    b, c, h, w, md, stride = case
+    d = 2 * (md // stride) + 1
+    gen = torch.Generator().manual_seed(seed)
+    f1, f2 = (torch.randn(b, h, w, c, generator=gen).to(dev).permute(0, 3, 1, 2)
+              for _ in range(2))
+    g = torch.randn(b, d * d, h, w, generator=gen).to(dev)
+    return f1, f2, g
+
+
+@pytest.mark.parametrize("case", list(CORR_GRAD_CASES.values()), ids=list(CORR_GRAD_CASES))
+def test_correlation_backward_kernel_cases(dev, case):
+    """The backward kernel vs correlation_grads_reference: each gradient
+    within 1e-5 of its largest |value|; the same bits on a second call (a
+    gather, no atomics); and a gradient not asked for is not computed."""
+    md, stride = case[4:]
+    f1, f2, g = _corr_grad_inputs(dev, case)
+    before = correlation_backward_cuda.launches
+    df1, df2 = correlation_backward_cuda(f1, f2, g, md, stride)
+    torch.cuda.synchronize()
+    assert correlation_backward_cuda.launches == before + 1
+    want = correlation_grads_reference(f1, f2, g, md, stride)
+    for got, ref in zip((df1, df2), want):
+        assert got.shape == f1.shape and got.dtype == torch.float32
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    again = correlation_backward_cuda(f1, f2, g, md, stride)
+    assert torch.equal(again[0], df1) and torch.equal(again[1], df2)
+    only1 = correlation_backward_cuda(f1, f2, g, md, stride, needs=(True, False))
+    assert only1[1] is None and torch.equal(only1[0], df1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_correlation_function_gradients(dev, dtype):
+    """The autograd Function: the cost volume is linear in each input, so
+    <dL/df1, v> must equal L(f1 + v) − L(f1) for L = <out, w>; checked in
+    float32 (1e-4 relative), beside autograd of correlation_reference (1e-5
+    of the largest |grad|). A bf16 input gets a bf16 gradient, and an input
+    that does not require grad gets none."""
+    b, c, h, w, md, stride = 2, 24, 11, 19, 6, 2
+    gen = torch.Generator().manual_seed(12)
+    x1, x2, v = (torch.randn(b, c, h, w, generator=gen).to(dev, dtype) for _ in range(3))
+    d = 2 * (md // stride) + 1
+    wt = torch.randn(b, d * d, h, w, generator=gen).to(dev)
+    f1, f2 = x1.clone().requires_grad_(True), x2.clone().requires_grad_(True)
+    (correlation_cuda(f1, f2, md, stride) * wt).sum().backward()
+    assert f1.grad.dtype == dtype and f2.grad.dtype == dtype
+    r1, r2 = (x.float().clone().requires_grad_(True) for x in (x1, x2))
+    (correlation_reference(r1, r2, md, stride) * wt).sum().backward()
+    for got, ref in ((f1.grad, r1.grad), (f2.grad, r2.grad)):
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+        torch.testing.assert_close(got.float(), ref, rtol=0, atol=tol * float(ref.abs().max()))
+    if dtype == torch.float32:
+        with torch.no_grad():
+            loss = lambda a, b_: float((correlation_cuda(a, b_, md, stride) * wt).double().sum())  # noqa: E731
+            base = loss(x1, x2)
+            for k, (a, b_, gr) in enumerate(((x1 + v, x2, f1.grad), (x1, x2 + v, f2.grad))):
+                want = float((gr.double() * v.double()).sum())
+                got = loss(a, b_) - base
+                assert abs(got - want) <= 1e-4 * max(abs(want), 1.0), (k, got, want)
+    f1 = x1.clone().requires_grad_(True)
+    (correlation_cuda(f1, x2, md, stride) * wt).sum().backward()
+    assert f1.grad is not None and x2.grad is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -559,20 +641,31 @@ def test_resample2d_kernel_cases(dev, dtype, c, hw):
 
 
 def test_forward_only_kernels_refuse_grad(dev):
-    """resample2d_cuda and correlation_cuda have no backward: with grad
-    enabled and an input that requires grad they raise; under no_grad and
-    inference_mode they run."""
+    """resample2d_cuda has no backward: with grad enabled and an input that
+    requires grad it raises; under no_grad and inference_mode it runs.
+    correlation_cuda has one: backward() fills both inputs' gradients, and
+    it too runs under no_grad and inference_mode."""
     src = torch.randn(1, 3, 16, 20, device=dev)
     flow = torch.zeros(1, 2, 16, 20, device=dev)
+    leaf = src.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="no backward"):
+        resample2d_cuda(leaf, flow)
+    with torch.no_grad():
+        resample2d_cuda(leaf, flow)
+    with torch.inference_mode():
+        resample2d_cuda(src, flow)
+
     f = torch.randn(1, 8, 16, 20, device=dev)
-    for fn, args in ((resample2d_cuda, (src, flow)), (correlation_cuda, (f, f, 4, 1))):
-        leaf = args[0].clone().requires_grad_(True)
-        with pytest.raises(ValueError, match="no backward"):
-            fn(leaf, *args[1:])
-        with torch.no_grad():
-            fn(leaf, *args[1:])
-        with torch.inference_mode():
-            fn(*args)
+    f1, f2 = f.clone().requires_grad_(True), torch.randn_like(f).requires_grad_(True)
+    correlation_cuda(f1, f2, 4, 1).sum().backward()
+    torch.cuda.synchronize()
+    for t in (f1, f2):
+        assert t.grad is not None and t.grad.shape == f.shape
+        assert torch.isfinite(t.grad).all() and float(t.grad.abs().max()) > 0
+    with torch.no_grad():
+        correlation_cuda(f1, f2, 4, 1)
+    with torch.inference_mode():
+        correlation_cuda(f, f, 4, 1)
 
 
 def _chip_smoke():

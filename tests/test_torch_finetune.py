@@ -537,9 +537,11 @@ def test_finetune_needs_cuda_or_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("op", ["resample2d", "correlation"])
 def test_forward_only_kernels_refuse_grad_first(op):
-    """With grad enabled, a `_cuda` wrapper given an input that requires
-    grad raises before anything else (here: before it finds CPU tensors);
-    without grad it goes on to the device check."""
+    """resample2d_cuda has no backward: with grad enabled, given an input
+    that requires grad, it raises before anything else (here: before it
+    finds CPU tensors); without grad it goes on to the device check.
+    correlation_cuda has a backward: with grad enabled it, too, goes on to
+    the device check."""
     from premvos_tpu_torch.ops import correlation, resample2d
 
     if op == "resample2d":
@@ -547,8 +549,12 @@ def test_forward_only_kernels_refuse_grad_first(op):
     else:
         fn, args = correlation.correlation_cuda, (torch.zeros(1, 4, 6, 6), torch.zeros(1, 4, 6, 6))
     leaf = args[0].clone().requires_grad_(True)
-    with pytest.raises(ValueError, match="no backward"):
-        fn(leaf, *args[1:])
+    if op == "resample2d":
+        with pytest.raises(ValueError, match="no backward"):
+            fn(leaf, *args[1:])
+    else:
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(leaf, *args[1:])
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         fn(leaf, *args[1:])
     with pytest.raises(ValueError, match="CUDA device"):

@@ -64,6 +64,34 @@ def test_finetune_imports_no_jax_cv2_or_pil():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_trainers_and_readers_import_no_jax_cv2_or_pil():
+    """Importing the flow and ReID trainers, their datasets and the file
+    codecs in a fresh interpreter loads no jax*, no premvos_tpu(.*), no cv2
+    and no PIL (the crop readers import Pillow inside the functions that
+    read images; DavisObjectCrops resizes without OpenCV)."""
+    code = (
+        "import sys\n"
+        "import premvos_tpu_torch.train.train_flow\n"
+        "import premvos_tpu_torch.train.train_reid\n"
+        "import premvos_tpu_torch.data.flow_pairs\n"
+        "import premvos_tpu_torch.data.crops\n"
+        "import premvos_tpu_torch.io_compat.flo\n"
+        "import premvos_tpu_torch.io_compat.rle\n"
+        "import premvos_tpu_torch.io_compat.ppm\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'premvos_tpu', 'cv2', 'PIL'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("entry", ["build_models", "init_params", "run_sequence"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     from premvos_tpu_torch.config import PremvosConfig
@@ -82,11 +110,13 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    """On CPU tensors the kernel wrappers are never reached."""
+    """On CPU tensors the kernel wrappers are never reached (the
+    correlation's backward included)."""
     from premvos_tpu_torch.ops import correlation, nms, resample2d, roi_align
 
     def counts():
         return (nms.nms_cuda.launches, correlation.correlation_cuda.launches,
+                correlation.correlation_backward_cuda.launches,
                 resample2d.resample2d_cuda.launches,
                 roi_align.multilevel_roi_align_cuda.launches,
                 roi_align.roi_align_cuda.launches,
@@ -96,7 +126,7 @@ def test_cpu_tensors_take_the_plain_versions():
     boxes = torch.tensor([[[0.0, 0.0, 4.0, 4.0], [1.0, 1.0, 5.0, 5.0]]])
     nms.nms(boxes, torch.tensor([[0.9, 0.8]]), 2)
     f = torch.zeros(1, 4, 6, 6)
-    correlation.correlation(f, f, 2, 1)
+    correlation.correlation(f, f.clone().requires_grad_(True), 2, 1).sum().backward()
     resample2d.resample2d(f, torch.zeros(1, 2, 6, 6))
     roi_align.multilevel_roi_align(
         [torch.zeros(1, 8, 8, 4)] * 4, boxes, torch.full((1, 2), 2)
@@ -142,7 +172,8 @@ def test_kernel_header_matches_the_sources():
     }
     assert set(sigs) == set(defined) == set(declared) == {
         "premvos_nms", "premvos_multilevel_roi_align", "premvos_roi_align",
-        "premvos_roi_align_backward", "premvos_correlation", "premvos_resample2d",
+        "premvos_roi_align_backward", "premvos_correlation",
+        "premvos_correlation_backward", "premvos_resample2d",
     }
     for name, types in declared.items():
         assert defined[name] == types, name
