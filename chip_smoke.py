@@ -32,7 +32,11 @@ Phases (any failure raises and exits non-zero):
      1e-5 of its largest |grad|; library: autograd's backward through the
      21-bmm formulation) at FlowNetC's training shapes [8, 256, 32, 32]
      (256² crops) and [8, 256, 8, 8] (64²), md 20, stride 2, and at an odd
-     [2, 64, 23, 37] at stride 2 (D = 21) and 1 (D = 41);
+     [2, 64, 23, 37] at stride 2 (D = 21) and 1 (D = 41); and NMS and the
+     training RoIAlign forward and backward at the host-pool fine-tune's
+     proposal net (batch 4 of the full 480×864 canvas: 2384 RPN boxes per
+     image, bf16 features at P = 7 and 14, 256 RoIs per image, a bf16
+     output gradient; `check_pool_shapes` ties them to davis2017_val);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -49,7 +53,9 @@ Phases (any failure raises and exits non-zero):
      255 and masks equal (except where a pasted value lies within 1e-4 of
      0.5); then FlowNetC's multi-scale EPE (64×64, batch 2, md 4) and the
      ReID net's batch-hard triplet loss (R26, P = 2, K = 2) at the same
-     bounds;
+     bounds; then one host-pool fine-tune step of each net at the tiny
+     configuration (one lucid pool built on the host, the same batch rows
+     on both devices) at the same bounds;
   7. Mask R-CNN training at full width (ProposalConfig() defaults, 480×864,
      batch 2, 8 object slots, Adam 1e-4, float32): one step through
      `train_maskrcnn` on an in-memory synthetic dataset, then 5 timed steps
@@ -72,12 +78,26 @@ Phases (any failure raises and exits non-zero):
      each; and ReID training at ReIDConfig() (R50, 128² crops, P = 8,
      K = 4) on an in-memory PK sampler: one step through `train_reid`, then
      5 timed steps; for both every loss finite and the last below the
-     first;
+     first; then the host-pool fine-tune (`finetune_video`, method "pool")
+     at davis2017_val with FinetuneConfig(steps=40) on the fused run's
+     frame: the pool of 64 lucid images built on the host, the refine net
+     at batch 8 on the examples cut from it, the proposal net at batch 4 of
+     the 480×864 frames, with the launch counters zeroed just before and
+     read just after: losses finite, both nets changed, NMS launched 40
+     times and the training RoIAlign forward and backward 320 times each;
+     then the multi-video refine fine-tune (`finetune_refine_videos`) of
+     that frame and its mirror image at davis2017_val's refine net with
+     FinetuneConfig(steps=8) (pools of 32 lucid images, batch 4 a video):
+     both losses finite, both copies on the card and changed;
+     and refine-net training (`train_refine`) at RefineConfig() (385²
+     crops, batch 8, float32) on an in-memory dataset of synthetic 480×864
+     frames: one step through `train_refine`, then 5 timed steps on one
+     fixed batch, every loss finite and the last below the first;
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
      RoIAlign, correlation and its backward, resample2d and the training
-     RoIAlign forward and backward (four launches a head) beside phase 3's
-     wrapper times,
+     RoIAlign forward and backward (four launches a head; also at the
+     host-pool fine-tune's shapes) beside phase 3's wrapper times,
      on fresh inputs of the same shapes: last, because the end-to-end
      phases ran slower after a profiled run in the same process.
 
@@ -159,6 +179,17 @@ LEVEL_STRIDES = (4, 8, 16, 32)
 FT_HW = (256, 448)
 FT_BATCH = 4
 FT_NMS_BOXES = 1956
+
+# The host-pool fine-tune's proposal net at davis2017_val (phase 7): batch
+# 4 (batch_size // 2) of whole 480×864 pool frames, 2384 RPN boxes per image
+# (the inference RPN's count); check_pool_shapes checks these.
+POOL_HW = (480, 864)
+POOL_BATCH = 4
+POOL_NMS_BOXES = 2384
+# The kernels the host-pool fine-tune launches (its proposal net's) and
+# how often a step: NMS once, the training RoIAlign forward and backward
+# four times a head.
+POOL_FINETUNE_KERNELS = {"nms": 1, "roi_align": 8, "roi_align_backward": 8}
 
 
 def log(msg: str) -> None:
@@ -285,13 +316,14 @@ def nms_inputs(torch, gen, b, n, clustered=False, image_hw=(480, 864)):
 
 # The NMS rows of phase 3: (B, N, max_outputs, IoU threshold, score
 # threshold, clustered, image): the RPN's, the detection's, the RPN's on
-# clustered boxes, and the fine-tune's RPN (the last two each drawn from a
-# generator of its own, so the other rows' inputs stay those of earlier
-# runs).
+# clustered boxes, the fused fine-tune's RPN and the host-pool fine-tune's
+# (the last three each drawn from a generator of its own, so the other
+# rows' inputs stay those of earlier runs).
 NMS_CASES = ((8, 2384, 256, 0.7, 0.0, False, (480, 864)),
              (8, 256, 32, 0.5, 0.05, False, (480, 864)),
              (8, 2384, 256, 0.7, 0.0, True, (480, 864)),
-             (FT_BATCH, FT_NMS_BOXES, 256, 0.7, 0.0, False, FT_HW))
+             (FT_BATCH, FT_NMS_BOXES, 256, 0.7, 0.0, False, FT_HW),
+             (POOL_BATCH, POOL_NMS_BOXES, 256, 0.7, 0.0, False, POOL_HW))
 
 
 def check_nms(torch, gen, dev, case):
@@ -337,6 +369,22 @@ def check_finetune_shapes(cfg) -> None:
     if got != (FT_HW, FT_BATCH, FT_NMS_BOXES, 256):
         fail(f"the fine-tune's proposal shapes (image, batch, NMS boxes, RoIs) are {got}, "
              f"not {(FT_HW, FT_BATCH, FT_NMS_BOXES, 256)}")
+
+
+def check_pool_shapes(cfg) -> None:
+    """POOL_HW, POOL_BATCH and POOL_NMS_BOXES are the host-pool fine-tune's
+    proposal net's at `cfg` (it trains on whole frames at the pipeline
+    canvas), with 256 RoIs per image."""
+    from premvos_tpu_torch.models.anchors import pyramid_anchors
+
+    pc, ft, p = cfg.proposal, cfg.finetune, cfg.pipeline
+    hw = (p.image_height, p.image_width)
+    anchors = pyramid_anchors(*hw, pc.anchor_scales, pc.anchor_ratios)
+    boxes = sum(min(pc.rpn_pre_nms_topk, len(a)) for a in anchors.values())
+    got = (hw, max(1, ft.batch_size // 2), boxes, pc.rpn_post_nms_topk)
+    if got != (POOL_HW, POOL_BATCH, POOL_NMS_BOXES, 256):
+        fail(f"the host-pool fine-tune's proposal shapes (image, batch, NMS boxes, RoIs) are "
+             f"{got}, not {(POOL_HW, POOL_BATCH, POOL_NMS_BOXES, 256)}")
 
 
 def level_shapes(image_hw):
@@ -936,6 +984,19 @@ def device_times(torch, dev, checks) -> None:
     n_train = 2 + len(BACKWARD_CASES)
     for row, p in zip(checks["roi_align_backward"][n_train:], FT_ALIGN_PS):
         backward_row(row, gen, p, "dense", FT_BATCH, FT_HW, "bfloat16")
+    # The host-pool fine-tune's rows, added last: a generator of their own.
+    gen = torch.Generator().manual_seed(6)
+    nms_row(checks["nms"][4], gen, NMS_CASES[4])
+    n_before = len(TRAIN_ALIGN_CASES) + len(FT_ALIGN_PS)
+    for row, p in zip(checks["roi_align"][n_before:], FT_ALIGN_PS):
+        feats, boxes, levels = roi_case(torch, gen, dev, POOL_BATCH, 256, 256, torch.bfloat16,
+                                        POOL_HW)
+        row["device_ms"] = device_ms(
+            lambda: roi_align_levels(feats, boxes, levels, p, 2), "single_kernel", 20,
+            roi_align_cuda, per_call=4)
+    n_before = 2 + len(BACKWARD_CASES) + len(FT_ALIGN_PS)
+    for row, p in zip(checks["roi_align_backward"][n_before:], FT_ALIGN_PS):
+        backward_row(row, gen, p, "dense", POOL_BATCH, POOL_HW, "bfloat16")
 
 
 # ------------------------------------------------------------- phase 4
@@ -1026,14 +1087,15 @@ def tiny_train_case(np, torch):
 
 def tiny_loss_grads(torch, model, loss_fn_of, batch, device: str):
     """The loss `loss_fn_of(m)(batch)` of a copy m of `model` on `device`
-    and every parameter's gradient (float32 on the CPU), with TF32 off."""
+    (the batch's tensors moved there, host values left as they are) and
+    every parameter's gradient (float32 on the CPU), with TF32 off."""
     import copy
 
     from premvos_tpu_torch.pipeline.runner import float32_precision, place
 
     m = place(copy.deepcopy(model), torch.device(device)).train()
     with float32_precision():
-        loss = loss_fn_of(m)(tuple(x.to(device) for x in batch))
+        loss = loss_fn_of(m)(tuple(x.to(device) if torch.is_tensor(x) else x for x in batch))
         loss.backward()
     return loss.item(), {n: t.grad.detach().float().cpu() for n, t in m.named_parameters()}
 
@@ -1237,6 +1299,57 @@ def tiny_flow_reid_parity(np, torch):
     return report
 
 
+def tiny_pool_parity(np, torch):
+    """One host-pool fine-tune step of each net at phase 4's tiny
+    configuration on CUDA (kernels) and on the CPU (plain versions): one
+    lucid pool of 4 augmentations built on the host, the refine examples
+    cut from it, the first step's batch rows (drawn as the fine-tune draws
+    them) gathered from the pool, the same seeded weights (RPN delta head
+    zeroed, as in phase 6); each loss within 1e-4 relative, every gradient
+    within 1e-3 of its parameter's largest |grad|. Returns a report dict."""
+    import dataclasses
+
+    from premvos_tpu_torch.finetune import finetune as ftmod
+    from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.maskrcnn import MaskRCNN
+    from premvos_tpu_torch.pipeline.runner import get_anchors
+    from premvos_tpu_torch.train.trainer import sample_pool_draws
+
+    cfg = tiny_config()
+    ft = dataclasses.replace(cfg.finetune, steps=1, batch_size=2, num_augmentations=4)
+    p = cfg.pipeline
+    hw, k = (p.image_height, p.image_width), p.max_objects
+    frames, gt = synthetic_video(np, 1, *hw, k, seed=3)
+    lab = (np.arange(1, k + 1)[:, None, None] * (gt > 0.5)).max(0).astype(np.int32)
+    imgs, labs = ftmod.build_lucid_pool(frames[0], lab, ft, seed=0)
+    crops, tgts = ftmod.make_refine_examples(imgs, labs, cfg.refine.crop_size,
+                                             cfg.refine.box_margin, np.random.default_rng(0))
+    boxes, masks, valid = ftmod.proposal_pool(labs, k)
+    seeds = np.random.default_rng(0).integers(0, 2**31 - 1, size=len(imgs)).astype(np.uint32)
+    refine, maskrcnn = DeepLabV3Plus(cfg.refine), MaskRCNN(cfg.proposal)
+    init_module(refine, torch.Generator().manual_seed(0))
+    init_module(maskrcnn, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for t in maskrcnn.rpn.Conv_2.parameters():
+            t.zero_()
+    rows = sample_pool_draws(torch.Generator().manual_seed(0), 1, len(crops), 2).idx[0].numpy()
+    prop_rows = sample_pool_draws(torch.Generator().manual_seed(0), 1, len(imgs), 1).idx[0].numpy()
+    report = {"refine": tiny_loss_parity(
+        np, torch, "pool refine", refine, ftmod.refine_loss_fn,
+        (torch.from_numpy(crops[rows]), torch.from_numpy(tgts[rows])))[0]}
+
+    def prop_loss_of(m):
+        dev = next(m.parameters()).device
+        return ftmod.proposal_loss_fn(m, get_anchors(cfg, dev), cfg.proposal, hw)
+
+    batch = tuple(torch.from_numpy(x[prop_rows]) for x in (imgs, boxes, masks, valid))
+    report["proposal"] = tiny_loss_parity(np, torch, "pool proposal", maskrcnn, prop_loss_of,
+                                          (*batch, seeds[prop_rows]))[0]
+    report["examples"] = len(crops)
+    return report
+
+
 # ------------------------------------------------------------- phase 7
 
 class SyntheticDavis:
@@ -1392,6 +1505,142 @@ def finetune_full_width(np, torch, wrappers, cfg, steps: int = 40):
         fail(f"kernels not launched on the fine-tune path: {missing}")
     del models
     return report, tuned
+
+
+def pool_finetune_full_width(np, torch, wrappers, cfg, steps: int = 40):
+    """The host-pool fine-tune of both nets (`finetune_video`, method
+    "pool") at `cfg` (davis2017_val) with FinetuneConfig(steps=steps),
+    seeded random weights, on bench.py's fine-tune frame: one run, with the
+    launch counters zeroed just before it and read just after. Fails unless
+    every loss read is finite, both nets changed and the proposal net's
+    kernels launched as often as its steps need. Returns a report dict."""
+    import dataclasses
+
+    from premvos_tpu_torch.finetune.fused import finetune_video
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params
+
+    ft = dataclasses.replace(cfg.finetune, steps=steps, method="pool")
+    p = cfg.pipeline
+    models = init_params(build_models(cfg), cfg, seed=0)
+    frame0, lab0 = bench_finetune_frame(np, p.image_height, p.image_width)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    tuned, losses = finetune_video(models, frame0, lab0, cfg, ft_cfg=ft, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    report = dict(config="configs/davis2017_val.json, FinetuneConfig(steps=%d, method='pool'): "
+                         "a pool of %d lucid images of 480x864 built on the host, refine batch "
+                         "%d of %d^2 crops cut from it, proposals batch %d of 480x864 frames, "
+                         "chunk %d, Adam %g, bf16 compute"
+                         % (steps, min(ft.num_augmentations, max(steps, 64)), ft.batch_size,
+                            cfg.refine.crop_size, max(1, ft.batch_size // 2), ft.chunk,
+                            ft.learning_rate),
+                  wall_s=wall, losses=losses, pool_s=stats["pool_s"],
+                  examples_s=stats["refine"]["examples_s"], examples=stats["refine"]["examples"],
+                  peak_bytes=peak, launches=launches)
+    for net, mod in (("refine", "refine"), ("proposal", "maskrcnn")):
+        chunks = stats[net]["chunks"]
+        if not all(np.isfinite(loss) for _, _, loss in chunks):
+            fail(f"pool fine-tune {net} losses not finite: {chunks}")
+        if not changed(getattr(models, mod), getattr(tuned, mod)):
+            fail(f"pool fine-tune {net}: no parameter changed")
+        later = chunks[1:] or chunks
+        report[net] = dict(chunks=chunks, s_per_step=sum(c[1] for c in chunks) / steps,
+                           s_per_step_after_first_chunk=sum(c[1] for c in later)
+                           / sum(c[0] for c in later))
+    want = {name: per_step * steps for name, per_step in POOL_FINETUNE_KERNELS.items()}
+    wrong = {name: launches[name] for name, n in want.items() if launches[name] != n}
+    if wrong:
+        fail(f"pool fine-tune: launches {wrong}, not {want}")
+    del models, tuned
+    return report
+
+
+def multi_video_full_width(np, torch, wrappers, cfg, steps: int = 8):
+    """The multi-video refine fine-tune (`finetune_refine_videos`) of two
+    videos at `cfg`'s refine net (davis2017_val's: RefineConfig()) with
+    FinetuneConfig(steps=steps), seeded random weights, on bench.py's
+    fine-tune frame and its mirror image: pools of max(steps, 32) lucid
+    480×864 images each, batch max(8 // 2, 2) = 4 a video. One run with the
+    launch counters zeroed just before it and read just after (the refine
+    net runs none of the port's kernels). Fails unless both losses are
+    finite and both copies lie on the card and changed. Returns a report
+    dict."""
+    import dataclasses
+
+    from premvos_tpu_torch.finetune.multi_video import finetune_refine_videos
+    from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.pipeline.runner import place
+
+    ft = dataclasses.replace(cfg.finetune, steps=steps)
+    p = cfg.pipeline
+    frame0, lab0 = bench_finetune_frame(np, p.image_height, p.image_width)
+    videos = [(frame0, lab0), (np.ascontiguousarray(frame0[:, ::-1]),
+                               np.ascontiguousarray(lab0[:, ::-1]))]
+    model = DeepLabV3Plus(cfg.refine, getattr(torch, cfg.pipeline.dtype))
+    init_module(model, torch.Generator().manual_seed(0))
+    model = place(model, torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tuned, losses = finetune_refine_videos(model, videos, cfg.refine, ft)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if not np.isfinite(losses).all():
+        fail(f"multi-video fine-tune losses not finite: {losses}")
+    for v, m in enumerate(tuned):
+        if not next(m.parameters()).is_cuda or not changed(model, m):
+            fail(f"multi-video fine-tune: video {v}'s copy is not on the card or did not train")
+    report = dict(config="configs/davis2017_val.json's refine net, FinetuneConfig(steps=%d): "
+                         "2 videos of 480x864, a pool of %d lucid images each, batch %d of "
+                         "%d^2 crops a video, Adam %g, %s compute"
+                         % (steps, min(ft.num_augmentations, max(steps, 32)),
+                            max(ft.batch_size // 2, 2), cfg.refine.crop_size, ft.learning_rate,
+                            cfg.pipeline.dtype),
+                  wall_s=wall, losses=[float(x) for x in losses],
+                  peak_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+    del model, tuned
+    return report
+
+
+def train_refine_full_width(np, torch, wrappers, n_steps: int = 5):
+    """Refine-net training at RefineConfig() (DeepLabv3+ R50, 385² crops),
+    batch 8, Adam 1e-4, float32, on an in-memory dataset of synthetic
+    480×864 frames: one step through `train_refine`, then `n_steps` timed
+    steps on one fixed batch of its examples."""
+    from premvos_tpu_torch.config import RefineConfig
+    from premvos_tpu_torch.finetune.finetune import refine_loss_fn
+    from premvos_tpu_torch.train.train_refine import example_batches, example_stream, train_refine
+    from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg, bs = RefineConfig(), 8
+    ds = SyntheticDavis(np, n_sequences=4)
+    t0 = time.perf_counter()
+    model, warm_loss = train_refine(ds, cfg, steps=1, batch_size=bs, seed=0, log_every=0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if not np.isfinite(warm_loss):
+        fail(f"refine training warm-up step: loss {warm_loss}")
+    batch = example_batches(example_stream(ds, cfg, np.random.default_rng(1)), bs,
+                            torch.device("cuda"))()
+    state = create_train_state(model, 1e-4)
+    step = make_train_step(refine_loss_fn(model), state.optimizer)
+    rep = timed_steps(np, torch, wrappers, step, batch, n_steps)
+    return dict(config="RefineConfig() (DeepLabv3+ R50, 385x385 crops), batch 8 of examples cut "
+                       "from 480x864 frames, sigmoid cross-entropy, Adam 1e-4, float32 without "
+                       "TF32",
+                first_step_s_incl_init=first_s, warmup_loss=warm_loss,
+                images_per_s=bs / rep["median_s_per_step"], **rep)
 
 
 def train_flow_full_width(np, torch, wrappers, n_steps: int = 5):
@@ -1554,6 +1803,7 @@ def main() -> int:
     # Phase 3 — each kernel vs its plain version at production shapes.
     cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
     check_finetune_shapes(cfg)
+    check_pool_shapes(cfg)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     checks = {
@@ -1591,6 +1841,15 @@ def main() -> int:
         checks["roi_align_backward"].append(check_roi_align_backward(
             torch, torch.Generator().manual_seed(33 + i), dev, p_ft, "dense", FT_BATCH, FT_HW,
             "bfloat16"))
+    # The host-pool fine-tune's proposal net, at the full canvas.
+    checks["nms"].append(check_nms(torch, torch.Generator().manual_seed(50), dev, NMS_CASES[4]))
+    for i, p_pool in enumerate(FT_ALIGN_PS):
+        checks["roi_align"].append(check_roi_align_train(
+            torch, torch.Generator().manual_seed(51 + i), dev, p_pool, torch.bfloat16,
+            POOL_BATCH, POOL_HW))
+        checks["roi_align_backward"].append(check_roi_align_backward(
+            torch, torch.Generator().manual_seed(53 + i), dev, p_pool, "dense", POOL_BATCH,
+            POOL_HW, "bfloat16"))
     # FlowNetC training's cost volume, forward and gradient.
     train_gen = torch.Generator().manual_seed(41)
     checks["correlation"] += [check_correlation(torch, train_gen, dev, getattr(torch, dt), case)
@@ -1687,6 +1946,8 @@ def main() -> int:
     log(f"tiny fine-tune: {report['tiny_finetune']}")
     report["tiny_flow_reid"] = tiny_flow_reid_parity(np, torch)
     log(f"tiny FlowNetC and ReID training: {report['tiny_flow_reid']}")
+    report["tiny_pool_finetune"] = tiny_pool_parity(np, torch)
+    log(f"tiny host-pool fine-tune: {report['tiny_pool_finetune']}")
 
     # Phase 7 — Mask R-CNN training at full width.
     tr = train_full_width(np, torch, wrappers)
@@ -1720,6 +1981,31 @@ def main() -> int:
         f"losses {reid_tr['losses']}, launches {reid_tr['launches']}")
     torch.cuda.empty_cache()
 
+    # Phase 7, continued — the host-pool fine-tune and refine training.
+    pool_ft = pool_finetune_full_width(np, torch, wrappers, cfg)
+    report["pool_finetune"] = pool_ft
+    log(f"pool fine-tune at davis2017_val, 40 steps per net: host pool {pool_ft['pool_s']:.3f} s, "
+        f"make_refine_examples {pool_ft['examples_s']:.3f} s ({pool_ft['examples']} examples), "
+        f"refine {pool_ft['refine']['s_per_step']:.4f} s/step, proposal "
+        f"{pool_ft['proposal']['s_per_step']:.4f} s/step, peak {pool_ft['peak_bytes']} bytes, "
+        "both nets changed")
+    log(f"pool fine-tune: losses {pool_ft['losses']}, launches {pool_ft['launches']}, s/step "
+        f"after the first chunk: refine {pool_ft['refine']['s_per_step_after_first_chunk']:.4f}, "
+        f"proposal {pool_ft['proposal']['s_per_step_after_first_chunk']:.4f}")
+    torch.cuda.empty_cache()
+    mv = multi_video_full_width(np, torch, wrappers, cfg)
+    report["multi_video"] = mv
+    log(f"multi-video refine fine-tune, 2 videos at davis2017_val, 8 steps: {mv['wall_s']:.3f} s "
+        f"(host pools and examples included), losses {mv['losses']}, peak {mv['peak_bytes']} "
+        f"bytes, launches {mv['launches']}, both copies on the card and changed")
+    torch.cuda.empty_cache()
+    refine_tr = train_refine_full_width(np, torch, wrappers)
+    report["train_refine"] = refine_tr
+    log(f"refine training at full width: median {refine_tr['median_s_per_step']:.4f} s/step → "
+        f"{refine_tr['images_per_s']:.2f} crops/s, peak {refine_tr['peak_bytes']} bytes, "
+        f"losses {refine_tr['losses']}")
+    torch.cuda.empty_cache()
+
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
     for name in KERNELS:
@@ -1737,7 +2023,8 @@ def main() -> int:
         ("inference", launches, INFERENCE_KERNELS),
         ("training", tr["launches"], TRAINING_KERNELS),
         ("finetune", ftr["launches"], FINETUNE_KERNELS),
-        ("train_flow", flow_tr["launches"], FLOW_TRAIN_KERNELS)) if name in names}
+        ("train_flow", flow_tr["launches"], FLOW_TRAIN_KERNELS),
+        ("pool_finetune", pool_ft["launches"], POOL_FINETUNE_KERNELS)) if name in names}
         for name in KERNELS}
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():

@@ -3,8 +3,8 @@
 The port keeps its own copy of the JAX package's config tree so that it
 imports nothing from that package; both load the same JSON presets
 (configs/*.json), and field names and defaults are identical. Fields the
-port does not read yet (`mesh_axis`, `num_augmentations`, the loss
-settings) stay so that every preset parses. The `warp_impl` switches are
+port does not read yet (`mesh_axis`, the loss settings) stay so that every
+preset parses. The `warp_impl` switches are
 read by the JAX package only: the port's warp is always the exact bilinear
 warp (ops/resample2d.py).
 """
@@ -137,7 +137,8 @@ class FinetuneConfig:
     """Per-video lucid-dream fine-tuning (finetune/fused.py).
 
     method "fused" (default): every step draws its augmentations on the
-    device. method "pool" (the host-pool oracle) is not ported yet.
+    device. method "pool" (the host-pool oracle, finetune/finetune.py):
+    both nets train on one pool of augmentations built on the host.
     """
 
     num_augmentations: int = 2500  # pool method only; fused draws per step

@@ -1,11 +1,28 @@
 """Lucid-Data-Dreaming host routines (port of premvos_tpu/data/lucid.py).
 
-Only `inpaint_background` so far: the fused per-video fine-tune
-(finetune/fused.py) runs it once per video, on the host, and generates every
-augmentation on the device. The JAX package calls OpenCV (`cv2.dilate` and
-`cv2.inpaint(..., 5, cv2.INPAINT_TELEA)`); the port needs no OpenCV, so this
-is Telea's fast-marching inpainting written out in Python and numpy with
-OpenCV's semantics:
+`inpaint_background` serves both fine-tunes: the fused one
+(finetune/fused.py) runs it once per video on the host and generates every
+augmentation on the device; the host-pool one (finetune/finetune.py) also
+composites its pool here, on the host, with `lucid_dream` / `lucid_batch`
+(each object warped by its own affine and, 8 times in 10, a smooth elastic
+field, each layer under its own photometric change, over the warped
+inpainted background). The JAX package calls OpenCV; the port needs none:
+the warps, the blur and the resizes are data/cv_compat.py's and
+data/preprocess.py's numpy versions of OpenCV's, and every draw comes from
+the caller's `numpy.random.Generator` in the JAX package's order, so the
+same seed gives the same pool up to OpenCV's rounding (a bilinear value may
+land one level apart, a few values in a million).
+
+Only the pixels that can change the result are computed: an object's warps
+over the box its pixels can land in, its elastic field and remaps over
+that box grown by the field's reach (|displacement| ≤ alpha), its
+photometric change over the box of its warped mask. Everything outside
+those boxes is 0 in the warped layer (`elastic_deform` documents what
+that means for its image).
+
+The inpainting: the JAX package calls `cv2.dilate` and `cv2.inpaint(...,
+5, cv2.INPAINT_TELEA)`; here it is Telea's fast-marching inpainting written
+out in Python and numpy with OpenCV's semantics:
 
   * the band: the 4-neighbours of the masked region outside it, at T = 0;
     first a march outwards from the band over the pixels within `radius`
@@ -40,6 +57,14 @@ from array import array
 
 import numpy as np
 from scipy import ndimage
+
+from premvos_tpu_torch.data.cv_compat import (
+    gaussian_blur,
+    remap,
+    rotation_matrix_2d,
+    warp_affine,
+)
+from premvos_tpu_torch.data.preprocess import resize_linear
 
 _KNOWN, _BAND, _INSIDE = 0, 1, 2
 _FAR = 1.0e6  # the arrival time of a pixel not reached
@@ -250,3 +275,136 @@ def inpaint_background(image: np.ndarray, labels: np.ndarray) -> np.ndarray:
     by Telea inpainting with radius 5; uint8 RGB in and out."""
     mask = ndimage.binary_dilation(np.asarray(labels) > 0, np.ones((5, 5), bool))
     return telea_inpaint(image, mask, 5)
+
+
+# ------------------------------------------------------------ host-pool lucid
+
+def _rand_affine(rng, h, w, max_rot=15.0, scale_lo=0.9, scale_hi=1.1, max_shift=0.1):
+    ang = rng.uniform(-max_rot, max_rot)
+    scale = rng.uniform(scale_lo, scale_hi)
+    m = rotation_matrix_2d((w / 2, h / 2), ang, scale)
+    m[0, 2] += rng.uniform(-max_shift, max_shift) * w
+    m[1, 2] += rng.uniform(-max_shift, max_shift) * h
+    return m
+
+
+def _photometric(rng, img):
+    out = img.astype(np.float32)
+    out = out * rng.uniform(0.8, 1.2)  # contrast
+    out = out + rng.uniform(-20, 20)  # brightness
+    # per-channel gain (illumination color shift)
+    out = out * rng.uniform(0.9, 1.1, size=(1, 1, 3))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _box(mask: np.ndarray, grow: int = 0):
+    """(y0, y1, x0, x1) of the nonzero pixels of a [H, W] mask, grown by
+    `grow` and clipped to the image; an empty box for an empty mask."""
+    rows, cols = np.flatnonzero(mask.any(1)), np.flatnonzero(mask.any(0))
+    if not len(rows):
+        return (0, 0, 0, 0)
+    h, w = mask.shape
+    return (max(rows[0] - grow, 0), min(rows[-1] + 1 + grow, h),
+            max(cols[0] - grow, 0), min(cols[-1] + 1 + grow, w))
+
+
+def _warped_box(mask: np.ndarray, m: np.ndarray):
+    """The box of output pixels whose source point under warp_affine(·, m)
+    has a tap on a nonzero pixel of `mask`: the mask's box grown by one
+    pixel, its corners mapped by m, grown by 2 more for rounding."""
+    y0, y1, x0, x1 = _box(mask)
+    if y1 <= y0:
+        return (0, 0, 0, 0)
+    h, w = mask.shape
+    corners = np.array([[x, y, 1.0] for x in (x0 - 1, x1) for y in (y0 - 1, y1)])
+    xy = corners @ np.asarray(m, np.float64).T
+    lo, hi = np.floor(xy.min(0)) - 2, np.ceil(xy.max(0)) + 3
+    return (int(max(lo[1], 0)), int(min(hi[1], h)), int(max(lo[0], 0)), int(min(hi[0], w)))
+
+
+def _elastic_maps(rng, h, w, alpha: float = 8.0, sigma: float = 12.0, window=None):
+    """Smooth random displacement fields for non-rigid (thin-plate-style)
+    deformation: uniform noise at 1/8 resolution, blurred with sigma / 8
+    and upsampled bilinearly (the JAX package's recipe and draws), as
+    absolute sample maps (map_x, map_y) of the [h, w] frame, or of its
+    `window` (y0, y1, x0, x1)."""
+    ds = 8
+    sh, sw = max(h // ds, 4), max(w // ds, 4)
+    dx = gaussian_blur(rng.uniform(-1, 1, (sh, sw)).astype(np.float32), sigma / ds) * alpha
+    dy = gaussian_blur(rng.uniform(-1, 1, (sh, sw)).astype(np.float32), sigma / ds) * alpha
+    y0, y1, x0, x1 = window or (0, h, 0, w)
+    dx = resize_linear(dx, (h, w), (y0, y1, x0, x1))
+    dy = resize_linear(dy, (h, w), (y0, y1, x0, x1))
+    xx, yy = np.meshgrid(np.arange(x0, x1, dtype=np.float32),
+                         np.arange(y0, y1, dtype=np.float32))
+    return xx + dx, yy + dy
+
+
+def elastic_deform(image, mask, rng, alpha: float = 8.0, sigma: float = 12.0):
+    """Apply one smooth non-rigid warp to (image, mask) jointly: bilinear
+    with a reflected border for the image, nearest with a zero border for
+    the mask. The mask is warped everywhere; the image only within alpha +
+    2 pixels of the mask's box (everywhere the warped mask can be set) and
+    is 0 elsewhere."""
+    h, w = mask.shape
+    win = _box(np.asarray(mask) != 0, int(np.ceil(alpha)) + 2)
+    mx, my = _elastic_maps(rng, h, w, alpha, sigma, win)
+    y0, y1, x0, x1 = win
+    img_w = np.zeros_like(image)
+    m_w = np.zeros((h, w), np.uint8)
+    if y1 > y0:
+        img_w[y0:y1, x0:x1] = remap(image, mx, my, "linear", "reflect")
+        m_w[y0:y1, x0:x1] = remap(np.asarray(mask).astype(np.uint8), mx, my, "nearest")
+    return img_w, m_w
+
+
+def lucid_dream(
+    image: np.ndarray,
+    labels: np.ndarray,
+    rng: np.random.Generator,
+    background: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """One augmented (image, labels) pair from an annotated frame.
+
+    image: [H, W, 3] uint8; labels: [H, W] int (0 = background).
+    Each object gets its own affine + photometric perturbation; the
+    background gets an independent affine + photometric change.
+    """
+    h, w = labels.shape
+    if background is None:
+        background = inpaint_background(image, labels)
+
+    bg_m = _rand_affine(rng, h, w, max_rot=5.0, max_shift=0.05)
+    canvas = warp_affine(background, bg_m, (w, h), border="reflect")
+    canvas = _photometric(rng, canvas)
+    out_labels = np.zeros((h, w), labels.dtype)
+
+    for obj in [i for i in np.unique(labels) if i > 0]:
+        m = (labels == obj).astype(np.uint8)
+        fg = image * m[..., None]
+        am = _rand_affine(rng, h, w)
+        box = _warped_box(m, am)
+        fg_w = warp_affine(fg, am, (w, h), region=box)
+        m_w = warp_affine(m, am, (w, h), "nearest", region=box)
+        if rng.uniform() < 0.8:  # non-rigid deformation on top of the affine
+            fg_w, m_w = elastic_deform(fg_w, m_w, rng)
+        # The photometric change is per pixel: only the pixels pasted below
+        # need it (the draws are the same whatever the size).
+        y0, y1, x0, x1 = _box(m_w)
+        patch = _photometric(rng, fg_w[y0:y1, x0:x1])
+        sel = m_w[y0:y1, x0:x1].astype(bool)
+        canvas[y0:y1, x0:x1][sel] = patch[sel]
+        out_labels[y0:y1, x0:x1][sel] = obj
+    return canvas, out_labels
+
+
+def lucid_batch(image, labels, rng, n: int, background=None):
+    """Generate n augmentations; returns (images [n,H,W,3], labels [n,H,W])."""
+    if background is None:
+        background = inpaint_background(image, labels)
+    imgs, labs = [], []
+    for _ in range(n):
+        i, l = lucid_dream(image, labels, rng, background)
+        imgs.append(i)
+        labs.append(l)
+    return np.stack(imgs), np.stack(labs)

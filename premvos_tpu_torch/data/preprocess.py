@@ -2,7 +2,9 @@
 host resizes the JAX package does with OpenCV, in numpy: `resize_area_u8`
 (INTER_AREA) and `resize_nearest` (INTER_NEAREST) of the fused fine-tune's
 set-up (finetune/fused.py), and `resize_linear` (INTER_LINEAR on float32)
-of the ReID crops (data/crops.py)."""
+of the ReID crops (data/crops.py) and the host-pool fine-tune
+(data/lucid.py, finetune/finetune.py; its other OpenCV calls are in
+data/cv_compat.py)."""
 
 from __future__ import annotations
 
@@ -100,17 +102,22 @@ def _linear_taps(src: int, dst: int):
     return i0, np.minimum(i0 + 1, src - 1), frac
 
 
-def resize_linear(image: np.ndarray, hw: tuple) -> np.ndarray:
+def resize_linear(image: np.ndarray, hw: tuple, window=None) -> np.ndarray:
     """float32 [H, W, C] → [h, w, C] as `cv2.resize(image, (w, h))`
     (INTER_LINEAR): half-pixel centres, no antialias when shrinking, edge
-    pixels repeated; the rows first, then the columns, in float32."""
+    pixels repeated; the rows first, then the columns, in float32.
+    `window` (y0, y1, x0, x1): only that part of the [h, w] output."""
     h, w = hw
     src_h, src_w = image.shape[:2]
     x = np.asarray(image, np.float32)
     x0, x1, fx = _linear_taps(src_w, w)
     y0, y1, fy = _linear_taps(src_h, h)
-    shape = (1, w) + (1,) * (x.ndim - 2)
+    if window is not None:
+        r0, r1, c0, c1 = window
+        x0, x1, fx = x0[c0:c1], x1[c0:c1], fx[c0:c1]
+        y0, y1, fy = y0[r0:r1], y1[r0:r1], fy[r0:r1]
+    shape = (1, len(fx)) + (1,) * (x.ndim - 2)
     fx = fx.reshape(shape)
     rows = x[:, x0] * (np.float32(1) - fx) + x[:, x1] * fx
-    fy = fy.reshape((h, 1) + (1,) * (x.ndim - 2))
+    fy = fy.reshape((len(fy), 1) + (1,) * (x.ndim - 2))
     return (rows[y0] * (np.float32(1) - fy) + rows[y1] * fy).astype(np.float32)

@@ -23,11 +23,14 @@ chunk).
     constant). Crops and pastes in float32.
 
 The caller's modules are never changed: each net is deep-copied with a
-fresh Adam (`_fresh_state`), and `finetune_video_fused` returns new
-`Models` with the two fine-tuned nets. Random streams are explicit
+fresh Adam (`trainer.fresh_train_state`), and `finetune_video_fused`
+returns new `Models` with the two fine-tuned nets. Random streams are explicit
 `torch.Generator`s seeded from `seed`: one on the device per net for the
 augmentation draws, one on the host for the proposal batch's RPN sampling
 seeds.
+
+`finetune_video` also dispatches to the host-pool oracle (`method "pool"`,
+`finetune_video_pool`, built on finetune/finetune.py).
 
 Left out, by design: the JAX package's `shard_map`/`pmean` data
 parallelism (one device here), and `chunk_lengths` and `steps_list`, which
@@ -36,7 +39,6 @@ exist only to pre-compile XLA scan programs per chunk length.
 
 from __future__ import annotations
 
-import copy
 import time
 from typing import Callable, NamedTuple
 
@@ -46,7 +48,13 @@ import torch
 from premvos_tpu_torch.config import FinetuneConfig, RefineConfig
 from premvos_tpu_torch.data.lucid import inpaint_background
 from premvos_tpu_torch.data.preprocess import resize_area_u8, resize_nearest
-from premvos_tpu_torch.finetune.finetune import labels_to_boxes_masks
+from premvos_tpu_torch.finetune.finetune import (
+    build_lucid_pool,
+    finetune_proposals,
+    finetune_refine,
+    labels_to_boxes_masks,
+    run_chunks,
+)
 from premvos_tpu_torch.finetune.lucid_device import (
     proposal_batch,
     refine_examples,
@@ -54,10 +62,10 @@ from premvos_tpu_torch.finetune.lucid_device import (
     sample_refine_draws,
 )
 from premvos_tpu_torch.models.anchors import pyramid_anchors
-from premvos_tpu_torch.pipeline.runner import resolve_device
+from premvos_tpu_torch.pipeline.runner import check_on, get_anchors, resolve_device
 from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
 from premvos_tpu_torch.train.losses import sigmoid_xent
-from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
+from premvos_tpu_torch.train.trainer import fresh_train_state, make_train_step
 
 
 class Consts(NamedTuple):
@@ -105,18 +113,11 @@ def _prep_consts(frame0, lab0, max_objects: int, device, background=None, hw=Non
     )
 
 
-def _fresh_state(module: torch.nn.Module, learning_rate: float):
-    """A copy of `module` to train (the caller's stays as it is) and a fresh
-    Adam over it."""
-    return create_train_state(copy.deepcopy(module), learning_rate)
-
-
 def _run_chunks(run: FusedRun, state, consts: Consts, seed: int, steps: int, chunk: int,
                 log_every: int = 0, label: str = "", stats: dict | None = None):
-    """`steps` steps, reading the loss on the host once per `chunk` steps.
-    Returns (module, final loss). `stats`, where given, gets "chunks": one
-    (steps, seconds, loss) per chunk, the seconds on the host clock from the
-    chunk's first step to its loss read."""
+    """`steps` steps, reading the loss on the host once per `chunk` steps
+    (finetune.py::run_chunks, which fills `stats`). Returns (module, final
+    loss)."""
     if steps < 1:
         raise ValueError(
             f"fused fine-tune needs steps >= 1 (got {steps}); with 0 steps "
@@ -127,20 +128,8 @@ def _run_chunks(run: FusedRun, state, consts: Consts, seed: int, steps: int, chu
     gen = torch.Generator(device=dev).manual_seed(seed)
     host_gen = torch.Generator().manual_seed(seed)
     step = make_train_step(lambda d: run.loss(module, run.batch(d, consts)), state.optimizer)
-    chunks = []
-    loss, done = float("nan"), 0
-    while done < steps:
-        n = min(chunk, steps - done)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            last = step(run.draw(gen, host_gen))
-        loss = last.item()
-        chunks.append((n, time.perf_counter() - t0, loss))
-        done += n
-        if log_every and (done % max(log_every, 1) < chunk):
-            print(f"[finetune-fused{label}] step {done}/{steps} loss={loss:.4f}", flush=True)
-    if stats is not None:
-        stats["chunks"] = chunks
+    loss = run_chunks(lambda i: step(run.draw(gen, host_gen)), steps, chunk, log_every,
+                      f"-fused{label}", stats)
     return module, loss
 
 
@@ -182,7 +171,7 @@ def finetune_refine_fused(model, frame0, lab0, refine_cfg: RefineConfig = Refine
     consts = _prep_consts(frame0, lab0, max_objects, dev, background)
     hw = tuple(consts.image255.shape[1:])
     run = built or build_refine_fused_runs(hw, refine_cfg, ft_cfg, max_objects)
-    state = _fresh_state(model, ft_cfg.learning_rate)
+    state = fresh_train_state(model, ft_cfg.learning_rate)
     return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1),
                        log_every, "-refine", stats)
 
@@ -235,7 +224,7 @@ def finetune_proposals_fused(model, proposal_cfg, frame0, lab0,
             np.asarray(frame0).shape[:2], ft_cfg)
     run = built or build_proposal_fused_runs(proposal_cfg, image_hw, ft_cfg, max_objects, dev)
     consts = _prep_consts(frame0, lab0, max_objects, dev, background, hw=image_hw)
-    state = _fresh_state(model, ft_cfg.learning_rate)
+    state = fresh_train_state(model, ft_cfg.learning_rate)
     return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1),
                        log_every, "-prop", stats)
 
@@ -244,19 +233,57 @@ def finetune_video(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None = No
                    seed: int = 0, log_every: int = 0, built: dict | None = None,
                    device=None, stats: dict | None = None):
     """Method-dispatching per-video fine-tune of both nets: "fused" (the
-    default) runs finetune_video_fused; the host-pool oracle ("pool") is
-    not ported yet. Returns (models', {"refine": loss, "proposal": loss})."""
+    default) runs finetune_video_fused, "pool" the host-pool oracle
+    finetune_video_pool (`built` serves the fused runs only). Returns (models',
+    {"refine": loss, "proposal": loss})."""
     ft = ft_cfg or cfg.finetune
     if ft.method == "fused":
         return finetune_video_fused(models, frame0, lab0, cfg, ft, seed, log_every, built,
                                     device, stats)
     if ft.method == "pool":
-        raise NotImplementedError(
-            'FinetuneConfig.method "pool" (the host-pool oracle) is not ported yet: '
-            "ROADMAP.md, queue 1, item 2 (the pool oracle, with cv2-free warpAffine, "
-            "remap, GaussianBlur, dilate and erode)"
-        )
+        return finetune_video_pool(models, frame0, lab0, cfg, ft, seed, log_every, device,
+                                   stats)
     raise ValueError(f"unknown FinetuneConfig.method {ft.method!r}")
+
+
+def _check_models_on(models, dev, who: str) -> None:
+    for name in ("refine", "maskrcnn"):
+        check_on(getattr(models, name), dev, f"{who} (models.{name})")
+
+
+def finetune_video_pool(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None = None,
+                        seed: int = 0, log_every: int = 0, device=None,
+                        stats: dict | None = None):
+    """Fine-tune both nets for one video on one host-built lucid pool (the
+    JAX package's `method "pool"` branch of finetune_video; finetune/
+    finetune.py): the pool from default_rng(seed), then the refine net on
+    examples cut from it and the proposal net on its frames at the frame's
+    size (frame0 at the pipeline canvas, whose anchors it uses).
+
+    models on `device` (CUDA unless the caller passes one). Returns (models
+    with new `refine` and `maskrcnn` modules, {"refine": loss, "proposal":
+    loss}). `stats`, where given, gets "pool_s" (host seconds of the pool),
+    and under "refine" ("examples_s": host seconds of make_refine_examples,
+    "examples", "chunks") and "proposal" ("chunks") each net's log.
+    """
+    dev = resolve_device(device)
+    _check_models_on(models, dev, "finetune_video_pool")
+    ft = ft_cfg or cfg.finetune
+    frame0 = np.asarray(frame0, np.uint8)
+    lab0 = np.asarray(lab0)
+    t0 = time.perf_counter()
+    pool = build_lucid_pool(frame0, lab0, ft, seed=seed)
+    if stats is not None:
+        stats["pool_s"] = time.perf_counter() - t0
+    sub = (lambda key: stats.setdefault(key, {})) if stats is not None else (lambda key: None)
+    refine, loss_r = finetune_refine(models.refine, frame0, lab0, cfg.refine, ft, seed=seed,
+                                     log_every=log_every, pool=pool, stats=sub("refine"))
+    maskrcnn, loss_p = finetune_proposals(
+        models.maskrcnn, get_anchors(cfg, dev), cfg.proposal, frame0, lab0, ft, seed=seed,
+        max_objects=cfg.pipeline.max_objects, log_every=log_every, pool=pool,
+        stats=sub("proposal"),
+    )
+    return models._replace(refine=refine, maskrcnn=maskrcnn), {"refine": loss_r, "proposal": loss_p}
 
 
 def build_fused_runner(models, cfg, ft_cfg: FinetuneConfig | None = None, image_hw=None,
@@ -292,10 +319,7 @@ def finetune_video_fused(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | Non
     seconds) and each net's chunk log under "refine" and "proposal".
     """
     dev = resolve_device(device)
-    for name in ("refine", "maskrcnn"):
-        on = next(getattr(models, name).parameters()).device
-        if on.type != dev.type:
-            raise ValueError(f"finetune_video_fused: models.{name} is on {on}, not {dev}")
+    _check_models_on(models, dev, "finetune_video_fused")
     ft = ft_cfg or cfg.finetune
     frame0 = np.asarray(frame0, np.uint8)
     lab0 = np.asarray(lab0)

@@ -71,6 +71,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def check_on(module: torch.nn.Module, device: torch.device, who: str) -> None:
+    """Raise unless `module`'s parameters lie on `device`'s kind of device:
+    an entry point never moves the caller's module for it."""
+    on = next(module.parameters()).device
+    if on.type != device.type:
+        raise ValueError(f"{who}: the module is on {on}, not {device}")
+
+
 def place(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
     """Move `module` to `device`, with channels-last convolution weights on
     CUDA (so activations are channels-last and kernels read NHWC)."""

@@ -5,6 +5,7 @@ CUDA card.
     python3 scripts/profile_train_port.py [--steps N] [--json PATH]
     python3 scripts/profile_train_port.py --finetune [--steps N] [--json PATH]
     python3 scripts/profile_train_port.py --flow_reid [--steps N] [--json PATH]
+    python3 scripts/profile_train_port.py --pool [--steps N] [--json PATH]
 
 The step of chip_smoke.py's phase 7: ProposalConfig() defaults (ResNet-101
 FPN, 256 channels, 256 RoIs per image), 480×864 images, batch 2, 8 object
@@ -33,6 +34,18 @@ synthetic 384×512 pairs; ReIDConfig(), P 8 × K 4 synthetic 128² crops;
 Adam 1e-4, float32 without TF32, seeded random weights, one fixed batch
 each): the same spans (forward + loss; backward; Adam) and profile.
 
+With --pool, first the host seconds of the lucid pool and its refine
+examples at configs/davis2017_val.json with FinetuneConfig(steps=40) (64
+images) and with its default steps (500 images), then the host-pool
+fine-tune step of each net (finetune/finetune.py, the 64-image pool
+uploaded once, each step's rows drawn as the fine-tune draws them) and the
+refine-net training step of chip_smoke.py's phase 7 (RefineConfig(),
+batch 8, float32, one fixed batch): the steps the package ships
+(make_pool_train_step, make_train_step), with spans of the whole step,
+forward + loss, backward, Adam and zero_grad timed from outside them (the
+rest of the whole step is the gather and the host's work), and the
+profile.
+
 Prints both as text (and with --json writes them to PATH). Imports nothing
 of JAX.
 """
@@ -58,6 +71,8 @@ def main() -> int:
                     help="profile the fused fine-tune step of each net instead")
     ap.add_argument("--flow_reid", action="store_true",
                     help="profile the FlowNetC and ReID training steps instead")
+    ap.add_argument("--pool", action="store_true",
+                    help="profile the host-pool fine-tune steps and refine training instead")
     args = ap.parse_args()
 
     import numpy as np
@@ -71,6 +86,8 @@ def main() -> int:
         return profile_finetune(args)
     if args.flow_reid:
         return profile_flow_reid(args)
+    if args.pool:
+        return profile_pool(args)
     import chip_smoke
     from premvos_tpu_torch.config import ProposalConfig
     from premvos_tpu_torch.models.anchors import pyramid_anchors
@@ -280,6 +297,7 @@ def profile_finetune(args) -> int:
     from premvos_tpu_torch.config import load_config
     from premvos_tpu_torch.finetune import fused
     from premvos_tpu_torch.pipeline.runner import build_models, float32_precision, init_params
+    from premvos_tpu_torch.train.trainer import fresh_train_state
 
     cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
     ft, p = cfg.finetune, cfg.pipeline
@@ -301,7 +319,7 @@ def profile_finetune(args) -> int:
     out = {"inpaint_s": inpaint_s}
     print(f"inpaint_background at {hw[0]}x{hw[1]}: {inpaint_s:.3f} s (host)")
     for name, (module, run, consts) in nets.items():
-        state = fused._fresh_state(module, ft.learning_rate)
+        state = fresh_train_state(module, ft.learning_rate)
         m, opt = state.model, state.optimizer
         gen = torch.Generator(device=dev).manual_seed(0)
         host_gen = torch.Generator().manual_seed(0)
@@ -371,6 +389,132 @@ def profile_flow_reid(args) -> int:
 
         out[name] = profile_parts(torch, f"{name} training step", step_of, args.steps, top=20)
         del opt
+    return write_report(args, out)
+
+
+def shipped_spans(timed, loss_fn, optimizer):
+    """Spans of a shipped train step's parts, timed from outside it: returns
+    `loss_fn` wrapped ("2 forward + loss", and the loss's own backward as
+    "3 backward"), and patches `optimizer`'s step ("4 Adam") and zero_grad
+    ("5 zero_grad") on the instance. The step that is profiled is the one
+    make_train_step / make_pool_train_step build."""
+
+    def spanned(batch):
+        loss = timed("2 forward + loss", loss_fn, batch)
+        backward = loss.backward
+        loss.backward = lambda: timed("3 backward", backward)
+        return loss
+
+    step, zero_grad = optimizer.step, optimizer.zero_grad
+    optimizer.step = lambda: timed("4 Adam", step)
+    optimizer.zero_grad = lambda set_to_none=True: timed("5 zero_grad", zero_grad, set_to_none)
+    return spanned
+
+
+def with_rest(res: dict) -> dict:
+    """Adds the whole step's span less its parts' (the gather, the batch
+    transform and the host's own work between the parts)."""
+    spans = res["span_ms_per_step"]
+    spans["0 rest (whole step less 2-5)"] = spans["1 whole step"] - sum(
+        v for k, v in spans.items() if k[0] in "2345")
+    print(f"  rest (whole step less its parts): {spans['0 rest (whole step less 2-5)']:.3f} ms/step")
+    return res
+
+
+def profile_pool(args) -> int:
+    """Host seconds of the pool and its examples (at 40 steps' pool and at
+    FinetuneConfig()'s), then spans and kernel profile of each net's
+    host-pool fine-tune step and of the refine-net training step, each
+    through the step the package ships."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from premvos_tpu_torch.config import RefineConfig, load_config
+    from premvos_tpu_torch.finetune import finetune as ftmod
+    from premvos_tpu_torch.pipeline.runner import build_models, get_anchors, init_params
+    from premvos_tpu_torch.train.train_refine import (
+        example_batches,
+        example_stream,
+        train_refine,
+    )
+    from premvos_tpu_torch.train.trainer import (
+        create_train_state,
+        make_pool_train_step,
+        make_train_step,
+        sample_pool_draws,
+    )
+
+    cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
+    p = cfg.pipeline
+    hw, k = (p.image_height, p.image_width), p.max_objects
+    frame0, lab0 = chip_smoke.bench_finetune_frame(np, *hw)
+    out = {}
+    for steps in (40, cfg.finetune.steps):
+        ft = dataclasses.replace(cfg.finetune, steps=steps, method="pool")
+        t0 = time.perf_counter()
+        imgs, labs = ftmod.build_lucid_pool(frame0, lab0, ft, seed=0)
+        pool_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        crops, tgts = ftmod.make_refine_examples(imgs, labs, cfg.refine.crop_size,
+                                                 cfg.refine.box_margin, np.random.default_rng(0))
+        examples_s = time.perf_counter() - t0
+        out[f"host_{steps}_steps"] = {"pool_s": pool_s, "pool": len(imgs),
+                                      "examples_s": examples_s, "examples": len(crops)}
+        print(f"host, {steps} steps: pool of {len(imgs)} {hw[0]}x{hw[1]} lucid images "
+              f"{pool_s:.3f} s, {len(crops)} refine examples {examples_s:.3f} s", flush=True)
+        if steps == 40:
+            pool40 = (imgs, labs, crops, tgts)
+        del imgs, labs, crops, tgts
+    imgs, labs, crops, tgts = pool40
+    ft = dataclasses.replace(cfg.finetune, steps=40, method="pool")
+    dev = torch.device("cuda")
+    models = init_params(build_models(cfg), cfg, seed=0)
+    boxes, masks, valid = ftmod.proposal_pool(labs, k)
+    seeds = np.random.default_rng(0).integers(0, 2**31 - 1, size=len(imgs)).astype(np.uint32)
+    nets = {
+        "refine": (models.refine, ftmod.refine_loss_fn, (crops, tgts), max(ft.batch_size, 1),
+                   None),
+        "proposal": (models.maskrcnn,
+                     lambda m: ftmod.proposal_loss_fn(m, get_anchors(cfg, dev), cfg.proposal, hw),
+                     (imgs, boxes, masks, valid), max(1, ft.batch_size // 2),
+                     lambda batch, rows, salt: (*batch, seeds[rows] + np.uint32(salt))),
+    }
+    for name, (module, loss_of, pool, bs, transform) in nets.items():
+        state = create_train_state(module, ft.learning_rate)
+        draws = sample_pool_draws(torch.Generator().manual_seed(0), 64, len(pool[0]), bs)
+        it = [0]
+
+        def step_of(timed):
+            shipped = make_pool_train_step(
+                shipped_spans(timed, loss_of(state.model), state.optimizer), state.optimizer,
+                pool, draws, dev, batch_transform=transform)
+
+            def step():
+                i = it[0] % len(draws.idx)
+                it[0] += 1
+                return timed("1 whole step", shipped, i)
+            return step
+
+        out[name] = with_rest(profile_parts(torch, f"pool fine-tune step, {name} net", step_of,
+                                            args.steps))
+        del state
+    del models
+    torch.cuda.empty_cache()
+    ds = chip_smoke.SyntheticDavis(np, n_sequences=4)
+    model, _ = train_refine(ds, RefineConfig(), steps=1, batch_size=8, log_every=0)
+    batch = example_batches(example_stream(ds, RefineConfig(), np.random.default_rng(1)), 8,
+                            dev)()
+    opt = create_train_state(model, 1e-4).optimizer
+
+    def refine_step_of(timed):
+        shipped = make_train_step(shipped_spans(timed, ftmod.refine_loss_fn(model), opt), opt)
+        return lambda: timed("1 whole step", shipped, batch)
+
+    out["train_refine"] = with_rest(profile_parts(torch, "refine training step", refine_step_of,
+                                                  args.steps, top=20))
     return write_report(args, out)
 
 

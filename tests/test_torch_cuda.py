@@ -724,3 +724,101 @@ def test_lucid_frames_cuda_matches_cpu(dev):
         assert bool(((soft - 0.5).abs() <= 1e-4).any(1)[differ].all())
     keep = ~differ[:, None].expand(-1, 3, -1, -1)
     torch.testing.assert_close(out["cuda"][0][keep], out["cpu"][0][keep], rtol=0, atol=1e-3 * 255)
+
+
+@pytest.mark.parametrize("kind", ["nms", "forward7", "forward14", "backward7", "backward14"])
+def test_pool_finetune_kernel_shapes(dev, kind):
+    """The host-pool fine-tune's proposal-net rows of chip_smoke.py's phase
+    3 (batch 4 of the 480×864 canvas: NMS over 2384 RPN boxes per image →
+    256 at IoU 0.7, exact; the training RoIAlign forward, bf16 features at
+    P = 7 and 14, within 2 bf16 ulp of the largest value; its backward with
+    a bf16 output gradient, within 1e-4 of each level's largest |grad|):
+    each check fails the run (SystemExit) on a mismatch."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(61)
+    if kind == "nms":
+        row = cs.check_nms(torch, gen, dev, cs.NMS_CASES[4])
+        assert row["max_abs_err"] == 0 and row["kept"] > 0
+    elif kind.startswith("forward"):
+        row = cs.check_roi_align_train(torch, gen, dev, int(kind[7:]), torch.bfloat16,
+                                       cs.POOL_BATCH, cs.POOL_HW)
+        assert row["max_abs_err"] <= row["tol"]
+    else:
+        row = cs.check_roi_align_backward(torch, gen, dev, int(kind[8:]), "dense", cs.POOL_BATCH,
+                                          cs.POOL_HW, "bfloat16")
+        assert np.isfinite(row["max_abs_err"])
+
+
+def test_pool_finetune_steps_on_the_card(dev):
+    """Two host-pool fine-tune steps of each tiny net on the card from a
+    host pool of 4 lucid images: finite losses, parameters changed, and the
+    proposal net's kernels launched as two steps need (NMS once a step, the
+    training RoIAlign forward and backward four times a head)."""
+    import copy
+
+    from premvos_tpu_torch.config import FinetuneConfig
+    from premvos_tpu_torch.finetune import finetune as ftmod
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.pipeline.runner import build_models, get_anchors
+
+    cs = _chip_smoke()
+    cfg = cs.tiny_config()
+    ft = FinetuneConfig(steps=2, batch_size=2, chunk=1, num_augmentations=4)
+    frames, gt = cs.synthetic_video(np, 1, 96, 128, 2, seed=3)
+    lab = (np.arange(1, 3)[:, None, None] * (gt > 0.5)).max(0).astype(np.int32)
+    pool = ftmod.build_lucid_pool(frames[0], lab, ft, seed=0)
+    models = build_models(cfg, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    for net in (models.refine, models.maskrcnn):
+        init_module(net, gen)
+    before = {name: copy.deepcopy(getattr(models, name)) for name in ("refine", "maskrcnn")}
+    wrappers = (tnms.nms_cuda, roi_align_cuda, roi_align_backward_cuda)
+    start = [fn.launches for fn in wrappers]
+    refine, loss_r = ftmod.finetune_refine(models.refine, None, None, cfg.refine, ft, pool=pool)
+    mid = [fn.launches for fn in wrappers]
+    prop, loss_p = ftmod.finetune_proposals(models.maskrcnn, get_anchors(cfg, dev), cfg.proposal,
+                                            frames[0], lab, ft, max_objects=2, pool=pool)
+    torch.cuda.synchronize()
+    end = [fn.launches for fn in wrappers]
+    assert np.isfinite(loss_r) and np.isfinite(loss_p)
+    assert mid == start
+    assert [b - a for a, b in zip(mid, end)] == [2, 16, 16]
+    for name, tuned in (("refine", refine), ("maskrcnn", prop)):
+        assert next(tuned.parameters()).is_cuda
+        assert cs.changed(before[name], tuned), name
+
+
+def test_finetune_refine_videos_on_the_card(dev):
+    """Two tiny videos, one step each, on the card by default: the copies
+    lie there, each video's loss within 1e-4 relative of the same run on the
+    CPU, both copies trained; a module on the card is refused when the CPU
+    is asked for."""
+    import copy
+
+    from premvos_tpu_torch.config import FinetuneConfig
+    from premvos_tpu_torch.finetune.multi_video import finetune_refine_videos
+    from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.pipeline.runner import place
+
+    cs = _chip_smoke()
+    cfg = cs.tiny_config()
+    ft = FinetuneConfig(steps=1, batch_size=4, num_augmentations=4)
+    videos = []
+    for seed in (3, 4):
+        frames, gt = cs.synthetic_video(np, 1, 96, 128, 2, seed=seed)
+        videos.append((frames[0], (np.arange(1, 3)[:, None, None] * (gt > 0.5)).max(0)
+                       .astype(np.int32)))
+    model = DeepLabV3Plus(cfg.refine)
+    init_module(model, torch.Generator().manual_seed(0))
+    on_card = place(copy.deepcopy(model), dev)
+    got, losses = finetune_refine_videos(on_card, videos, cfg.refine, ft)
+    _, want = finetune_refine_videos(model, videos, cfg.refine, ft, device="cpu")
+    torch.cuda.synchronize()
+    assert len(got) == 2 and np.isfinite(losses).all()
+    np.testing.assert_allclose(losses, want, rtol=1e-4, atol=0)
+    for tuned in got:
+        assert next(tuned.parameters()).is_cuda
+        assert cs.changed(on_card, tuned)
+    with pytest.raises(ValueError):
+        finetune_refine_videos(on_card, videos, cfg.refine, ft, device="cpu")

@@ -516,11 +516,15 @@ def test_finetune_video_built_runner_same_losses():
     assert got == want
 
 
-def test_finetune_video_methods():
+def test_finetune_video_methods(monkeypatch):
+    """"pool" goes to finetune_video_pool (held against the JAX package in
+    tests/test_torch_pool_finetune.py); an unknown method raises."""
     models = tr.Models(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.finetune_video(models, None, None, TINY, dataclasses.replace(
-            TINY.finetune, method="pool"), device="cpu")
+    called = []
+    monkeypatch.setattr(tfused, "finetune_video_pool", lambda *a, **k: called.append(a) or "pool")
+    assert tfused.finetune_video(models, None, None, TINY, dataclasses.replace(
+        TINY.finetune, method="pool"), device="cpu") == "pool"
+    assert len(called) == 1 and called[0][0] is models
     with pytest.raises(ValueError, match="unknown"):
         tfused.finetune_video(models, None, None, TINY, dataclasses.replace(
             TINY.finetune, method="other"), device="cpu")
