@@ -32,7 +32,9 @@ Phases (any failure raises and exits non-zero):
      1e-5 of its largest |grad|; library: autograd's backward through the
      21-bmm formulation) at FlowNetC's training shapes [8, 256, 32, 32]
      (256² crops) and [8, 256, 8, 8] (64²), md 20, stride 2, and at an odd
-     [2, 64, 23, 37] at stride 2 (D = 21) and 1 (D = 41); and NMS and the
+     [2, 64, 23, 37] at stride 2 (D = 21) and 1 (D = 41), at C = 200
+     ([2, 200, 23, 37]) and at H = 50 ([2, 64, 50, 30]), with its bound
+     as 3xTF32 on the tensor cores beside the float32-FMA bound; and NMS and the
      training RoIAlign forward and backward at the host-pool fine-tune's
      proposal net (batch 4 of the full 480×864 canvas: 2384 RPN boxes per
      image, bf16 features at P = 7 and 14, 256 RoIs per image, a bf16
@@ -122,11 +124,13 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores (most kernels' arithmetic type) and bf16 FLOP/s
-# on the tensor cores (the correlation kernel's).
+# outside the tensor cores (most kernels' arithmetic type), bf16 FLOP/s on
+# the tensor cores (the correlation kernel's) and TF32 FLOP/s on the tensor
+# cores (the correlation backward's, three products per float32 product).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 495e12
 
 KERNELS = {
     "nms": ("premvos_tpu_torch/kernels/nms.cu", "premvos_tpu/ops/pallas/nms_pallas.py:70"),
@@ -223,24 +227,33 @@ def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_times(fn, iters: int = 50, need: tuple = (), wrapper=None, per_call: int = 1) -> dict:
+def kernel_times(fn, iters: int = 50, need: tuple = (), wrapper=None, per_call: int = 1,
+                 counts: dict | None = None) -> dict:
     """{kernel name: mean device ms per call} of everything fn() runs on the
-    card (torch.profiler over `iters` calls, after one warm-up call). Each
+    card (torch.profiler over `iters` calls, after one warm-up call), and in
+    `counts`, where given, {kernel name: records in the profile}. The trace
+    opens with one `torch.cuda._sleep(0)`, whose record, where the profiler
+    keeps it, is taken out: the first kernel of a trace can go unrecorded
+    (on the H100, after large traces, every later trace in the process lost
+    its first records). Each
     kernel named by a pattern in `need` launches `per_call` times per call:
     `wrapper`'s launch counter, where given, must move by iters * per_call,
     so every one of those launches ran (a refused launch raises, a failed
     one fails the synchronize). A profile that then holds fewer records of a
     needed kernel than launches has lost records, not launches: it is logged
-    and taken again, three times in all, and a third such profile fails."""
+    and taken again, six times in all, and a sixth such profile fails (on
+    the H100, phase 8 has recorded 0, 0 and 19 of the multilevel RoIAlign's
+    20 launches in three takes in a row)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(1, 4):
+    for attempt in range(1, 7):
         fn()
         torch.cuda.synchronize()
         before = wrapper.launches if wrapper is not None else None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(0)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -249,14 +262,23 @@ def kernel_times(fn, iters: int = 50, need: tuple = (), wrapper=None, per_call: 
                  f"{iters} profiled calls of {per_call} launches")
         events = [ev for ev in prof.key_averages()
                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-        times = {ev.key: ev.self_device_time_total / 1e3 / iters for ev in events}
-        seen = {p: sum(ev.count for ev in events if p in ev.key) for p in need}
+        recorded = {ev.key: ev.count for ev in events}
+        totals = {ev.key: ev.self_device_time_total for ev in events}
+        spin = [k for k in recorded if "spin_kernel" in k]
+        if spin and sum(recorded[k] for k in spin) > (iters if "spin" in need else 0):
+            k = spin[0]  # the opening kernel's record, at its key's mean
+            totals[k] -= totals[k] / recorded[k]
+            recorded[k] -= 1
+        times = {k: t / 1e3 / iters for k, t in totals.items() if recorded[k] > 0}
+        seen = {p: sum(n for k, n in recorded.items() if p in k) for p in need}
         short = {p: k for p, k in seen.items() if k < iters * per_call}
         if not short:
+            if counts is not None:
+                counts.update({k: n for k, n in recorded.items() if n > 0})
             return times
         log(f"profile {attempt}: {iters * per_call} launches, the profiler recorded {short} "
             "of the needed kernels (records lost)")
-    fail(f"three profiles lost records of {sorted(short)}")
+    fail(f"six profiles lost records of {sorted(short)}")
 
 
 def named_ms(times: dict, pattern: str) -> float:
@@ -735,10 +757,12 @@ def check_correlation(torch, gen, dev, dtype, case):
 
 # The correlation backward rows of phase 3, (B, C, H, W, max displacement,
 # stride), float32: FlowNetC's training shape at 256² crops (the main row)
-# and at 64² crops (the JAX engine's default), and an odd shape at stride
-# 2 (D = 21) and at stride 1 (D = 41).
+# and at 64² crops (the JAX engine's default), an odd shape at stride 2
+# (D = 21) and at stride 1 (D = 41), and, added later, C = 200 (not a
+# multiple of the kernel's 128-channel chunk) and H = 50 (not a multiple of
+# its blocks' R·s = 16 rows).
 CORR_GRAD_CASES = ((8, 256, 32, 32, 20, 2), (8, 256, 8, 8, 20, 2), (2, 64, 23, 37, 20, 2),
-                   (2, 64, 23, 37, 20, 1))
+                   (2, 64, 23, 37, 20, 1), (2, 200, 23, 37, 20, 2), (2, 64, 50, 30, 20, 2))
 
 
 def corr_grad_inputs(torch, gen, dev, case):
@@ -749,14 +773,30 @@ def corr_grad_inputs(torch, gen, dev, case):
     return f1, f2, torch.randn(b, d * d, h, w, generator=gen).to(dev)
 
 
+def corr_grad_bounds(case) -> dict:
+    """The correlation backward's bounds at `case`: f1, f2, df1, df2 and the
+    entries of g at on-image pairs (corr_pairs) once, against both
+    gradients' 2·B·pairs·C FLOP each (the products whose displaced pixel is
+    off the image are zero and need no work). `bound`: the kernel's route,
+    3xTF32 on the tensor cores (three products each, at the TF32 peak);
+    `bound_fp32_fma`: the same FLOP as float32 FMAs (the first kernel's
+    route); `bound_bytes_ms` and `bound_tf32_ops_ms`: the bytes alone and
+    the three products alone."""
+    b, c, h, w, md, st = case
+    pairs = corr_pairs(h, w, md, st)
+    nbytes = 4 * (b * pairs + 4 * b * c * h * w)
+    flops = 2 * 2.0 * b * pairs * c
+    return dict(bound=bound_ms(nbytes, 3 * flops, TF32_TC_FLOP_PER_S),
+                bound_fp32_fma=bound_ms(nbytes, flops),
+                bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_tf32_ops_ms=3 * flops / TF32_TC_FLOP_PER_S * 1e3, on_image_pairs=b * pairs)
+
+
 def check_correlation_backward(torch, gen, dev, case):
     """The backward kernel vs correlation_grads_reference, each gradient
     within 1e-5 of its largest |value|. Library: autograd's backward
     through the 21-bmm formulation (corr_bmm; TF32 off), the graph built
-    once. Bound: f1, f2, df1, df2 and the entries of g at on-image pairs
-    (corr_pairs) once, against both gradients' 2·B·pairs·C FLOP each as
-    float32 FMAs: the products whose displaced pixel is off the image are
-    zero and need no work."""
+    once. Bounds: corr_grad_bounds."""
     from premvos_tpu_torch.ops.correlation import (
         correlation_backward_cuda,
         correlation_grads_reference,
@@ -785,16 +825,12 @@ def check_correlation_backward(torch, gen, dev, case):
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     del out
     d2 = (2 * (md // st) + 1) ** 2
-    pairs = corr_pairs(h, w, md, st)
-    nbytes = 4 * (b * pairs + 4 * b * c * h * w)
-    flops = 2 * 2.0 * b * pairs * c
     return dict(shape=f"g [{b},{d2},{h},{w}], f1, f2 [{b},{c},{h},{w}] f32 → df1, df2, "
                       f"md {md}, stride {st}",
                 max_abs_err=max(max_abs(x, y) for x, y in zip(got, want)),
-                on_image_pairs=b * pairs,
                 max_err_of_max_grad=max(errs), tol="1e-5 of each gradient's max |grad|",
                 ms=ms, plain_ms=plain, library_ms=library, library_max_abs_err=lib_err,
-                bound=bound_ms(nbytes, flops))
+                **corr_grad_bounds(case))
 
 
 def check_resample(torch, gen, dev, b, c, h, w, dtype):
@@ -926,8 +962,8 @@ def device_times(torch, dev, checks) -> None:
         row["device_ms"] = device_ms(lambda: correlation_cuda(f1, f2, *case[4:]), "corr", 20,
                                      correlation_cuda)
     # Added later, each from a generator of its own: the forward at
-    # FlowNetC training's shapes, and the backward (two kernels, df1 and
-    # df2, a wrapper call).
+    # FlowNetC training's shapes, and the backward, whose wrapper call must
+    # be one launch of one kernel (df1 and df2 together).
     train_gen = torch.Generator().manual_seed(5)
     for row, (dtype, case) in zip(checks["correlation"][len(CORR_CASES):], CORR_TRAIN_CASES):
         f1, f2 = corr_inputs(torch, train_gen, dev, getattr(torch, dtype), case)
@@ -936,9 +972,14 @@ def device_times(torch, dev, checks) -> None:
     grad_gen = torch.Generator().manual_seed(4)
     for row, case in zip(checks["correlation_backward"], CORR_GRAD_CASES):
         f1, f2, g = corr_grad_inputs(torch, grad_gen, dev, case)
-        row["device_ms"] = device_ms(
-            lambda: correlation_backward_cuda(f1, f2, g, *case[4:]), "corr_grad", 20,
-            correlation_backward_cuda)
+        counts = {}
+        times = kernel_times(lambda: correlation_backward_cuda(f1, f2, g, *case[4:]), 20,
+                             ("corr_grad",), correlation_backward_cuda, counts=counts)
+        names = {k: n for k, n in counts.items() if "corr_grad" in k}
+        if len(names) != 1 or sum(names.values()) != 20:
+            fail(f"correlation backward {case}: 20 calls ran the kernels {names}, not one "
+                 "kernel 20 times")
+        row["device_ms"] = named_ms(times, "corr_grad")
     lucid = [(row, lucid_resample_inputs(torch, torch.Generator().manual_seed(20 + i), dev, kind))
              for i, (row, kind) in enumerate(zip(checks["resample2d"][len(RESAMPLE_CASES):],
                                                  LUCID_RESAMPLE_CASES))]

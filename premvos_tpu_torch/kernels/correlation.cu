@@ -460,51 +460,105 @@ extern "C" int premvos_correlation(const void* f1, const void* f2, int is_bf16,
 // with f1, f2 float32 channels-last [B, H, W, C] and zero outside the
 // image; df1 and df2 are float32 channels-last. df2 is written as a gather
 // over its own pixels (terms whose source pixel is off the image are
-// dropped), not as the reference's scatter: no atomics, so every run gives
-// the same bits.
+// dropped), not as the reference's scatter: every output element is written
+// once, with no atomics and a fixed order of summation, so two runs give the
+// same bits.
 //
-// What bounds it on the H100: operations. Only the (pixel, displacement)
-// pairs whose displaced pixel lies on the image need work: 452 x 452 of
-// 672 x 672 per image at FlowNetC's training shape [8, 256, 32, 32],
-// D = 21 (45 %). Each gradient is then 2*B*pairs*C FLOP (0.84 G) against
-// 40.1 MB of f1, f2, df1, df2 and the g entries at those pairs: 25 us at
-// 67 TFLOP/s float32 against 12 us at 3.35 TB/s, for both gradients.
+// What bounds it on the H100: bytes. Only the (pixel, displacement) pairs
+// whose displaced pixel lies on the image need work: 452 x 452 of 672 x 672
+// per image at FlowNetC's training shape [8, 256, 32, 32], D = 21 (45 %).
+// Each gradient is 2*B*pairs*C FLOP (0.84 G); as 3xTF32 on the tensor cores
+// (three products each) both take 0.0101 ms at 495 TFLOP/s, against 40.1 MB
+// of f1, f2, df1, df2 and the g entries at those pairs, 0.0120 ms at
+// 3.35 TB/s. (As float32 FMAs, the first kernel's route, 0.025 ms.)
 //
-// Design (a float32 SIMT kernel; the forward's mma.sync tiling is later
-// work): both gradients have one shape,
-//   out[b, y, x0 + s*q, c] = sum_i sum_k W_i[k][q] * src[b, ys(i), xs(k), c]
-// for 16 output columns x0 + s*q (q < 16) of one residue class mod s, with
-// source row ys(i) and source columns xs(k) = xbase + s*k, k < D + 15: one
-// source column serves every (q, j) with k = q + j (df1) or
-// k = q - j + D - 1 (df2), and W_i holds the matching g value (zero off the
-// band). A block takes one output row and those 16 columns over all
-// channels, two channels a thread (lanes on neighbouring channels, so each
-// source column is read coalesced), and walks only the source rows and
-// columns on the image (each a contiguous range of i and k), so a
-// displacement that reads only padding costs nothing and adds nothing.
-// For each row i it reads the source columns 8 at a time into registers
-// (16 loads in flight a thread) and multiplies each into 16 x 2 sums, the
-// 16 weights read as four float4 broadcasts from shared memory; W_i is
-// staged there by cp.async into one of two buffers while the row before
-// it is summed. Each output element is written once.
-// What holds it (PERF.md, section 6): the L2 latency of those reads, at 16
-// warps an SM (128 registers a thread).
+// Design: both gradients are banded matrix products. For an output row y, a
+// row displacement i and 16 output columns x0 + s*q (q < 16) of one residue
+// class mod s,
+//   out[q, c] += sum_k W[q, k] * S[k, c],  k < K = D + 15,
+// where S[k] is source column xs(k) = xbase + s*k of source row ys(i) (f2
+// for df1, f1 for df2) and W holds g on the band u = k - q in [0, D): at
+// j = u, g[iD + j, y, x0 + s*q] for df1; at j = D - 1 - u,
+// g[iD + j, ys, xs(k)] for df2 (g read at the source pixel). Off the band,
+// and where the source column is off the image, W is zero.
+//   - One launch computes both: the grid's x holds (gradient, channel chunk,
+//     column residue, column tile), so df1's and df2's blocks run together;
+//     `needs` for one gradient launches only its half.
+//   - A block takes 16 columns of one residue in R = 8 output rows y, y + s,
+//     ... of one residue (a warp a row, two warpgroups of four rows) and one
+//     chunk of 8 * NT channels (64, or 128 above C = 64). Output row t and
+//     displacement row i read source row number t + i (df1) or
+//     t + D - 1 - i (df2) from the block's first, so the block stages each
+//     of its R + D - 1 source rows once, for every row it serves, in a
+//     3-deep cp.async ring (16-byte pieces, zeros past C). Only the
+//     on-image columns are staged, in k-steps of 8 from the first of them;
+//     a stage holds at most the columns that the image or the band can
+//     give (kg), in groups when D + 15 exceeds 64.
+//   - Each warp stages its own band with 4-byte cp.async in the same ring
+//     stage: g at the (u, q) whose source column is staged and on the
+//     image, a half-warp a value of u, as [q][u] with a row stride of 8m + 5
+//     floats, so that the A fragments (rows q, columns k, u = k - q) read it
+//     without bank conflicts; the fragments mask what was not loaded.
+//   - The product is wgmma m64n(8NT)k8 in 3xTF32: A = W of the warpgroup's
+//     four rows (64 x 8, from registers), B = S (8 columns x 8NT channels)
+//     from shared memory. x = big + small, big rounded to tf32 to nearest,
+//     small truncated to tf32; small*big + big*small + big*big is within
+//     about 2^-21 of each float32 product (plain TF32 keeps 2^-11). After a
+//     stage lands, the block splits its source columns once into big and
+//     small K-major tiles (two buffers), and each warpgroup keeps one batch
+//     of products (two k-steps) in flight while the next stage is staged
+//     and split. The sums stay in registers from the first stage to the
+//     last, then go through shared memory so that each row of channels is
+//     written with whole-line 16-byte stores.
+// What holds it (PERF.md, section 6; scripts/corr_grad_breakdown.py):
+// staging, not the tensor cores. The band of g is read from L2 once per
+// channel chunk, 4 bytes a lane and half a sector at a time at stride 2;
+// with the source rows, their split and the write-out, that takes about 37
+// of the 49 us at the training shape, and the products add about 12.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-constexpr int kGQ = 16;   // output columns per block (one residue class)
-constexpr int kGCPT = 2;  // channels per thread
-constexpr int kGK = 8;    // source columns read per batch of loads
-constexpr int kGMaxThreads = 128;
+constexpr int kGQ = 16;      // output columns a warp (16 rows of the product)
+constexpr int kGKGMax = 64;  // source columns a ring stage (a multiple of 8)
+constexpr int kGRows = 8;    // output rows a block: two warpgroups of four warps
+constexpr int kGStages = 3;  // depth of the ring
+// The K-major B tiles of wgmma without swizzle: core matrices of 8 channels
+// x 4 source columns (16 bytes a channel); kLBO bytes between the two core
+// matrices of a k-step, kSBO bytes between groups of 8 channels.
+constexpr int kLBO = 128;
+constexpr int kSBO = 256;
 
 struct GradParams {
-  const float* src;  // f2 (df1) or f1 (df2), [B, H, W, C]
-  const float* g;    // [B, D*D, H, W]
-  float* out;        // [B, H, W, C]
-  int h, w, c, md, s, d, k;  // k = D + kGQ - 1 source columns
+  const float* f1;
+  const float* f2;
+  const float* g;  // [B, D*D, H, W]
+  float* df1;
+  float* df2;
+  int h, w, c, md, s, d;
+  int groups;   // row groups per residue: ceil(ceil(H / s) / kGRows)
+  int tiles;    // column tiles of 16 * s columns: ceil(W / (16 * s))
+  int chunks;   // channel chunks of 8 * NT
+  int kg;       // source columns a stage, a multiple of 8 (launch_grad)
+  int ldj;      // the band's row stride: 8m + 5 >= min(D, kg + 15)
+  int first;    // the gradient of the grid's first half: 0 (df1) or 1 (df2)
+  int vec16;    // C % 4 == 0 and every pointer 16-byte aligned: cp.async, float4
   float inv_c;
 };
+
+// Floats of a ring stage (the staged source columns, then each warp's band)
+// and of all shared memory (the ring, then the split source columns; at the
+// end it holds the warps' output tiles, rows of 8 * NT + 8 floats).
+template <int NT>
+__host__ __device__ inline int grad_stage_floats(const GradParams& p) {
+  return p.kg * 8 * NT + kGRows * kGQ * p.ldj;
+}
+template <int NT>
+__host__ __device__ inline int grad_smem_floats(const GradParams& p) {
+  const int all = kGStages * grad_stage_floats<NT>(p) + 4 * p.kg * 8 * NT;
+  const int tiles = kGRows * kGQ * (8 * NT + 8);
+  return all > tiles ? all : tiles;
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -512,133 +566,333 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
                "r"(valid ? 4 : 0));
 }
 
-template <bool kDf2>
-__global__ void __launch_bounds__(kGMaxThreads, 4)
+// x = big + small: big rounded to tf32 to nearest (ties away), small the
+// rest truncated to tf32.
+__device__ __forceinline__ void split3(float x, unsigned& big, unsigned& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Generic-proxy writes to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned long long kmajor_desc(const float* tile) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(tile));
+  return (unsigned long long)((a & 0x3FFFF) >> 4) |
+         ((unsigned long long)(kLBO >> 4) << 16) | ((unsigned long long)(kSBO >> 4) << 32);
+}
+
+// d (64 x 8NT, float32) += a (64 x 8, tf32, registers) . b (8 x 8NT, tf32,
+// shared memory): one warpgroup; each warp holds 16 rows of a and d in the
+// layout of mma.sync's m16n8k8 fragments.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], const unsigned (&a)[4],
+                                           unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16][4], const unsigned (&a)[4],
+                                           unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kGRows, 2)
 corr_grad_kernel(const GradParams p) {
-  extern __shared__ float4 wsm4[];  // two buffers of W_i [k][q]
-  const int s = p.s, d = p.d, wn = p.k * kGQ;
-  const int tile = blockIdx.x / s, r = blockIdx.x - tile * s;
-  const int x0 = tile * s * kGQ + r;
-  const int y = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(128) float gsm[];
+  constexpr int kCC = 8 * NT;      // channels a block
+  constexpr int kPieces = 2 * NT;  // 16-byte pieces of a staged column
+  const int s = p.s, d = p.d;
+  // Block (gradient, channel chunk, column residue r, column tile): output
+  // columns x0 + s*q (q < 16, x0 = 16*s*tile + r), channels c0..c0+kCC-1,
+  // of rows y_start + s*t (t < 8).
+  int bx = blockIdx.x;
+  const int tile = bx % p.tiles;
+  bx /= p.tiles;
+  const int r = bx % s;
+  bx /= s;
+  const int chunk = bx % p.chunks;
+  const bool df2 = p.first + bx / p.chunks == 1;
+  const int x0 = tile * s * kGQ + r, c0 = chunk * kCC;
+  const int residue = blockIdx.y / p.groups;
+  const int y_start = residue + s * kGRows * (blockIdx.y - residue * p.groups);
+  const int b = blockIdx.z;
+  if (y_start >= p.h) return;  // uniform: this group has no rows
+
+  // The warp index from lane 0, so that the compiler sees every branch on
+  // it as uniform across the warp: wgmma needs its warpgroup converged.
+  const int tid = threadIdx.x, lane = tid & 31, warp = __shfl_sync(0xffffffff, tid >> 5, 0);
+  const int gq = lane >> 2, tig = lane & 3;
+  const int y = y_start + s * warp;  // this warp's output row
+  const bool row_on = y < p.h;
   const size_t plane = (size_t)p.h * p.w;
+  const float* src = (df2 ? p.f1 : p.f2) + (size_t)b * plane * p.c;
   const float* gb = p.g + (size_t)b * d * d * plane;
-  const float* src = p.src + (size_t)b * plane * p.c;
-  const int nt = blockDim.x, tid = threadIdx.x;
 
   // Source columns xs(k) = xbase + s*k; those on the image are k_lo..k_hi.
-  const int xbase = kDf2 ? x0 + p.md - s * (d - 1) : x0 - p.md;
+  const int xbase = df2 ? x0 + p.md - s * (d - 1) : x0 - p.md;
   const int k_lo = xbase >= 0 ? 0 : (-xbase + s - 1) / s;
-  const int k_hi = xbase > p.w - 1 ? -1 : min(p.k - 1, (p.w - 1 - xbase) / s);
-  // Source rows ys(i) = y + (i*s - md) (df1) or y - (i*s - md) (df2); those
-  // on the image are i_lo..i_hi.
-  const int top = kDf2 ? y + p.md - (p.h - 1) : p.md - y;  // i*s >= top
-  const int bottom = kDf2 ? y + p.md : p.h - 1 - y + p.md;  // i*s <= bottom
-  const int i_lo = top > 0 ? (top + s - 1) / s : 0;
-  const int i_hi = min(d - 1, bottom / s);  // bottom >= 0
+  const int k_hi = xbase > p.w - 1 ? -1 : min(d + kGQ - 2, (p.w - 1 - xbase) / s);
+  // Source rows ys = ybase + s*qr; row t pairs with qr when u_i = qr - t is
+  // in [0, D) (i = u_i for df1, D - 1 - u_i for df2). The staged rows are
+  // those on the image that some row of the block pairs with.
+  const int ybase = df2 ? y_start + p.md - s * (d - 1) : y_start - p.md;
+  const int live = min(kGRows, (p.h - 1 - y_start) / s + 1);  // rows on the image
+  const int q_lo = ybase >= 0 ? 0 : (-ybase + s - 1) / s;
+  const int q_hi = ybase > p.h - 1 ? -1 : min(live + d - 2, (p.h - 1 - ybase) / s);
+  // Stages: (staged row, column group), the groups of kg columns from k_lo.
+  const int ksteps = k_hi >= k_lo ? (k_hi - k_lo + 8) / 8 : 0;
+  const int ngk = (8 * ksteps + p.kg - 1) / p.kg;
+  const int n_stages = q_hi >= q_lo ? (q_hi - q_lo + 1) * ngk : 0;
+  const bool vec = p.vec16 != 0;
+  const int stage_f = grad_stage_floats<NT>(p);
+  float* split = gsm + kGStages * stage_f;  // two stages' source columns, split
 
-  // W_i into buffer `buf` with cp.async (zeros off the band and off the
-  // image): df1 reads g at its output pixel, df2 at its source pixel.
-  auto stage = [&](int i, int buf) {
-    float* wsm = reinterpret_cast<float*>(wsm4) + buf * wn;
-    const int ys = kDf2 ? y - (i * s - p.md) : y;
-    for (int e = tid; e < wn; e += nt) {
-      const int k = e / kGQ, q = e - k * kGQ;
-      const int j = kDf2 ? q - k + d - 1 : k - q;
-      const int xg = kDf2 ? xbase + s * k : x0 + s * q;
-      const bool on = j >= 0 && j < d && xg >= 0 && xg < p.w;
-      cp_async4(wsm + e, on ? gb + (size_t)(i * d + j) * plane + (size_t)ys * p.w + xg : gb, on);
+  // Stage st into ring slot st % kGStages: the block's source columns, and
+  // this warp's band when its row pairs with the staged row.
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      const int qr = q_lo + st / ngk, gk = st - (st / ngk) * ngk;
+      const int ka = k_lo + gk * p.kg, kn = min(p.kg, 8 * ksteps - gk * p.kg);
+      float* stage = gsm + (st % kGStages) * stage_f;
+      const int ys = ybase + s * qr;
+      const float* srow = src + (size_t)ys * p.w * p.c;
+      const int piece = tid % kPieces;
+      for (int kl = tid / kPieces; kl < kn; kl += blockDim.x / kPieces) {
+        const int k = ka + kl;
+        const float* px = k <= k_hi ? srow + (size_t)(xbase + s * k) * p.c : nullptr;
+        load_piece<float>(reinterpret_cast<char*>(stage + kl * kCC + 4 * piece), px,
+                          c0 + 4 * piece, p.c, vec, src);
+      }
+      const int u_i = qr - warp, q = lane & (kGQ - 1);
+      if (row_on && u_i >= 0 && u_i < d) {
+        // The band, half a warp a value of u (16 columns q, each row's
+        // loads together): g at the u in [0, D) whose source column
+        // k = u + q is staged and on the image, at band[q][u - uw],
+        // uw = max(0, ka - 15). Nothing else is loaded: the A fragments
+        // read only these (for df1, rows q whose output column lies off the
+        // image feed only outputs that are not written).
+        const int i = df2 ? d - 1 - u_i : u_i;
+        const int uw = max(0, ka - (kGQ - 1));
+        const int u_lo = max(0, ka - q);
+        const int u_hi = (df2 || x0 + s * q < p.w) ? min(d, min(ka + kn - 1, k_hi) + 1 - q) : 0;
+        const int u_end = min(d, min(ka + kn - 1, k_hi) + 1);  // row 0's end, the last
+        int u = uw + (lane >> 4);
+        const float* gi = gb + (size_t)i * d * plane + (size_t)(df2 ? ys : y) * p.w;
+        // g[iD + u, y, x0 + s*q] for df1, g[iD + D - 1 - u, ys, xs(u + q)] for df2.
+        const float* at = df2 ? gi + (ptrdiff_t)(d - 1 - u) * (ptrdiff_t)plane + xbase + s * (u + q)
+                              : gi + (size_t)u * plane + x0 + s * q;
+        const ptrdiff_t step = 2 * (df2 ? (ptrdiff_t)s - (ptrdiff_t)plane : (ptrdiff_t)plane);
+        float* band = stage + p.kg * kCC + warp * kGQ * p.ldj + q * p.ldj - uw;
+        for (; u < u_end; u += 2, at += step) {
+          if (u >= u_lo && u < u_hi) cp_async4(band + u, at, true);
+        }
+      }
     }
     cp_async_commit();
   };
 
-  for (int c0 = 0; c0 < p.c; c0 += nt * kGCPT) {
-    float acc[kGQ][kGCPT];
+  float acc[NT][4];
 #pragma unroll
-    for (int q = 0; q < kGQ; ++q) {
-#pragma unroll
-      for (int t = 0; t < kGCPT; ++t) acc[q][t] = 0.f;
-    }
-    bool ch_on[kGCPT];
-#pragma unroll
-    for (int t = 0; t < kGCPT; ++t) ch_on[t] = c0 + tid + t * nt < p.c;
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-    if (k_lo <= k_hi && i_lo <= i_hi) {
-      __syncthreads();  // the previous channel block is done with both buffers
-      stage(i_lo, 0);
-      for (int i = i_lo; i <= i_hi; ++i) {
-        const int buf = (i - i_lo) & 1;
-        __syncthreads();  // every warp is done with the other buffer (row i - 1)
-        if (i < i_hi) {
-          stage(i + 1, buf ^ 1);
-        } else {
-          cp_async_commit();  // an empty group, so that one group may stay pending
-        }
-        cp_async_wait<1>();  // this thread's copies of W_i have landed
-        __syncthreads();     // and every thread's
-        const float4* wb = wsm4 + buf * (wn / 4);
-        const int ys = kDf2 ? y - (i * s - p.md) : y + i * s - p.md;
-        const float* row = src + (size_t)ys * p.w * p.c + c0 + tid;
-        for (int k = k_lo; k <= k_hi; k += kGK) {
-          float v[kGK][kGCPT];
+  // The warpgroup keeps one batch of products (a pair of k-steps) in
+  // flight, and the split source columns alternate between two buffers,
+  // so a batch runs on while the next stage is staged and split.
+  int last_stage = -2;
+  for (int k = 0; k < kGStages - 1; ++k) issue(k);
+  for (int st = 0; st < n_stages; ++st) {
+    // Stage st - 2's batches read the split buffer that this stage fills.
+    if (last_stage == st - 1) {
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();  // stage st has landed; every warp is done with stage st - 1's slot
+    issue(st + kGStages - 1);
+    const int qr = q_lo + st / ngk, gk = st - (st / ngk) * ngk;
+    const int ka = k_lo + gk * p.kg, kn = min(p.kg, 8 * ksteps - gk * p.kg);
+    const float* stage = gsm + (st % kGStages) * stage_f;
+    float* big = split + (st & 1) * 2 * p.kg * kCC;
+    float* small = big + p.kg * kCC;
+    // The source columns into big and small tf32 pieces, as K-major tiles
+    // [k / 8][c / 8][(k % 8) / 4][c % 8][k % 4]: a thread takes 4 source
+    // columns of one channel (16 bytes of a tile).
+    for (int qi = tid; qi < kn / 4 * kCC; qi += blockDim.x) {
+      const int n = qi % kCC, kq = qi / kCC;
+      unsigned hb[4], hs[4];
 #pragma unroll
-          for (int u = 0; u < kGK; ++u) {
-            const float* px = row + (size_t)(xbase + s * (k + u)) * p.c;
+      for (int j = 0; j < 4; ++j) split3(stage[(4 * kq + j) * kCC + n], hb[j], hs[j]);
+      const int off = (kq >> 1) * 8 * kCC + (n >> 3) * 64 + (kq & 1) * 32 + (n & 7) * 4;
+      *reinterpret_cast<uint4*>(big + off) = make_uint4(hb[0], hb[1], hb[2], hb[3]);
+      *reinterpret_cast<uint4*>(small + off) = make_uint4(hs[0], hs[1], hs[2], hs[3]);
+    }
+    fence_async_shared();
+    __syncthreads();  // the split tiles are complete
+    // This warpgroup's rows t0..t0+3: their products with the staged row,
+    // when one of them (on the image) pairs with it.
+    const int t0 = 4 * (warp >> 2);
+    if (max(t0, qr - d + 1) > min(min(t0 + 3, live - 1), qr)) continue;
+    const int u_i = qr - warp;
+    const bool mine = row_on && u_i >= 0 && u_i < d;
+    const int uw = max(0, ka - (kGQ - 1));
+    const float* band = stage + p.kg * kCC + warp * kGQ * p.ldj;
+    for (int kk = 0; kk < kn / 8; kk += 2) {
+      // A = W for k-steps kk and kk + 1: rows q = gq (+8), columns
+      // k = ka + 8kk + tig (+4), read at band[q][u - uw] where u = k - q
+      // lies on the band and k on the image; zeros elsewhere and for a row
+      // that does not pair. At most one batch stays in flight: the
+      // registers it reads are not reused before it ends.
+      wg_wait<1>();
+      unsigned ab[2][4], as[2][4];
 #pragma unroll
-            for (int t = 0; t < kGCPT; ++t) {
-              v[u][t] = (k + u <= k_hi && ch_on[t]) ? __ldg(px + t * nt) : 0.f;
-            }
-          }
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-          for (int u = 0; u < kGK; ++u) {
-            if (k + u <= k_hi) {
-              const float4* wk = wb + (k + u) * (kGQ / 4);
-#pragma unroll
-              for (int q4 = 0; q4 < kGQ / 4; ++q4) {
-                const float4 wv = wk[q4];
-#pragma unroll
-                for (int t = 0; t < kGCPT; ++t) {
-                  acc[4 * q4 + 0][t] = fmaf(wv.x, v[u][t], acc[4 * q4 + 0][t]);
-                  acc[4 * q4 + 1][t] = fmaf(wv.y, v[u][t], acc[4 * q4 + 1][t]);
-                  acc[4 * q4 + 2][t] = fmaf(wv.z, v[u][t], acc[4 * q4 + 2][t]);
-                  acc[4 * q4 + 3][t] = fmaf(wv.w, v[u][t], acc[4 * q4 + 3][t]);
-                }
-              }
-            }
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int q = gq + 8 * (e & 1), k = ka + 8 * (kk + h) + tig + 4 * (e >> 1);
+          const int u = k - q;
+          const bool on = mine && (unsigned)u < (unsigned)d && k <= k_hi;
+          split3(on ? band[q * p.ldj + u - uw] : 0.f, ab[h][e], as[h][e]);
         }
       }
-      cp_async_wait<0>();
-    }
-
-    float* orow = p.out + ((size_t)b * plane + (size_t)y * p.w) * p.c + c0 + tid;
+      wg_fence();
 #pragma unroll
-    for (int q = 0; q < kGQ; ++q) {
-      const int x = x0 + s * q;
-      if (x < p.w) {
-#pragma unroll
-        for (int t = 0; t < kGCPT; ++t) {
-          if (ch_on[t]) orow[(size_t)x * p.c + t * nt] = acc[q][t] * p.inv_c;
+      for (int h = 0; h < 2; ++h) {
+        if (kk + h < kn / 8) {
+          const int t_off = (kk + h) * 8 * kCC;
+          const unsigned long long db = kmajor_desc(big + t_off), ds = kmajor_desc(small + t_off);
+          // 3xTF32: small*big + big*small + big*big.
+          wgmma_tf32(acc, as[h], db);
+          wgmma_tf32(acc, ab[h], ds);
+          wgmma_tf32(acc, ab[h], db);
         }
       }
+      wg_commit();
+      last_stage = st;
+    }
+  }
+  wg_wait<0>();
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: it holds the output tiles now
+
+  // The lane holds rows q = gq and gq + 8 (e >> 1), columns 2tig (+1) of
+  // each n-tile n (e & 1): channels n * 8 + 2tig (+1). They go through the
+  // warp's tile [16][8 * NT + 8] in shared memory (the 8 floats of padding
+  // keep its 8-byte stores free of bank conflicts) and out as whole rows of
+  // channels, 16 bytes a lane.
+  constexpr int kLdo = kCC + 8;
+  float* otile = gsm + warp * kGQ * kLdo;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int q = gq + 8 * hr;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<float2*>(otile + q * kLdo + 8 * n + 2 * tig) =
+          make_float2(acc[n][2 * hr] * p.inv_c, acc[n][2 * hr + 1] * p.inv_c);
+    }
+  }
+  __syncwarp();
+  if (!row_on) return;
+  float* out = (df2 ? p.df2 : p.df1) + ((size_t)b * plane + (size_t)y * p.w) * p.c;
+#pragma unroll
+  for (int it = 0; it < NT; ++it) {
+    const int f = it * 32 + lane, q = f / (2 * NT), lc = f % (2 * NT);
+    const int x = x0 + s * q, ch = c0 + 4 * lc;
+    if (x >= p.w || ch >= p.c) continue;
+    const float4 v = *reinterpret_cast<const float4*>(otile + q * kLdo + 4 * lc);
+    float* o = out + (size_t)x * p.c + ch;
+    if (vec && ch + 3 < p.c) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      o[0] = v.x;
+      if (ch + 1 < p.c) o[1] = v.y;
+      if (ch + 2 < p.c) o[2] = v.z;
+      if (ch + 3 < p.c) o[3] = v.w;
     }
   }
 }
 
-template <bool kDf2>
-cudaError_t launch_grad(const GradParams& p, int b, cudaStream_t stream) {
-  // Two channels a thread, whole warps, at most kGMaxThreads.
-  const int warps = (p.c + 32 * kGCPT - 1) / (32 * kGCPT);
-  const int threads = warps * 32 < kGMaxThreads ? warps * 32 : kGMaxThreads;
-  const int bytes = 2 * p.k * kGQ * (int)sizeof(float);
-  if (bytes > kSmemMax) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        corr_grad_kernel<kDf2>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
+// NT n-tiles of 8 channels a block: wgmma's N = 8 * NT.
+// A stage holds up to kg source columns: the most that a block's k-steps
+// can span (D + 15 columns, or the image's columns of one residue class),
+// at most kGKGMax, halved while the shared memory overflows.
+template <int NT>
+cudaError_t launch_grad(GradParams p, int b, int ngrad, cudaStream_t stream) {
+  const int k8 = (p.d + kGQ - 1 + 7) / 8 * 8, w8 = ((p.w + p.s - 1) / p.s + 7) / 8 * 8;
+  p.kg = k8 < w8 ? k8 : w8;
+  p.kg = p.kg < kGKGMax ? p.kg : kGKGMax;
+  int bytes = 0;
+  for (;;) {
+    const int window = p.d < p.kg + kGQ - 1 ? p.d : p.kg + kGQ - 1;
+    p.ldj = window <= 5 ? 5 : (window - 5 + 7) / 8 * 8 + 5;
+    bytes = grad_smem_floats<NT>(p) * (int)sizeof(float);
+    if (bytes <= kSmemMax) break;
+    if (p.kg == 8) return cudaErrorInvalidValue;
+    p.kg = (p.kg / 2 + 7) / 8 * 8;
   }
-  const int tiles = (p.w + p.s * kGQ - 1) / (p.s * kGQ);
-  const dim3 grid(tiles * p.s, p.h, b);
-  corr_grad_kernel<kDf2><<<grid, threads, bytes, stream>>>(p);
+  p.groups = ((p.h + p.s - 1) / p.s + kGRows - 1) / kGRows;
+  p.tiles = (p.w + p.s * kGQ - 1) / (p.s * kGQ);
+  p.chunks = (p.c + 8 * NT - 1) / (8 * NT);
+  const long long gx = (long long)p.tiles * p.s * p.chunks * ngrad;
+  if (gx > 0x7fffffff || (long long)p.s * p.groups > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      corr_grad_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(corr_grad_kernel<NT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)gx, p.s * p.groups, b);
+  corr_grad_kernel<NT><<<grid, 32 * kGRows, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -649,32 +903,28 @@ extern "C" int premvos_correlation_backward(const float* f1, const float* f2,
                                             int w, int c, int md, int stride,
                                             float* df1, float* df2,
                                             cudaStream_t stream) {
-  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
-  if (md < 0 || stride <= 0 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
+  if (b <= 0 || h <= 0 || w <= 0 || c <= 0 || (df1 == nullptr && df2 == nullptr)) return 0;
+  if (md < 0 || stride <= 0 || b > 65535) return (int)cudaErrorInvalidValue;
   GradParams p{};
+  p.f1 = f1;
+  p.f2 = f2;
   p.g = grad;
+  p.df1 = df1;
+  p.df2 = df2;
   p.h = h;
   p.w = w;
   p.c = c;
   p.md = md;
   p.s = stride;
   p.d = 2 * (md / stride) + 1;
-  p.k = p.d + kGQ - 1;
+  p.first = df1 != nullptr ? 0 : 1;
+  const int ngrad = (df1 != nullptr) + (df2 != nullptr);
+  auto aligned = [](const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; };
+  p.vec16 = c % 4 == 0 && aligned(f1) && aligned(f2) && aligned(df1) && aligned(df2);
   p.inv_c = 1.f / (float)c;
-  if ((long long)((w + stride * kGQ - 1) / (stride * kGQ)) * stride > 0x7fffffff) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSuccess;
-  if (df1 != nullptr) {
-    p.src = f2;
-    p.out = df1;
-    err = launch_grad<false>(p, b, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (df2 != nullptr) {
-    p.src = f1;
-    p.out = df2;
-    err = launch_grad<true>(p, b, stream);
-  }
+  // 128 channels a block above 64 channels (half as many blocks read g),
+  // else 64.
+  const cudaError_t err = c > 64 ? launch_grad<16>(p, b, ngrad, stream)
+                                 : launch_grad<8>(p, b, ngrad, stream);
   return (int)err;
 }

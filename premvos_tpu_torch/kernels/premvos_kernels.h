@@ -63,7 +63,7 @@ int premvos_correlation(const void* f1, const void* f2, int is_bf16, int b,
 // Its gradient: grad float32 [b, D*D, h, w] (the forward's output layout);
 // f1, f2, df1 and df2 float32 channels-last [b, h, w, c]. Each of df1 and
 // df2 is written whole (no zero fill needed), and one that is NULL is not
-// computed.
+// computed; one launch computes both.
 int premvos_correlation_backward(const float* f1, const float* f2,
                                  const float* grad, int b, int h, int w,
                                  int c, int md, int stride, float* df1,

@@ -22,9 +22,10 @@ float32 sums; float32 inputs as three tf32 products), so on the H100 it is
 bound by the bytes it moves. The wrapper therefore hands bf16 features to
 it as they are: FlowNetC's bf16 path reads half the bytes of a float32 cast.
 The backward kernel replaces the JAX package's VJP, the XLA scan
-`_correlation_grads`: both gradients in float32, df2 as a gather over its
-own pixels (deterministic, no atomics); `correlation_grads_reference` is
-its plain version.
+`_correlation_grads`: both gradients in float32, in one launch, as banded
+matrix products on the tensor cores (3xTF32, within about 2^-21 of each
+float32 product), df2 as a gather over its own pixels (deterministic, no
+atomics); `correlation_grads_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -134,8 +135,9 @@ def correlation_backward_cuda(
     correlation_grads_reference. f1, f2 [B, C, H, W] (any memory format;
     cast to float32), g [B, D², H, W]. Returns (df1, df2), float32
     [B, C, H, W] with channels-last strides; a gradient that `needs` does
-    not ask for is None and not computed.
-    `correlation_backward_cuda.launches` counts its launches."""
+    not ask for is None and not computed. One kernel launch computes
+    every gradient asked for; `correlation_backward_cuda.launches` counts
+    those launches."""
     _check(f1, f2, max_displacement, stride)
     b, c, h, w = f1.shape
     d = num_displacements(max_displacement, stride)

@@ -2,10 +2,14 @@
 """Times of the port's kernels at their paths' shapes (inference and
 training), three ways, on one CUDA card.
 
-    python3 scripts/time_kernels.py [--root DIR] [--json PATH]
+    python3 scripts/time_kernels.py [--root DIR] [--kernels NAME ...] [--json PATH]
 
 `--root` is the checkout whose `premvos_tpu_torch` is imported (default: the
 one holding this script), so two trees can be timed in one call, on one card.
+`--kernels` keeps only the rows of the named kernels (`nms`,
+`multilevel_roi_align`, `resample2d`, `correlation`,
+`correlation_backward`, `roi_align`, `roi_align_backward`); the `empty`
+row is always timed.
 For each case it reports:
 
   wrapper_ms  CUDA events around 50 back-to-back wrapper calls, over 50 (as
@@ -23,7 +27,10 @@ For each case it reports:
               and, where the wrapper still runs it, the compaction);
   library_ms  one PyTorch call computing the same function, where there is
               one (`grid_sample`, border padding, align_corners, on float32
-              input), timed as wrapper_ms.
+              input; for the correlation backward, autograd's backward
+              through chip_smoke.py's 21-bmm formulation, TF32 off), timed
+              as wrapper_ms; for grid_sample also `library_device_ms`, its
+              kernel's device time by name.
 
 NMS rows also give `compact_ms`: the module's `_compact` (the plain
 compaction of kept indices, which the parent's CUDA wrapper ran after its
@@ -51,10 +58,13 @@ head (P = 7) and the mask head (P = 14): float32 P2..P5 [2, H, W, 256] of a
 480×864 image, 256 RoIs per image. Their `device_ms` is the kernel's own
 four launches; `device_all_ms` adds everything else the call ran on the
 card (for the backward, its gradients' zero fill). In a tree that has it,
-the correlation's backward at chip_smoke.py's four rows (FlowNetC
-training's [8, 256, 32, 32] and [8, 256, 8, 8] at max displacement 20,
-stride 2, and [2, 64, 23, 37] at stride 2 and 1); its `device_ms` is its
-two kernels (df1, df2). The
+the correlation's backward at chip_smoke.py's rows (FlowNetC training's
+[8, 256, 32, 32] and [8, 256, 8, 8] at max displacement 20, stride 2,
+[2, 64, 23, 37] at stride 2 and 1, [2, 200, 23, 37] and [2, 64, 50, 30]);
+its `device_ms` is every kernel named `corr_grad` (one launch a call since
+the kernel's redesign, two before), `device_kernels` their names and
+records per call, and `bound`, `bound_fp32_fma` and `bound_bytes_ms` come
+from chip_smoke.py's `corr_grad_bounds`. The
 profiled runs come after
 every other timing (a profiled run slows what follows it in the process).
 Prints one JSON object. Imports nothing of JAX.
@@ -117,6 +127,7 @@ def host_ops_us(torch, fn, iters=ITERS) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO)
+    ap.add_argument("--kernels", nargs="+", help="time only these kernels' rows")
     ap.add_argument("--json", help="also write the results (JSON) here")
     args = ap.parse_args()
 
@@ -130,6 +141,8 @@ def main() -> int:
     # This checkout's helpers and inputs, whichever tree is timed.
     from chip_smoke import (
         CORR_GRAD_CASES,
+        corr_bmm,
+        corr_grad_bounds,
         LEVEL_SHAPES,
         LEVEL_STRIDES,
         NMS_CASES,
@@ -156,12 +169,18 @@ def main() -> int:
 
     kernels.load()
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library calls' float32 products
+
+    def want(name):
+        return args.kernels is None or name in args.kernels
+
     # (row, wrapper call, kernel-name pattern of its device time, library call)
     cases = [(dict(kernel="empty", shape="torch.cuda._sleep(0)"),
               lambda: torch.cuda._sleep(0), "spin", None)]
 
     # The inference rows (the fine-tune's fourth row has no place here).
-    for i, (b, n, k, thr, sthr, clustered, image_hw) in enumerate(NMS_CASES[:3]):
+    for i, (b, n, k, thr, sthr, clustered, image_hw) in enumerate(
+            NMS_CASES[:3] if want("nms") else ()):
         boxes, scores = (t.to(dev) for t in nms_inputs(
             torch, torch.Generator().manual_seed(10 + i), b, n, clustered, image_hw))
         ref = nms_mod.nms_reference(boxes, scores, k, thr, sthr)
@@ -177,7 +196,7 @@ def main() -> int:
         cases.append((row, lambda a=(boxes, scores, k, thr, sthr): nms_mod.nms_cuda(*a),
                       "nms_", None))
 
-    for i, case in enumerate(ROI_CASES[:2]):
+    for i, case in enumerate(ROI_CASES[:2] if want("multilevel_roi_align") else ()):
         feats, boxes, levels = roi_inputs(torch, torch.Generator().manual_seed(20 + i), dev, case)
         b, n_rois, p, c, dtype = case[:5]
         row = dict(kernel="multilevel_roi_align",
@@ -186,7 +205,8 @@ def main() -> int:
                       "multilevel", None))
 
     gen = torch.Generator().manual_seed(0)
-    for b, c, h, w, dtype in ((8, 3, 448, 832, torch.bfloat16), (1, 8, 240, 432, torch.float32)):
+    for b, c, h, w, dtype in (((8, 3, 448, 832, torch.bfloat16), (1, 8, 240, 432, torch.float32))
+                              if want("resample2d") else ()):
         src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, dtype)
         srcf = src.float()
         row = dict(kernel="resample2d", shape=f"src [{b},{c},{h},{w}] {str(dtype)[6:]}, flow f32")
@@ -195,7 +215,7 @@ def main() -> int:
         cases.append((row, lambda s=src, f=flow: resample2d_cuda(s, f), "resample", lib))
 
     b, c, h, w, md, st = 8, 256, 56, 104, 20, 2
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if want("correlation") else ():
         f1 = torch.randn(b, h, w, c, generator=gen).to(dev, dtype).permute(0, 3, 1, 2)
         f2 = torch.randn(b, h, w, c, generator=gen).to(dev, dtype).permute(0, 3, 1, 2)
         row = dict(kernel="correlation",
@@ -203,25 +223,34 @@ def main() -> int:
         cases.append((row, lambda a=(f1, f2, md, st): correlation_cuda(*a), "corr", None))
 
     grad_fn = getattr(corr_mod, "correlation_backward_cuda", None)
-    for i, case in enumerate(CORR_GRAD_CASES if grad_fn is not None else ()):
+    for i, case in enumerate(CORR_GRAD_CASES
+                             if grad_fn is not None and want("correlation_backward") else ()):
         f1, f2, g = corr_grad_inputs(torch, torch.Generator().manual_seed(50 + i), dev, case)
         b, c, h, w, md, st = case
         row = dict(kernel="correlation_backward",
-                   shape=f"f1, f2 [{b},{c},{h},{w}] f32, md {md}, stride {st}")
-        cases.append((row, lambda a=(f1, f2, g, md, st): grad_fn(*a), "corr_grad", None))
+                   shape=f"f1, f2 [{b},{c},{h},{w}] f32, md {md}, stride {st}",
+                   **corr_grad_bounds(case))
+        # The library call: autograd's backward through the 21-bmm
+        # formulation, its graph built once.
+        a, v = f1.detach().requires_grad_(True), f2.detach().requires_grad_(True)
+        out = corr_bmm(torch, a, v, md, st)
+        lib = (lambda o=out, a=a, v=v, g=g:
+               torch.autograd.grad(o, (a, v), g, retain_graph=True))
+        cases.append((row, lambda a=(f1, f2, g, md, st): grad_fn(*a), "corr_grad", lib))
 
     # The training RoIAligns (chip_smoke.py phase 3's rows): the forward
     # kernel is `single_kernel`, the backward `backward_kernel` in both the
     # parent's and this tree's kernels/roi_align.cu.
-    for i, p in enumerate((7, 14)):
+    for i, p in enumerate((7, 14) if want("roi_align") or want("roi_align_backward") else ()):
         feats, boxes, levels = roi_case(torch, torch.Generator().manual_seed(30 + i), dev,
                                         2, 256, 256, torch.float32)
         grad_out = torch.randn(2, 256, p, p, 256, generator=torch.Generator().manual_seed(40 + i))
         grad_out = grad_out.to(dev)
         shape = f"P2..P5 float32 [2,H,W,256], 256 RoIs/image, P={p}, 4 launches"
-        cases.append((dict(kernel="roi_align", shape=shape),
-                      lambda a=(feats, boxes, levels, p, 2): roi_align_levels(*a),
-                      "single_kernel", None))
+        if want("roi_align"):
+            cases.append((dict(kernel="roi_align", shape=shape),
+                          lambda a=(feats, boxes, levels, p, 2): roi_align_levels(*a),
+                          "single_kernel", None))
 
         def backward(g=grad_out, bx=boxes, lv=levels):
             # Training's backward: roi_align_levels_backward where the tree
@@ -231,8 +260,9 @@ def main() -> int:
             return [roi_mod.roi_align_backward_cuda(g, bx, hw, 2, 1.0 / st, lv, li + 2)
                     for li, (hw, st) in enumerate(zip(LEVEL_SHAPES, LEVEL_STRIDES))]
 
-        cases.append((dict(kernel="roi_align_backward", shape=shape), backward,
-                      "backward_kernel", None))
+        if want("roi_align_backward"):
+            cases.append((dict(kernel="roi_align_backward", shape=shape), backward,
+                          "backward_kernel", None))
 
     for row, fn, _, lib in cases:
         row["wrapper_ms"] = cuda_ms(fn, ITERS)
@@ -244,18 +274,22 @@ def main() -> int:
     for row, fn, pattern, lib in cases:
         if row["kernel"] == "nms":
             row["host_ops_us"] = host_ops_us(torch, fn)
-        # The empty launch is no kernel of the port: its profile needs no
-        # record count (the profiler can drop one of its 50 very short
-        # records in every retake, which would fail the whole run).
-        times = kernel_times(fn, ITERS, (pattern,) if row["kernel"] != "empty" else ())
+        counts = {}
+        times = kernel_times(fn, ITERS, (pattern,), counts=counts)
         row["device_ms"] = named_ms(times, pattern)
+        if row["kernel"] == "correlation_backward":
+            row["device_kernels"] = {k: n / ITERS for k, n in counts.items() if pattern in k}
         if row["kernel"].startswith("roi_align"):
             row["device_all_ms"] = sum(times.values())
         if row["kernel"] == "nms":
             row["device_parts_ms"] = nms_parts(times)
             row["device_all_ms"] = sum(times.values())
             row["device_kernels_ms"] = times
-        if lib is not None:
+        # grid_sample is one kernel; the correlation backward's library call
+        # is thousands, and on the H100 a trace that large made the traces
+        # after it in the process lose their first records, so it is timed
+        # by CUDA events only.
+        if lib is not None and row["kernel"] == "resample2d":
             row["library_device_ms"] = named_ms(kernel_times(lib, ITERS, ("grid_sampler",)),
                                                 "grid_sampler")
 
@@ -271,7 +305,8 @@ def main() -> int:
               + (f", sort host {r['sort_host_call_us']:.2f} us" if "sort_host_call_us" in r else "")
               + (f", parts {r['device_parts_ms']}" if "device_parts_ms" in r else "")
               + (f", device all {r['device_all_ms']:.5f} ms" if "device_all_ms" in r else "")
-              + (f", grid_sample {r['library_ms']:.5f} ms" if "library_ms" in r else ""),
+              + (f", library {r['library_ms']:.5f} ms" if "library_ms" in r else "")
+              + (f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]})" if "bound" in r else ""),
               file=sys.stderr)
     result = {"card": smi, "root": os.path.abspath(args.root), "torch": torch.__version__,
               "rows": rows}

@@ -196,15 +196,23 @@ def test_correlation_kernel_cases(dev, dtype, case):
 
 
 # The backward's shapes: FlowNetC's training shape at 256² and at 64²
-# crops (the JAX default), and an odd one at stride 2 (D = 21) and 1
-# (D = 41), as chip_smoke.py phase 3 runs them; and C = 3 with a max
-# displacement that is not a multiple of the stride.
+# crops (the JAX default), an odd one at stride 2 (D = 21) and 1
+# (D = 41), C = 200 (not a multiple of the kernel's 128-channel chunk) and
+# H = 50 (not a multiple of the block's R·s = 16 rows), as chip_smoke.py
+# phase 3 runs them; C = 3 with a max displacement that is not a multiple
+# of the stride; and D = 61, whose 76 source columns the kernel stages in
+# two groups of 64 (and, at C = 72, in three of 32, to fit its shared
+# memory).
 CORR_GRAD_CASES = {
     "train256": (8, 256, 32, 32, 20, 2),
     "train64": (8, 256, 8, 8, 20, 2),
     "odd_s2": (2, 64, 23, 37, 20, 2),
     "odd_s1": (2, 64, 23, 37, 20, 1),
+    "c200": (2, 200, 23, 37, 20, 2),
+    "h50_w30": (2, 64, 50, 30, 20, 2),
     "c3_md9": (1, 3, 7, 20, 9, 2),
+    "d61_groups": (1, 8, 9, 70, 30, 1),
+    "d61_c72": (1, 72, 9, 70, 30, 1),
 }
 
 
@@ -222,7 +230,8 @@ def _corr_grad_inputs(dev, case, seed=11):
 def test_correlation_backward_kernel_cases(dev, case):
     """The backward kernel vs correlation_grads_reference: each gradient
     within 1e-5 of its largest |value|; the same bits on a second call (a
-    gather, no atomics); and a gradient not asked for is not computed."""
+    gather, no atomics); and a gradient not asked for is not computed,
+    while the other comes out the same, each call one launch."""
     md, stride = case[4:]
     f1, f2, g = _corr_grad_inputs(dev, case)
     before = correlation_backward_cuda.launches
@@ -237,6 +246,9 @@ def test_correlation_backward_kernel_cases(dev, case):
     assert torch.equal(again[0], df1) and torch.equal(again[1], df2)
     only1 = correlation_backward_cuda(f1, f2, g, md, stride, needs=(True, False))
     assert only1[1] is None and torch.equal(only1[0], df1)
+    only2 = correlation_backward_cuda(f1, f2, g, md, stride, needs=(False, True))
+    assert only2[0] is None and torch.equal(only2[1], df2)
+    assert correlation_backward_cuda.launches == before + 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
