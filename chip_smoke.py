@@ -39,6 +39,9 @@ Phases (any failure raises and exits non-zero):
      proposal net (batch 4 of the full 480×864 canvas: 2384 RPN boxes per
      image, bf16 features at P = 7 and 14, 256 RoIs per image, a bf16
      output gradient; `check_pool_shapes` ties them to davis2017_val);
+     and NMS (1×2384 → 256, 1×256 → 32) and the multilevel RoIAlign
+     (B = 1) at run_stages' proposals stage, which runs the proposal net
+     one frame at a time (`check_stage_shapes` ties them to davis2017_val);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -95,6 +98,25 @@ Phases (any failure raises and exits non-zero):
      crops, batch 8, float32) on an in-memory dataset of synthetic 480×864
      frames: one step through `train_refine`, then 5 timed steps on one
      fixed batch, every loss finite and the last below the first;
+  7b. the DAVIS command lines and the merge-tuning replay at davis2017_val
+     (seeded random weights) on a synthetic DAVIS tree of two 9-frame
+     sequences of 480×854 PNG frames with two objects each, written by the
+     port's codec, each CLI called through its main(argv) in this process,
+     each path's launch counters zeroed just before it and read just after:
+     (a) `run_davis` with no --device (so on CUDA): 9 PNGs of 480×854 a
+     sequence, frame 0 the annotation, the summary's keys; frames/s of the
+     timed window and with the host's PNG decode, PNG encode and J&F
+     (measured apart on the same files), peak bytes, and the decode time of
+     a port-written frame and of an all-Paeth 480×854 one; (b) `run_davis
+     --finetune` on one sequence from a preset that differs only in
+     finetune.steps = 40; (c) the five `run_stages` stages on 5 frames of
+     one sequence: the JSON schema, the .flo names and their [480, 864, 2]
+     fields, the PNGs, NMS and the multilevel RoIAlign launched twice a
+     frame by the proposals stage; (d) `precompute_split` and
+     `evaluate_weights` at the preset's merge weights (warp stride 2) and
+     two other vectors: each candidate's merge and J&F seconds against the
+     precompute's, its bytes a step, and the preset's replay against (a)'s
+     labels (≥ 99.9 % of pixels, frame 0 exact);
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
      RoIAlign, correlation and its backward, resample2d and the training
@@ -105,7 +127,7 @@ Phases (any failure raises and exits non-zero):
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 5 or 7, and `launches_by_path` gives each path's
+zeroed window of phase 5, 7 or 7b, and `launches_by_path` gives each path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
 stderr, and with --json the whole report to PATH. Imports nothing of JAX.
@@ -345,7 +367,10 @@ NMS_CASES = ((8, 2384, 256, 0.7, 0.0, False, (480, 864)),
              (8, 256, 32, 0.5, 0.05, False, (480, 864)),
              (8, 2384, 256, 0.7, 0.0, True, (480, 864)),
              (FT_BATCH, FT_NMS_BOXES, 256, 0.7, 0.0, False, FT_HW),
-             (POOL_BATCH, POOL_NMS_BOXES, 256, 0.7, 0.0, False, POOL_HW))
+             (POOL_BATCH, POOL_NMS_BOXES, 256, 0.7, 0.0, False, POOL_HW),
+             # run_stages' proposals stage: one frame at a time (added last).
+             (1, 2384, 256, 0.7, 0.0, False, (480, 864)),
+             (1, 256, 32, 0.5, 0.05, False, (480, 864)))
 
 
 def check_nms(torch, gen, dev, case):
@@ -409,6 +434,27 @@ def check_pool_shapes(cfg) -> None:
              f"{got}, not {(POOL_HW, POOL_BATCH, POOL_NMS_BOXES, 256)}")
 
 
+def check_stage_shapes(cfg) -> None:
+    """The batch-1 NMS and RoIAlign rows are the proposals stage's at `cfg`:
+    the RPN's boxes at the pipeline canvas → rpn_post_nms_topk, those RoIs
+    → detections_per_frame, at cfg's thresholds, and the heads' RoIs and
+    pooled sizes."""
+    from premvos_tpu_torch.models.anchors import pyramid_anchors
+
+    pc, p = cfg.proposal, cfg.pipeline
+    hw = (p.image_height, p.image_width)
+    anchors = pyramid_anchors(*hw, pc.anchor_scales, pc.anchor_ratios)
+    boxes = sum(min(pc.rpn_pre_nms_topk, len(a)) for a in anchors.values())
+    want = ((1, boxes, pc.rpn_post_nms_topk, pc.rpn_nms_threshold, 0.0, False, hw),
+            (1, pc.rpn_post_nms_topk, pc.detections_per_frame, pc.detection_nms_threshold,
+             pc.detection_score_threshold, False, hw))
+    rois = ((1, pc.rpn_post_nms_topk, pc.roi_align_size, pc.fpn_channels, p.dtype, hw),
+            (1, pc.detections_per_frame, pc.mask_roi_align_size, pc.fpn_channels, p.dtype, hw))
+    if NMS_CASES[STAGE_NMS:] != want or ROI_CASES[STAGE_ROI:] != rois:
+        fail(f"the proposals stage's NMS and RoIAlign shapes are {want}, {rois}, not "
+             f"{NMS_CASES[STAGE_NMS:]}, {ROI_CASES[STAGE_ROI:]}")
+
+
 def level_shapes(image_hw):
     return [(image_hw[0] // st, image_hw[1] // st) for st in LEVEL_STRIDES]
 
@@ -455,7 +501,12 @@ def sampled_pixels(torch, boxes, levels, p, s=2, image_hw=(480, 864)) -> int:
 # dtype, image): the box head's and the mask head's at davis2017_val, and
 # the tiny configuration's box head (float32, C = 32, checked only).
 ROI_CASES = ((8, 256, 7, 256, "bfloat16", (480, 864)), (8, 32, 14, 256, "bfloat16", (480, 864)),
-             (2, 8, 7, 32, "float32", (96, 128)))
+             (2, 8, 7, 32, "float32", (96, 128)),
+             # run_stages' proposals stage (batch 1), added last.
+             (1, 256, 7, 256, "bfloat16", (480, 864)), (1, 32, 14, 256, "bfloat16", (480, 864)))
+# The batch-1 rows of NMS_CASES and ROI_CASES; check_stage_shapes ties them
+# to davis2017_val.
+STAGE_NMS, STAGE_ROI = 5, 3
 
 
 def roi_inputs(torch, gen, dev, case):
@@ -1038,6 +1089,16 @@ def device_times(torch, dev, checks) -> None:
     n_before = 2 + len(BACKWARD_CASES) + len(FT_ALIGN_PS)
     for row, p in zip(checks["roi_align_backward"][n_before:], FT_ALIGN_PS):
         backward_row(row, gen, p, "dense", POOL_BATCH, POOL_HW, "bfloat16")
+    # The proposals stage's batch-1 rows, added after them: a generator of
+    # their own.
+    gen = torch.Generator().manual_seed(7)
+    for row, case in zip(checks["nms"][STAGE_NMS:], NMS_CASES[STAGE_NMS:]):
+        nms_row(row, gen, case)
+    for row, case in zip(checks["multilevel_roi_align"][STAGE_ROI:], ROI_CASES[STAGE_ROI:]):
+        feats, boxes, levels = roi_inputs(torch, gen, dev, case)
+        row["device_ms"] = device_ms(
+            lambda: multilevel_roi_align_cuda(feats, boxes, levels, case[2], 2), "multilevel", 20,
+            multilevel_roi_align_cuda)
 
 
 # ------------------------------------------------------------- phase 4
@@ -1062,6 +1123,22 @@ def tiny_config():
     )
 
 
+def video_objects(h, w):
+    """synthetic_video's two rectangles: (y, x, height, width, (dy, dx) per
+    frame)."""
+    return [(h // 5, w // 6, h // 3, w // 4, (-3, 2)), (h // 2, w // 2, h // 3, w // 3, (2, -3))]
+
+
+def video_labels(np, t, h, w):
+    """[t, h, w] uint8 label maps of synthetic_video's rectangles in every
+    frame (ids 1, 2; the second drawn over the first)."""
+    labels = np.zeros((t, h, w), np.uint8)
+    for f in range(t):
+        for i, (y, x, hh, ww, (dy, dx)) in enumerate(video_objects(h, w)):
+            labels[f, y + dy * f:y + dy * f + hh, x + dx * f:x + dx * f + ww] = i + 1
+    return labels
+
+
 def synthetic_video(np, t, h, w, k, seed):
     """Smooth background + textured rectangles drifting a few pixels per
     frame; masks of the first frame's rectangles (K slots, 2 used)."""
@@ -1069,7 +1146,7 @@ def synthetic_video(np, t, h, w, k, seed):
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     base = np.stack([128 + 60 * np.sin(xx / 37.0), 128 + 60 * np.cos(yy / 23.0),
                      128 + 40 * np.sin((xx + yy) / 51.0)], -1)
-    objs = [(h // 5, w // 6, h // 3, w // 4, (-3, 2)), (h // 2, w // 2, h // 3, w // 3, (2, -3))]
+    objs = video_objects(h, w)
     frames = np.zeros((t, h, w, 3), np.float32)
     gt = np.zeros((k, h, w), np.float32)
     for f in range(t):
@@ -1790,6 +1867,280 @@ def track_after_finetune(np, torch, tuned, cfg, n_frames: int = 9):
         fail("frame 0 labels after the fine-tune differ from the annotation")
     return [int((lab[t] > 0).sum()) for t in range(n_frames)]
 
+# ------------------------------------------------------------- phase 7b
+
+# The kernels run_stages' stages launch: the proposals stage NMS and the
+# multilevel RoIAlign twice a frame (RPN and detection NMS; box and mask
+# head), the flow stage FlowNet2's, the merge stage the mask warp.
+STAGES_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d")
+
+
+def write_davis_tree(np, root, names, t, hw):
+    """A DAVIS-layout tree (ImageSets/2017/val.txt, JPEGImages and
+    Annotations under 480p) of synthetic_video sequences at hw, PNG frames
+    and palette annotations of every frame, written by the port's codec."""
+    from premvos_tpu_torch.data.palette import save_indexed_png
+    from premvos_tpu_torch.io_compat.png import write_png
+
+    os.makedirs(os.path.join(root, "ImageSets", "2017"))
+    with open(os.path.join(root, "ImageSets", "2017", "val.txt"), "w") as f:
+        f.write("\n".join(names))
+    for s, name in enumerate(names):
+        frames, _ = synthetic_video(np, t, *hw, 2, seed=70 + s)
+        labels = video_labels(np, t, *hw)
+        for kind, arrays, write in (("JPEGImages", frames, write_png),
+                                    ("Annotations", labels, save_indexed_png)):
+            d = os.path.join(root, kind, "480p", name)
+            os.makedirs(d)
+            for i, a in enumerate(arrays):
+                write(os.path.join(d, f"{i:05d}.png"), a)
+
+
+def png_decode_times(np, tmp, frame_path, hw):
+    """Host seconds to decode one PNG frame the port wrote (filter None:
+    zlib's speed) and one 480×854 RGB image whose every row is
+    Paeth-filtered (the codec's slowest case: a Python loop over bytes)."""
+    import struct
+    import zlib
+
+    from premvos_tpu_torch.io_compat.png import SIGNATURE, read_png
+
+    t0 = time.perf_counter()
+    read_png(frame_path)
+    port_s = time.perf_counter() - t0
+    h, w = hw
+    rows = np.random.default_rng(0).integers(0, 256, (h, 1 + 3 * w)).astype(np.uint8)
+    rows[:, 0] = 4
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    path = os.path.join(tmp, "paeth.png")
+    with open(path, "wb") as f:
+        f.write(SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+    t0 = time.perf_counter()
+    read_png(path)
+    return dict(port_frame_s=port_s, paeth_frame_s=time.perf_counter() - t0)
+
+
+def davis_cli_full_width(np, torch, wrappers, cfg, n_frames: int = 9, stage_frames: int = 5,
+                         hw=(480, 854)):
+    """The DAVIS command lines and the merge-tuning replay at
+    configs/davis2017_val.json (`cfg`) with seeded random weights, on a
+    synthetic DAVIS tree of two 9-frame sequences of hw (480×854) PNG
+    frames with two objects each, each CLI called through its main(argv) in this process:
+    (a) run_davis (no --device: CUDA); (b) run_davis --finetune on one
+    sequence from a preset that differs only in finetune.steps = 40; (c)
+    the five run_stages stages on 5 frames of one sequence; (d)
+    precompute_split and evaluate_weights at the preset's merge weights and
+    two others, the preset's replay held against (a)'s labels. Each path's
+    launch counters are zeroed just before it and read just after. Returns
+    a report dict."""
+    import dataclasses
+    import tempfile
+
+    from premvos_tpu_torch.config import save_config
+    from premvos_tpu_torch.data.davis import DavisDataset, save_results
+    from premvos_tpu_torch.data.palette import load_indexed_png
+    from premvos_tpu_torch.eval.davis_eval import evaluate_sequence
+    from premvos_tpu_torch.eval.harness import (
+        DEFAULT_WEIGHTS,
+        WEIGHT_NAMES,
+        evaluate_weights,
+        precompute_split,
+        weights_from_merge_cfg,
+    )
+    from premvos_tpu_torch.io_compat.flo import read_flo
+    from premvos_tpu_torch.pipeline import run_davis, run_stages
+    from premvos_tpu_torch.pipeline.runner import (
+        build_models,
+        init_params,
+        merge_labels_from_precomputed,
+    )
+
+    preset = os.path.join(REPO, "configs", "davis2017_val.json")
+    names, p = ("seq_a", "seq_b"), cfg.pipeline
+    canvas = (p.image_height, p.image_width)
+    report = {}
+
+    def zero():
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def results_of(out, name, n):
+        d = os.path.join(out, name)
+        files = sorted(os.listdir(d))
+        if files != [f"{i:05d}.png" for i in range(n)]:
+            fail(f"{d}: PNGs {files}")
+        labs = np.stack([load_indexed_png(os.path.join(d, f)) for f in files])
+        if labs.shape != (n, *hw):
+            fail(f"{d}: labels {labs.shape}, not {(n, *hw)}")
+        ann0 = load_indexed_png(os.path.join(root, "Annotations", "480p", name, "00000.png"))
+        if not np.array_equal(labs[0], ann0):
+            fail(f"{d}: frame 0 differs from the annotation")
+        return labs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "davis")
+        t0 = time.perf_counter()
+        write_davis_tree(np, root, names, n_frames, hw)
+        report["tree_write_s"] = time.perf_counter() - t0
+
+        # (a) run_davis on the card by default.
+        out = os.path.join(tmp, "out")
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        summary = run_davis.main(["--davis_root", root, "--output", out, "--config", preset])
+        wall = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated()
+        if set(summary) != {"frames", "seconds", "fps", "J", "F", "J&F"}:
+            fail(f"run_davis summary keys {sorted(summary)}")
+        if summary["frames"] != len(names) * (n_frames - 1):
+            fail(f"run_davis tracked {summary['frames']} frames")
+        missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
+        if missing:
+            fail(f"kernels not launched by run_davis: {missing}")
+        labels_a = {name: results_of(out, name, n_frames) for name in names}
+        # The host's work around the timed window, measured apart: PNG
+        # decode of the frames and annotations, PNG encode of the labels,
+        # J&F.
+        ds = DavisDataset(root)
+        host = dict(png_decode_s=0.0, png_encode_s=0.0, jf_s=0.0)
+        for name in names:
+            t0 = time.perf_counter()
+            seq = ds.load_sequence(name, *canvas, p.max_objects)
+            host["png_decode_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            save_results(os.path.join(tmp, "encode"), name, labels_a[name])
+            host["png_encode_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            evaluate_sequence(labels_a[name], seq["gt_labels"][:, :hw[0], :hw[1]],
+                              seq["num_objects"])
+            host["jf_s"] += time.perf_counter() - t0
+        host_s = sum(host.values())
+        report["run_davis"] = dict(
+            summary=summary, wall_s=wall, peak_bytes=peak, launches=launches, host=host,
+            frames_per_s=summary["fps"],
+            frames_per_s_with_host=summary["frames"] / (summary["seconds"] + host_s),
+            host_share=host_s / (summary["seconds"] + host_s),
+            labelled_pixels={k: [int((v[t] > 0).sum()) for t in range(n_frames)]
+                             for k, v in labels_a.items()},
+            png=png_decode_times(np, tmp, os.path.join(root, "JPEGImages", "480p", names[0],
+                                                       "00000.png"), hw))
+
+        # (b) run_davis --finetune on one sequence, 40 steps per net.
+        ft_cfg = dataclasses.replace(cfg, finetune=dataclasses.replace(cfg.finetune, steps=40))
+        ft_path = os.path.join(tmp, "davis2017_val_ft40.json")
+        save_config(ft_path, ft_cfg)
+        zero()
+        t0 = time.perf_counter()
+        summary_ft = run_davis.main(["--davis_root", root, "--output", os.path.join(tmp, "ft"),
+                                     "--config", ft_path, "--finetune", "--sequences", names[0]])
+        wall_ft = time.perf_counter() - t0
+        launches_ft = read()
+        missing = [k for k in FINETUNE_KERNELS + INFERENCE_KERNELS if launches_ft[k] <= 0]
+        if missing:
+            fail(f"kernels not launched by run_davis --finetune: {missing}")
+        results_of(os.path.join(tmp, "ft"), names[0], n_frames)
+        report["run_davis_finetune"] = dict(summary=summary_ft, wall_s=wall_ft,
+                                            launches=launches_ft)
+
+        # (c) the five run_stages stages on stage_frames frames.
+        work = os.path.join(tmp, "work")
+        stages = {}
+        for stage in ("proposals", "refine", "flow", "reid", "merge"):
+            zero()
+            t0 = time.perf_counter()
+            run_stages.main([stage, "--davis_root", root, "--seq", names[0], "--work", work,
+                             "--config", preset, "--max_frames", str(stage_frames)])
+            stages[stage] = dict(wall_s=time.perf_counter() - t0, launches=read())
+        got = stages["proposals"]["launches"]
+        if got["nms"] != 2 * stage_frames or got["multilevel_roi_align"] != 2 * stage_frames:
+            fail(f"the proposals stage launched {got}, not NMS and the multilevel RoIAlign "
+                 f"twice a frame")
+        for stage, kernels in (("flow", ("correlation", "resample2d")), ("merge", ("resample2d",))):
+            if any(stages[stage]["launches"][k] <= 0 for k in kernels):
+                fail(f"the {stage} stage launched {stages[stage]['launches']}")
+        for t in range(stage_frames):
+            path = os.path.join(work, "proposals", names[0], f"frame_{t:05d}.json")
+            with open(path) as f:
+                props = json.load(f)
+            if not 0 < len(props) <= p.max_proposals:
+                fail(f"{path}: {len(props)} proposals")
+            for d in props:
+                if (set(d) != {"bbox", "score", "segmentation", "ReID"} or len(d["bbox"]) != 4
+                        or d["segmentation"]["size"] != list(canvas)
+                        or len(d["ReID"]) != cfg.reid.embedding_dim):
+                    fail(f"{path}: proposal {sorted(d)} breaks the schema")
+        flos = sorted(os.listdir(os.path.join(work, "flow", names[0])))
+        if flos != [f"{t:05d}.flo" for t in range(1, stage_frames)]:
+            fail(f"flow stage wrote {flos}")
+        for name in flos:
+            fl = read_flo(os.path.join(work, "flow", names[0], name))
+            if fl.shape != (*canvas, 2) or not np.isfinite(fl).all():
+                fail(f"{name}: flow {fl.shape}, finite {np.isfinite(fl).all()}")
+        results_of(os.path.join(work, "results"), names[0], stage_frames)
+        report["run_stages"] = stages
+
+        # (d) the replay: stages 1–4 once, the merge per weight vector.
+        models = init_params(build_models(cfg), cfg, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = precompute_split(models, cfg, ds, verbose=False)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        steps = sum(x[0]["scores"].shape[0] for x in pre)
+        per_step = sum(v.numel() * v.element_size() for x in pre for k, v in x[0].items()
+                       if k not in ("gt_emb", "gt_valid")) / steps
+        w0 = weights_from_merge_cfg(cfg.merge)
+        stride = cfg.merge.warp_stride
+        candidates = {"preset": w0}
+        for key, val in (("w_reid", 0.0), ("new_object_score_floor", 0.5)):
+            w = w0.copy()
+            w[WEIGHT_NAMES.index(key)] = val
+            candidates[f"{key}={val}"] = w
+        zero()
+        replay = {}
+        for key, w in candidates.items():
+            t0 = time.perf_counter()
+            for x in pre:
+                merge_labels_from_precomputed(x[0], x[1], x[2], w, warp_stride=stride)
+            torch.cuda.synchronize()
+            merge_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            jf, _ = evaluate_weights(pre, w, warp_stride=stride)
+            replay[key] = dict(weights=w.tolist(), jf=jf, merge_s=merge_s,
+                               with_jf_s=time.perf_counter() - t0)
+        launches_replay = read()
+        if launches_replay["resample2d"] <= 0:
+            fail(f"the replay's merge launched {launches_replay}")
+        agree = {}
+        for name, x in zip(names, pre):
+            lab = merge_labels_from_precomputed(x[0], x[1], x[2], w0, warp_stride=stride)
+            lab = lab.cpu().numpy()[:, :hw[0], :hw[1]]
+            if not np.array_equal(lab[0], labels_a[name][0]):
+                fail(f"replay {name}: frame 0 differs from run_davis's")
+            differ = int((lab != labels_a[name]).sum())
+            agree[name] = dict(pixels=int(lab.size), differ=differ,
+                               share=1.0 - differ / lab.size)
+            if differ > 0.001 * lab.size:
+                fail(f"replay {name}: {differ} of {lab.size} pixels differ from run_davis's")
+        report["replay"] = dict(
+            precompute_s=pre_s, steps=steps, bytes_per_step=per_step,
+            preset_is_default=bool(np.array_equal(w0, DEFAULT_WEIGHTS)), warp_stride=stride,
+            candidates=replay, agreement=agree, launches=launches_replay)
+        del pre, models
+    torch.cuda.empty_cache()
+    return report
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
@@ -1845,6 +2196,7 @@ def main() -> int:
     cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
     check_finetune_shapes(cfg)
     check_pool_shapes(cfg)
+    check_stage_shapes(cfg)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     checks = {
@@ -1891,6 +2243,12 @@ def main() -> int:
         checks["roi_align_backward"].append(check_roi_align_backward(
             torch, torch.Generator().manual_seed(53 + i), dev, p_pool, "dense", POOL_BATCH,
             POOL_HW, "bfloat16"))
+    # run_stages' proposals stage: the proposal net one frame at a time.
+    for i, case in enumerate(NMS_CASES[STAGE_NMS:]):
+        checks["nms"].append(check_nms(torch, torch.Generator().manual_seed(60 + i), dev, case))
+    for i, case in enumerate(ROI_CASES[STAGE_ROI:]):
+        checks["multilevel_roi_align"].append(
+            check_roi_align(torch, torch.Generator().manual_seed(62 + i), dev, case))
     # FlowNetC training's cost volume, forward and gradient.
     train_gen = torch.Generator().manual_seed(41)
     checks["correlation"] += [check_correlation(torch, train_gen, dev, getattr(torch, dt), case)
@@ -2047,6 +2405,30 @@ def main() -> int:
         f"losses {refine_tr['losses']}")
     torch.cuda.empty_cache()
 
+    # Phase 7b — the DAVIS command lines and the merge-tuning replay.
+    t0 = time.perf_counter()
+    cli = davis_cli_full_width(np, torch, wrappers, cfg)
+    cli["phase_s"] = time.perf_counter() - t0
+    report["davis_cli"] = cli
+    rd, rp = cli["run_davis"], cli["replay"]
+    log(f"run_davis at davis2017_val, 2 x 9 frames of 480x854 PNG: {rd['frames_per_s']:.2f} "
+        f"tracked frames/s ({rd['summary']['seconds']:.3f} s), {rd['frames_per_s_with_host']:.2f} "
+        f"with the host's PNG and J&F work ({rd['host']}), wall {rd['wall_s']:.2f} s, peak "
+        f"{rd['peak_bytes']} bytes, J&F {rd['summary']['J&F']:.4f}, launches {rd['launches']}")
+    log(f"PNG decode: port frame {rd['png']['port_frame_s']:.4f} s, Paeth-filtered frame "
+        f"{rd['png']['paeth_frame_s']:.3f} s")
+    log(f"run_davis --finetune (40 steps a net), 1 sequence: wall "
+        f"{cli['run_davis_finetune']['wall_s']:.2f} s, launches "
+        f"{cli['run_davis_finetune']['launches']}")
+    log("run_stages, 5 frames: " + ", ".join(
+        f"{k} {v['wall_s']:.2f} s {v['launches']}" for k, v in cli["run_stages"].items()))
+    log(f"replay: precompute {rp['precompute_s']:.3f} s for {rp['steps']} steps "
+        f"({rp['bytes_per_step']:.0f} bytes a step on the card); candidates "
+        + ", ".join(f"{k}: J&F {v['jf']:.4f}, merge {v['merge_s']:.3f} s, with J&F "
+                    f"{v['with_jf_s']:.3f} s" for k, v in rp["candidates"].items())
+        + f"; agreement with run_davis {rp['agreement']}; launches {rp['launches']}; "
+        f"phase {cli['phase_s']:.1f} s")
+
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
     for name in KERNELS:
@@ -2065,7 +2447,13 @@ def main() -> int:
         ("training", tr["launches"], TRAINING_KERNELS),
         ("finetune", ftr["launches"], FINETUNE_KERNELS),
         ("train_flow", flow_tr["launches"], FLOW_TRAIN_KERNELS),
-        ("pool_finetune", pool_ft["launches"], POOL_FINETUNE_KERNELS)) if name in names}
+        ("pool_finetune", pool_ft["launches"], POOL_FINETUNE_KERNELS),
+        ("davis_cli", rd["launches"], INFERENCE_KERNELS),
+        ("davis_cli_finetune", cli["run_davis_finetune"]["launches"],
+         FINETUNE_KERNELS + INFERENCE_KERNELS),
+        ("stages_cli", {k: sum(v["launches"][k] for v in cli["run_stages"].values())
+                        for k in KERNELS}, STAGES_KERNELS),
+        ("replay", rp["launches"], ("resample2d",))) if name in names}
         for name in KERNELS}
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():

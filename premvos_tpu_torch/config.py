@@ -184,3 +184,10 @@ def load_config(path) -> PremvosConfig:
     """Load a JSON preset (partial trees allowed; defaults fill the rest)."""
     with open(path) as f:
         return _from_dict(PremvosConfig, json.load(f))
+
+
+def save_config(path, cfg: PremvosConfig) -> None:
+    """Write the config tree as JSON (the JAX package's format, byte for
+    byte: either package loads the other's file)."""
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)

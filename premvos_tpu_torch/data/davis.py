@@ -6,19 +6,40 @@ Layout (the standard DAVIS distribution):
   <root>/Annotations/480p/<seq>/00000.png   (palettized, 0 = background)
   <root>/ImageSets/2017/{train,val,test-dev}.txt
 
-Frames are padded bottom/right to the static canvas on load. Pillow is
-imported inside the functions that read or write images, so the package
-imports on a machine without it.
+Frames are padded bottom/right to the static canvas on load;
+`crop_result` un-pads label maps for evaluation and dumping. PNG frames and
+annotations go through the port's own codec (io_compat/png.py); JPEG frames
+need Pillow, imported where a `.jpg` is read (the card's machine has no
+Pillow: give it PNG frames).
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from pathlib import Path
 
 import numpy as np
 
 from premvos_tpu_torch.data.palette import load_indexed_png, save_indexed_png
+from premvos_tpu_torch.io_compat.png import read_png, to_rgb, write_png
+
+
+def read_frame(path) -> np.ndarray:
+    """One frame → [H, W, 3] uint8 RGB: PNG by the port's codec, anything
+    else by Pillow, which raises naming the file where Pillow is missing."""
+    path = Path(path)
+    if path.suffix == ".png":
+        return to_rgb(*read_png(path))
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path}: reading a {path.suffix} frame needs Pillow, which is not "
+            "installed; convert the frames to PNG"
+        ) from e
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
 
 
 class DavisDataset:
@@ -69,15 +90,13 @@ class DavisDataset:
           gt_labels [T0, height, width] int32 (all annotated frames),
           num_objects int, object_ids, orig_hw (h, w), name.
         """
-        from PIL import Image
-
         fpaths = self.frame_paths(seq)
         if max_frames:
             fpaths = fpaths[:max_frames]
         frames = []
         orig_hw = None
         for p in fpaths:
-            img = np.asarray(Image.open(p).convert("RGB"))
+            img = read_frame(p)
             orig_hw = img.shape[:2]
             frames.append(_pad_hw(img, height, width))
         frames = np.stack(frames)
@@ -142,12 +161,27 @@ def _pad_hw(arr: np.ndarray, height: int, width: int) -> np.ndarray:
     return np.pad(arr, pads)
 
 
+def crop_result(labels: np.ndarray, orig_hw) -> np.ndarray:
+    """Un-pad [T, H, W] label maps back to the original resolution."""
+    h, w = orig_hw
+    return labels[:, :h, :w]
+
+
+def save_results(out_dir, seq: str, labels: np.ndarray, frame_names=None):
+    """Dump label maps as DAVIS-palette PNGs (the reference's output
+    contract): `<out_dir>/<seq>/<frame name>`, `%05d.png` by default."""
+    d = Path(out_dir) / seq
+    os.makedirs(d, exist_ok=True)
+    for i, lab in enumerate(labels):
+        name = frame_names[i] if frame_names else f"{i:05d}.png"
+        save_indexed_png(d / name, lab.astype(np.uint8))
+
+
 def make_synthetic_davis(
     root, sequences=("seq_a",), t: int = 4, hw=(64, 96), num_objects: int = 2
 ):
-    """Build a tiny DAVIS-layout tree with moving squares (test fixture)."""
-    from PIL import Image
-
+    """Build a tiny DAVIS-layout tree with moving squares, PNG frames
+    (the JAX package's fixture writes the same scene as JPEG)."""
     root = Path(root)
     rng = np.random.default_rng(0)
     h, w = hw
@@ -167,6 +201,6 @@ def make_synthetic_davis(
                 x = 8 + 24 * (obj - 1) + 2 * fi
                 img[y : y + 10, x : x + 10] = [60 * obj, 160, 60]
                 lab[y : y + 10, x : x + 10] = obj
-            Image.fromarray(img).save(jd / f"{fi:05d}.jpg", quality=95)
+            write_png(jd / f"{fi:05d}.png", img)
             save_indexed_png(ad / f"{fi:05d}.png", lab)
     return root

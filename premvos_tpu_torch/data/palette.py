@@ -1,12 +1,11 @@
-"""DAVIS-palette indexed PNGs (port of premvos_tpu/data/palette.py).
-
-Pillow is imported inside the functions that read or write images, so the
-package imports on a machine without it.
-"""
+"""DAVIS-palette indexed PNGs (port of premvos_tpu/data/palette.py),
+through the port's own PNG codec (io_compat/png.py): no Pillow."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from premvos_tpu_torch.io_compat.png import read_png, to_rgb, write_png
 
 
 def davis_palette(n: int = 256) -> np.ndarray:
@@ -26,22 +25,20 @@ def davis_palette(n: int = 256) -> np.ndarray:
 
 def save_indexed_png(path, labels: np.ndarray) -> None:
     """Write an [H, W] uint8 label map as a palettized PNG."""
-    from PIL import Image
-
-    img = Image.fromarray(labels.astype(np.uint8), mode="P")
-    img.putpalette(davis_palette().ravel().tolist())
-    img.save(path)
+    write_png(path, labels.astype(np.uint8), davis_palette())
 
 
 def load_indexed_png(path) -> np.ndarray:
     """Read a palettized (or grayscale) PNG as an [H, W] uint8 label map."""
-    from PIL import Image
-
-    img = Image.open(path)
-    if img.mode not in ("P", "L"):
-        # RGB annotation: map colors back through the palette.
-        arr = np.asarray(img.convert("RGB"))
-        lut = {tuple(c): i for i, c in enumerate(davis_palette())}
-        out = np.array([lut.get(tuple(p), 0) for p in arr.reshape(-1, 3)], np.uint8)
-        return out.reshape(arr.shape[:2])
-    return np.asarray(img, np.uint8)
+    pixels, palette = read_png(path)
+    if pixels.ndim == 2:
+        return pixels
+    # RGB(A) or gray + alpha annotation: map colors back through the
+    # palette (0 for a color not in it).
+    arr = to_rgb(pixels, None).astype(np.int64)
+    pal = davis_palette().astype(np.int64)
+    lut = {k: i for i, k in enumerate((pal[:, 0] << 16 | pal[:, 1] << 8 | pal[:, 2]).tolist())}
+    codes, inverse = np.unique(arr[..., 0] << 16 | arr[..., 1] << 8 | arr[..., 2],
+                               return_inverse=True)
+    ids = np.array([lut.get(c, 0) for c in codes.tolist()], np.uint8)
+    return ids[inverse.reshape(-1)].reshape(arr.shape[:2])

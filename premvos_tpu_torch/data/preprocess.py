@@ -1,4 +1,5 @@
-"""Image preprocessing (port of premvos_tpu/data/preprocess.py), and the
+"""Image preprocessing (port of premvos_tpu/data/preprocess.py: `pad_to`,
+`normalize`, `to_unit`), and the
 host resizes the JAX package does with OpenCV, in numpy: `resize_area_u8`
 (INTER_AREA) and `resize_nearest` (INTER_NEAREST) of the fused fine-tune's
 set-up (finetune/fused.py), and `resize_linear` (INTER_LINEAR on float32)
@@ -16,6 +17,12 @@ import torch
 # ImageNet statistics (the backbones' pretraining convention).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def pad_to(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Zero-pad [..., H, W, C] bottom/right to the static canvas."""
+    h, w = image.shape[-3:-1]
+    return torch.nn.functional.pad(image, (0, 0, 0, width - w, 0, height - h))
 
 
 def normalize(image: torch.Tensor) -> torch.Tensor:

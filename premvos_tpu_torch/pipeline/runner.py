@@ -7,7 +7,10 @@ have no frame-to-frame dependency and run batched over the chunk
 (`stages_batch`); the merge carries the tracking state and runs frame by
 frame. Nothing in the loop reads a value back to the host, so the device
 works through a whole sequence without waiting on Python; the labels come
-back when the caller reads them.
+back when the caller reads them. `precompute_sequence` keeps stages 1–4's
+outputs of a sequence so that `merge_labels_from_precomputed` can replay
+only the merge for each candidate of a merge-weight search
+(eval/harness.py).
 
 Layouts follow the JAX package at the public functions (frames
 [T, H, W, 3], masks [K, H, W], labels [T, H, W]) except flow, which is
@@ -19,9 +22,10 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from premvos_tpu_torch.config import PremvosConfig
+from premvos_tpu_torch.config import MergeConfig, PremvosConfig
 from premvos_tpu_torch.data.preprocess import normalize, to_unit
 from premvos_tpu_torch.models.anchors import pyramid_anchors
 from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
@@ -29,7 +33,7 @@ from premvos_tpu_torch.models.flownet import FlowNet2
 from premvos_tpu_torch.models.layers import init_module
 from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 from premvos_tpu_torch.models.reid import ReIDNet
-from premvos_tpu_torch.ops.resize import resize_bilinear
+from premvos_tpu_torch.stages.flow import flow_pairs
 from premvos_tpu_torch.stages.merge import init_state, merge_frame
 from premvos_tpu_torch.stages.refine import make_refine_crops, refined_fullres
 from premvos_tpu_torch.stages.reid import run_reid
@@ -185,19 +189,64 @@ def stages_batch(models: Models, cfg: PremvosConfig, anchors, frames_chunk, prev
     prop_masks = refined_fullres(ref_logits, crop_boxes, valid, h, w, prec).to(dtype)
 
     # Stage 3 — backward flow (current → previous) for all C pairs.
-    fh, fw = cfg.flow.infer_height, cfg.flow.infer_width
-    cur = resize_bilinear(frames_chunk.permute(0, 3, 1, 2), (fh, fw))
-    prev = resize_bilinear(prev_chunk.permute(0, 3, 1, 2), (fh, fw))
-    flow = models.flow(
-        cur.contiguous(memory_format=fmt), prev.contiguous(memory_format=fmt)
+    flow = flow_pairs(
+        models.flow, frames_chunk, prev_chunk, (cfg.flow.infer_height, cfg.flow.infer_width)
     )
-    flow = resize_bilinear(flow, (h, w))
-    scale = torch.tensor([w / fw, h / fh], dtype=flow.dtype, device=flow.device)
-    flow = (flow * scale[:, None, None]).contiguous()
 
     # Stage 4 — ReID embeddings of all C·N crops.
     emb = run_reid(models.reid, imgs, boxes, valid, cfg.reid.crop_size)
     return prop_masks, scores, emb, valid, flow
+
+
+def _sequence_inputs(frames, gt_masks, num_objects, intro_frames, device):
+    """The tensors run_sequence and precompute_sequence start from: frames
+    in [0, 1], float32 masks, gt_valid [K] and intro_frames [K] on device."""
+    frames = to_unit(torch.as_tensor(frames, device=device))
+    gt_masks = torch.as_tensor(gt_masks, device=device).to(torch.float32)
+    k = gt_masks.shape[0]
+    gt_valid = torch.arange(k, device=device) < num_objects
+    if intro_frames is None:
+        intro_frames = torch.zeros((k,), dtype=torch.int64, device=device)
+    intro_frames = torch.as_tensor(intro_frames, device=device).to(torch.int64)
+    return frames, gt_masks, gt_valid, intro_frames
+
+
+def _reference_embeddings(models, cfg, frames, gt_masks, gt_valid, intro_frames):
+    """[K, E]: each object's ReID embedding from its crop in its own intro
+    frame."""
+    intro_imgs = normalize(frames[intro_frames]).permute(0, 3, 1, 2)
+    return run_reid(
+        models.reid, intro_imgs, boxes_from_masks(gt_masks)[:, None],
+        gt_valid[:, None], cfg.reid.crop_size,
+    )[:, 0]
+
+
+def _stage_chunks(models, cfg, frames):
+    """Stages 1–4 over steps 1..T−1 in chunks of pipeline.scan_chunk: yield
+    (ts, stages_batch outputs) per chunk, ts the chunk's frame indices. The
+    last chunk is padded by repeating the last frame with t = −1 (matches
+    no intro frame; padded outputs are dropped by the callers)."""
+    device = frames.device
+    anchors = get_anchors(cfg, device)
+    t_total = frames.shape[0]
+    steps = t_total - 1
+    chunk = max(1, min(int(cfg.pipeline.scan_chunk), max(steps, 1)))
+    for c0 in range(0, steps, chunk):
+        ts = list(range(c0 + 1, min(c0 + 1 + chunk, t_total)))
+        pad = chunk - len(ts)
+        idx = torch.tensor(ts + [t_total - 1] * pad, device=device)
+        cur = frames[idx]
+        prev = frames[torch.clamp(idx - 1, min=0)]
+        if pad:
+            prev[len(ts):] = frames[-1]
+        yield ts + [-1] * pad, stages_batch(models, cfg, anchors, cur, prev)
+
+
+def _first_labels(gt_masks, present):
+    """[H, W] int32 labels of the objects `present` [K] (ids 1..K)."""
+    k = gt_masks.shape[0]
+    ids = torch.arange(1, k + 1, dtype=torch.int32, device=gt_masks.device)[:, None, None]
+    return torch.where((gt_masks > 0.5) & present[:, None, None], ids, 0).amax(dim=0)
 
 
 @float32_precision()
@@ -220,42 +269,19 @@ def run_sequence(
     """
     device = resolve_device(device)
     with torch.inference_mode():
-        frames = to_unit(torch.as_tensor(frames, device=device))
-        gt_masks = torch.as_tensor(gt_masks, device=device).to(torch.float32)
-        k = gt_masks.shape[0]
-        gt_valid = torch.arange(k, device=device) < num_objects
-        if intro_frames is None:
-            intro_frames = torch.zeros((k,), dtype=torch.int64, device=device)
-        intro_frames = torch.as_tensor(intro_frames, device=device).to(torch.int64)
-        anchors = get_anchors(cfg, device)
-
-        # Reference embeddings: each object's crop from its own intro frame.
-        intro_imgs = normalize(frames[intro_frames]).permute(0, 3, 1, 2)
-        gt_emb = run_reid(
-            models.reid, intro_imgs, boxes_from_masks(gt_masks)[:, None],
-            gt_valid[:, None], cfg.reid.crop_size,
-        )[:, 0]
+        frames, gt_masks, gt_valid, intro_frames = _sequence_inputs(
+            frames, gt_masks, num_objects, intro_frames, device
+        )
+        gt_emb = _reference_embeddings(models, cfg, frames, gt_masks, gt_valid, intro_frames)
         at0 = intro_frames == 0
         state = init_state(gt_masks * at0[:, None, None], gt_emb, num_objects)
         state = state._replace(active=state.active & at0)
 
-        # Steps 1..T−1 in chunks; the last chunk is padded by repeating the
-        # last frame with t = −1 (matches no intro frame; padded labels are
-        # dropped and state past the last real frame is never read).
-        t_total = frames.shape[0]
-        steps = t_total - 1
-        chunk = max(1, min(int(cfg.pipeline.scan_chunk), max(steps, 1)))
+        # Stages 1–4 batched per chunk; the merge frame by frame (state past
+        # the last real frame is never read).
         labels = []
-        for c0 in range(0, steps, chunk):
-            ts = list(range(c0 + 1, min(c0 + 1 + chunk, t_total)))
-            pad = chunk - len(ts)
-            idx = torch.tensor(ts + [t_total - 1] * pad, device=device)
-            cur = frames[idx]
-            prev = frames[torch.clamp(idx - 1, min=0)]
-            if pad:
-                prev[len(ts):] = frames[-1]
-            outs = stages_batch(models, cfg, anchors, cur, prev)
-            for i, t in enumerate(ts + [-1] * pad):
+        for ts, outs in _stage_chunks(models, cfg, frames):
+            for i, t in enumerate(ts):
                 pm, sc, em, va, fl = (x[i] for x in outs)
                 new_active = (intro_frames == t) & gt_valid
                 state, lab, _ = merge_frame(
@@ -264,10 +290,89 @@ def run_sequence(
                 )
                 if t > 0:
                     labels.append(lab)
+        return torch.stack([_first_labels(gt_masks, gt_valid & at0), *labels])
 
-        ids = torch.arange(1, k + 1, dtype=torch.int32, device=device)[:, None, None]
-        at0_valid = gt_valid & at0
-        lab0 = torch.where(
-            (gt_masks > 0.5) & at0_valid[:, None, None], ids, 0
-        ).amax(dim=0)
-        return torch.stack([lab0, *labels])
+
+@float32_precision()
+def precompute_sequence(
+    models: Models,
+    cfg: PremvosConfig,
+    frames,
+    gt_masks,
+    num_objects: int,
+    intro_frames=None,
+    device=None,
+) -> dict:
+    """Stages 1–4 of a whole sequence and the objects' reference
+    embeddings, for replaying only the merge (merge_labels_from_precomputed;
+    eval/harness.py): nothing here depends on MergeConfig.
+
+    Inputs as run_sequence's; the same chunk loop. Returns a dict of
+    tensors on `device`: prop_masks [T−1, N, H, W] (pipeline.dtype),
+    scores [T−1, N], emb [T−1, N, E], valid [T−1, N], flow [T−1, 2, H, W]
+    (steps 1..T−1), gt_emb [K, E], gt_valid [K].
+    """
+    device = resolve_device(device)
+    with torch.inference_mode():
+        frames, gt_masks, gt_valid, intro_frames = _sequence_inputs(
+            frames, gt_masks, num_objects, intro_frames, device
+        )
+        gt_emb = _reference_embeddings(models, cfg, frames, gt_masks, gt_valid, intro_frames)
+        parts = [[] for _ in range(5)]
+        for ts, outs in _stage_chunks(models, cfg, frames):
+            n = sum(t > 0 for t in ts)
+            for part, x in zip(parts, outs):
+                part.append(x[:n])
+        keys = ("prop_masks", "scores", "emb", "valid", "flow")
+        pre = {k: torch.cat(part) for k, part in zip(keys, parts)}
+    return {**pre, "gt_emb": gt_emb, "gt_valid": gt_valid}
+
+
+def merge_config_from_weights(weights, warp_stride: int = 1) -> MergeConfig:
+    """The replay's MergeConfig: a weight vector of length 6, 8 or 9
+    (w_objectness, w_reid, w_warp, w_overlap, reid_sigma,
+    new_object_score_floor[, warp_decay, reid_ema[, reid_reacquire]]), each
+    rounded to float32, and MergeConfig's defaults for every other field
+    (mask_threshold among them), as the JAX replay builds it."""
+    if isinstance(weights, torch.Tensor):
+        weights = weights.detach().cpu().numpy()
+    w = np.asarray(weights, np.float32).reshape(-1).tolist()
+    if len(w) not in (6, 8, 9):
+        raise ValueError(f"merge weights must have 6, 8 or 9 entries, got {len(w)}")
+    return MergeConfig(
+        w_objectness=w[0], w_reid=w[1], w_warp=w[2], w_overlap=w[3], reid_sigma=w[4],
+        new_object_score_floor=w[5],
+        warp_decay=w[6] if len(w) > 6 else 1.0,
+        reid_ema=w[7] if len(w) > 7 else 0.0,
+        reid_reacquire=w[8] if len(w) > 8 else 2.0,
+        warp_stride=warp_stride,
+    )
+
+
+@float32_precision()
+def merge_labels_from_precomputed(
+    pre: dict,
+    gt_masks,
+    num_objects: int,
+    weights,
+    warp_stride: int = 1,
+    warp_impl: str = "block",
+) -> torch.Tensor:
+    """Replay only the merge over precompute_sequence's outputs with the
+    MergeConfig of `weights` (merge_config_from_weights). `warp_impl` is
+    accepted for the JAX signature and ignored: the port's warp is the
+    exact one. Returns labels [T, H, W] int32 on pre's device (frame 0 the
+    annotation, every object introduced at frame 0)."""
+    cfg_m = merge_config_from_weights(weights, warp_stride)
+    device = pre["scores"].device
+    with torch.inference_mode():
+        gt_masks = torch.as_tensor(gt_masks, device=device).to(torch.float32)
+        state = init_state(gt_masks, pre["gt_emb"], num_objects)
+        labels = []
+        for t in range(pre["scores"].shape[0]):
+            state, lab, _ = merge_frame(
+                state, pre["prop_masks"][t], pre["scores"][t], pre["emb"][t],
+                pre["valid"][t], pre["flow"][t], cfg_m,
+            )
+            labels.append(lab)
+        return torch.stack([_first_labels(gt_masks, pre["gt_valid"]), *labels])

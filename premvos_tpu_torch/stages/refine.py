@@ -74,3 +74,26 @@ def refined_fullres(refine_logits, crop_boxes, valid, height, width, precision=N
     probs = torch.sigmoid(refine_logits.to(torch.float32))
     pasted = paste_mask(probs, crop_boxes, height, width, precision)
     return pasted * valid[..., None, None].to(pasted.dtype)
+
+
+def run_refine(model, image, boxes, mask_logits, valid, cfg):
+    """Refine one frame's proposals → (crop-frame logits [N, S, S], zero
+    where not `valid` [N]; crop boxes [N, 4]), as the JAX run_refine.
+
+    image [3, H, W] normalized; boxes [N, 4] xyxy; mask_logits [N, M, M];
+    cfg a RefineConfig (crops and pastes at its interp_precision). Paste
+    the logits with `refined_fullres` where full-resolution masks are
+    needed.
+    """
+    from premvos_tpu_torch.pipeline.runner import float32_precision
+
+    s = cfg.crop_size
+    fmt = torch.channels_last if image.is_cuda else torch.contiguous_format
+    with torch.inference_mode(), float32_precision():
+        crops, crop_boxes = make_refine_crops(
+            image[None], boxes[None], mask_logits[None], s, cfg.box_margin,
+            cfg.interp_precision,
+        )
+        logits = model(crops[0].contiguous(memory_format=fmt)).reshape(-1, s, s)
+        logits = logits * valid[:, None, None].to(logits.dtype)
+    return logits, crop_boxes[0]

@@ -92,6 +92,48 @@ def test_trainers_and_readers_import_no_jax_cv2_or_pil():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_clis_and_replay_import_no_jax_cv2_or_pil():
+    """Importing the command lines, the replay harness, the J&F measures
+    and the file codecs in a fresh interpreter loads no jax*, no
+    premvos_tpu(.*), no cv2 and no PIL (the card's machine has none)."""
+    code = (
+        "import sys\n"
+        "import premvos_tpu_torch.pipeline.run_davis\n"
+        "import premvos_tpu_torch.pipeline.run_stages\n"
+        "import premvos_tpu_torch.eval\n"
+        "import premvos_tpu_torch.eval.harness\n"
+        "import premvos_tpu_torch.io_compat.png\n"
+        "import premvos_tpu_torch.io_compat.proposals_json\n"
+        "import premvos_tpu_torch.data.prefetch\n"
+        "import premvos_tpu_torch.stages.proposals\n"
+        "import premvos_tpu_torch.utils.checkpoint\n"
+        "import premvos_tpu_torch.utils.logging\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'premvos_tpu', 'cv2', 'PIL'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", ["eval/davis_eval.py", "io_compat/png.py", "data/palette.py"])
+def test_codecs_and_measures_never_import_cv2_or_pil(module):
+    """Not even inside a function: these run on the card's machine."""
+    import ast
+
+    with open(os.path.join(REPO, "premvos_tpu_torch", module)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [n for n in names if n.split(".")[0] in ("cv2", "PIL")], names
+
+
 @pytest.mark.parametrize("entry", ["build_models", "init_params", "run_sequence"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     from premvos_tpu_torch.config import PremvosConfig
