@@ -60,14 +60,21 @@ Phases (any failure raises and exits non-zero):
      ReID net's batch-hard triplet loss (R26, P = 2, K = 2) at the same
      bounds; then one host-pool fine-tune step of each net at the tiny
      configuration (one lucid pool built on the host, the same batch rows
-     on both devices) at the same bounds;
+     on both devices) at the same bounds; then the tiny Mask R-CNN's
+     training loss with group_norm against the CPU in float64 (every
+     gradient but the backbone's, whose ReLUs tie at its 2×2 stage), and
+     the refinement net (R26) and the ReID
+     net with group_norm and the refinement net on Xception-65 (frozen BN,
+     33² crops): each float32 loss, then the loss and every gradient in
+     float64 on both devices, at the same bounds;
   7. Mask R-CNN training at full width (ProposalConfig() defaults, 480×864,
      batch 2, 8 object slots, Adam 1e-4, float32): one step through
      `train_maskrcnn` on an in-memory synthetic dataset, then 5 timed steps
      of `make_train_step` on one fixed batch from the same batch assembly;
      launch counters are zeroed just before the timed steps and read just
      after, every loss must be finite, the last below the first, and NMS,
-     RoIAlign and its backward must have launched; then the per-video fused
+     RoIAlign and its backward must have launched; the same again with
+     ProposalConfig(norm="group_norm"); then the per-video fused
      fine-tune at configs/davis2017_val.json (FinetuneConfig(steps=40):
      chunks of 16, 16 and 8) through `finetune_video_fused` on bench.py's
      synthetic 480×864 frame with two objects: a warm-up run, then a timed
@@ -97,7 +104,11 @@ Phases (any failure raises and exits non-zero):
      and refine-net training (`train_refine`) at RefineConfig() (385²
      crops, batch 8, float32) on an in-memory dataset of synthetic 480×864
      frames: one step through `train_refine`, then 5 timed steps on one
-     fixed batch, every loss finite and the last below the first;
+     fixed batch, every loss finite and the last below the first; the same
+     at RefineConfig(backbone="xception65"); and `run_sequence` at
+     davis2017_val with the refinement net on Xception-65 on phase 5's 9
+     frames (as phase 5: frames/s, peak bytes, every inference kernel
+     launched);
   7b. the DAVIS command lines and the merge-tuning replay at davis2017_val
      (seeded random weights) on a synthetic DAVIS tree of two 9-frame
      sequences of 480×854 PNG frames with two objects each, written by the
@@ -117,6 +128,13 @@ Phases (any failure raises and exits non-zero):
      two other vectors: each candidate's merge and J&F seconds against the
      precompute's, its bytes a step, and the preset's replay against (a)'s
      labels (≥ 99.9 % of pixels, frame 0 exact);
+  7c. the held-out synthetic protocol (premvos_tpu_torch.eval.
+     synthetic_benchmark) through its main(argv), cut (SYNTHETIC_CUT: the
+     record's 128×192 configuration with 2 / 1 / 1 sequences, 20 / 10 / 20
+     / 10 training steps, 4 + 2 search trials, one seed, an 8-step fused
+     fine-tune), in a temporary directory, the launch counters zeroed just
+     before and read just after: every J&F finite and in [0, 1], the four
+     trained nets changed, every kernel launched;
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
      RoIAlign, correlation and its backward, resample2d and the training
@@ -127,7 +145,7 @@ Phases (any failure raises and exits non-zero):
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 5, 7 or 7b, and `launches_by_path` gives each path's
+zeroed window of phase 5, 7, 7b or 7c, and `launches_by_path` gives each path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
 stderr, and with --json the whole report to PATH. Imports nothing of JAX.
@@ -136,6 +154,7 @@ stderr, and with --json the whole report to PATH. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -1161,20 +1180,85 @@ def synthetic_video(np, t, h, w, k, seed):
     return np.clip(frames, 0, 255).astype(np.uint8), gt
 
 
+def track_preset(np, torch, wrappers, cfg, n_frames: int = 9):
+    """`run_sequence` at `cfg` (a full-width preset) with seeded random
+    weights on `n_frames` synthetic frames (one chunk): a warm-up run, then
+    three timed runs; the launch counters zeroed just before the first
+    timed run and read just after. Fails unless the labels have the right
+    shape and ids with frame 0 the annotation, every inference kernel
+    launched (the correlation backward not), and stages_batch's outputs
+    are finite. Returns a report dict."""
+    from premvos_tpu_torch.pipeline.runner import (
+        build_models, get_anchors, init_params, run_sequence, stages_batch,
+    )
+
+    p = cfg.pipeline
+    t0 = time.perf_counter()
+    models = init_params(build_models(cfg), cfg, seed=0)
+    init_s = time.perf_counter() - t0
+    frames, gt = synthetic_video(np, n_frames, p.image_height, p.image_width, p.max_objects, seed=2)
+    frames_d = torch.from_numpy(frames).cuda()
+    gt_d = torch.from_numpy(gt).cuda()
+
+    t0 = time.perf_counter()
+    run_sequence(models, cfg, frames_d, gt_d, 2).cpu()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, out = [], None
+    for i in range(3):
+        if i == 0:
+            for fn in wrappers.values():
+                fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_sequence(models, cfg, frames_d, gt_d, 2)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    lab = out.cpu().numpy()
+    if lab.shape != (n_frames, p.image_height, p.image_width) or lab.dtype != np.int32:
+        fail(f"labels {lab.shape} {lab.dtype}")
+    if not set(np.unique(lab)) <= {0, 1, 2}:
+        fail(f"labels hold ids {np.unique(lab)}")
+    ids = (np.arange(1, p.max_objects + 1)[:, None, None] * (gt > 0.5)).max(0)
+    if not np.array_equal(lab[0], ids):
+        fail("frame 0 labels differ from the annotation")
+    missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched on the inference path: {missing}")
+    if launches["correlation_backward"]:
+        fail("inference launched the correlation backward (it runs without grad)")
+    with torch.inference_mode():
+        f = frames_d[1:9].float() / 255.0
+        outs = stages_batch(models, cfg, get_anchors(cfg, "cuda"), f, frames_d[0:8].float() / 255.0)
+    for name, x in zip(("prop_masks", "scores", "emb", "valid", "flow"), outs):
+        if not torch.isfinite(x.float()).all():
+            fail(f"stages_batch {name} is not finite")
+    med = statistics.median(times)
+    return dict(
+        frames=n_frames, init_s=init_s, warmup_s=warmup_s, run_s=times, median_s=med,
+        frames_per_s=n_frames / med, tracked_frames_per_s=(n_frames - 1) / med,
+        peak_bytes=peak, launches=launches,
+        labels_per_frame=[int((lab[t] > 0).sum()) for t in range(n_frames)],
+    )
+
+
 # ------------------------------------------------------------- phase 6
 
-def tiny_train_case(np, torch):
-    """The tiny Mask R-CNN (seeded weights, RPN delta head zeroed) on the
-    CPU, its anchors, and a batch of two 64×64 images with two GT slots
-    (the second of image 1 padded). Returns (cfg, hw, model, anchors,
-    batch)."""
+def tiny_train_case(np, torch, norm="frozen_bn"):
+    """The tiny Mask R-CNN (seeded weights, RPN delta head zeroed, `norm`
+    in its backbone) on the CPU, its anchors, and a batch of two 64×64
+    images with two GT slots (the second of image 1 padded). Returns (cfg,
+    hw, model, anchors, batch)."""
     from premvos_tpu_torch import config as tc
     from premvos_tpu_torch.models.anchors import pyramid_anchors
     from premvos_tpu_torch.models.layers import init_module
     from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 
     cfg = tc.ProposalConfig(backbone_depth=26, fpn_channels=32, rpn_pre_nms_topk=64,
-                            rpn_post_nms_topk=16, detections_per_frame=8)
+                            rpn_post_nms_topk=16, detections_per_frame=8, norm=norm)
     hw = (64, 64)
     model = MaskRCNN(cfg)
     init_module(model, torch.Generator().manual_seed(0))
@@ -1203,17 +1287,36 @@ def tiny_train_case(np, torch):
     return cfg, hw, model, anchors, (images, gt_boxes, gt_masks, gt_valid)
 
 
-def tiny_loss_grads(torch, model, loss_fn_of, batch, device: str):
+def as_float64(torch, module):
+    """A float64 copy of a port module: parameters and compute dtype."""
+    import copy
+
+    m = copy.deepcopy(module).double()
+    for sub in m.modules():
+        if isinstance(getattr(sub, "dtype", None), torch.dtype):
+            sub.dtype = torch.float64
+    return m
+
+
+def tiny_loss_grads(torch, model, loss_fn_of, batch, device: str, float64: bool = False):
     """The loss `loss_fn_of(m)(batch)` of a copy m of `model` on `device`
     (the batch's tensors moved there, host values left as they are) and
-    every parameter's gradient (float32 on the CPU), with TF32 off."""
+    every parameter's gradient (float32 on the CPU), with TF32 off; with
+    `float64`, model and batch in float64."""
     import copy
 
     from premvos_tpu_torch.pipeline.runner import float32_precision, place
 
-    m = place(copy.deepcopy(model), torch.device(device)).train()
+    m = as_float64(torch, model) if float64 else copy.deepcopy(model)
+    m = place(m, torch.device(device)).train()
+
+    def move(x):
+        if not torch.is_tensor(x):
+            return x
+        return (x.double() if float64 and x.is_floating_point() else x).to(device)
+
     with float32_precision():
-        loss = loss_fn_of(m)(tuple(x.to(device) if torch.is_tensor(x) else x for x in batch))
+        loss = loss_fn_of(m)(tuple(move(x) for x in batch))
         loss.backward()
     return loss.item(), {n: t.grad.detach().float().cpu() for n, t in m.named_parameters()}
 
@@ -1227,35 +1330,52 @@ def grad_ratios(got: dict, want: dict) -> list:
     return sorted(out, reverse=True)
 
 
-def tiny_loss_parity(np, torch, name, model, loss_fn_of, batch, top: int = 3):
+def tiny_loss_parity(np, torch, name, model, loss_fn_of, batch, top: int = 3,
+                     float64: bool = False, exclude: tuple = (), cpu_float64: bool = False):
     """One loss of `model` and its gradients on CUDA and on the CPU from the
     same weights and batch: the loss within 1e-4 relative, every gradient
-    within 1e-3 of its parameter's largest |grad| (phase 6's bounds).
-    Returns (report dict, the CPU's gradients)."""
-    lc, gc = tiny_loss_grads(torch, model, loss_fn_of, batch, "cuda")
-    lp, gp = tiny_loss_grads(torch, model, loss_fn_of, batch, "cpu")
+    (but those of parameters named with an `exclude` prefix) within 1e-3 of
+    its parameter's largest |grad| (phase 6's bounds); with `float64`, both
+    sides in float64 (cuDNN's double convolutions on CUDA), with
+    `cpu_float64` the CPU side alone. Returns (report dict, the CPU's
+    gradients)."""
+    lc, gc = tiny_loss_grads(torch, model, loss_fn_of, batch, "cuda", float64)
+    lp, gp = tiny_loss_grads(torch, model, loss_fn_of, batch, "cpu", float64 or cpu_float64)
     rel = abs(lc - lp) / abs(lp)
     if not (np.isfinite(lc) and lp > 0 and rel <= 1e-4):
         fail(f"tiny {name} loss: CUDA {lc} vs CPU {lp} (relative {rel} > 1e-4)")
-    ratios = grad_ratios(gc, gp)
+    ratios = grad_ratios(gc, {n: g for n, g in gp.items() if not n.startswith(exclude)})
     if not ratios[0][0] <= 1e-3:
         fail(f"tiny {name} gradient {ratios[0][1]}: max |diff| {ratios[0][0]} of its "
              "max |grad| > 1e-3")
-    return dict(loss_cuda=lc, loss_cpu=lp, loss_rel_diff=rel, worst_grad_ratios=ratios[:top]), gp
+    return dict(loss_cuda=lc, loss_cpu=lp, loss_rel_diff=rel, worst_grad_ratios=ratios[:top],
+                float64=float64, cpu_float64=cpu_float64, excluded=list(exclude)), gp
 
 
-def tiny_train_parity(np, torch):
-    """One loss and its gradients of the tiny Mask R-CNN on CUDA and on the
-    CPU from the same seeded weights and batch. Returns a report dict."""
+def tiny_train_parity(np, torch, norm="frozen_bn"):
+    """One loss and its gradients of the tiny Mask R-CNN (`norm` in its
+    backbone) on CUDA and on the CPU from the same seeded weights and batch.
+    With group_norm the CPU side runs in float64: its float32 convolutions
+    put the mask head's conv2 weight gradient 1.7e-3 of its scale from
+    float64, cuDNN's 4.4e-5 (measured on one H100); and the backbone's
+    gradients are left out: at 64² its stage 5 is 2×2, and a float32
+    pre-activation within rounding of zero flips a ReLU's gradient (4e-3 of
+    a gradient's scale between the CPU's float32 and float64); the
+    GroupNorm ResNet's gradients are held in float64 by
+    tiny_norm_xception_parity, and the kernels' by the heads' gradients
+    here. Returns a report dict."""
     from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
 
-    cfg, hw, model, anchors, batch = tiny_train_case(np, torch)
+    cfg, hw, model, anchors, batch = tiny_train_case(np, torch, norm)
 
     def loss_fn_of(m):
-        dev = next(m.parameters()).device
-        return maskrcnn_loss_fn(m, {k: v.to(dev) for k, v in anchors.items()}, cfg, hw)
+        t = next(m.parameters())
+        return maskrcnn_loss_fn(m, {k: v.to(t.device, t.dtype) for k, v in anchors.items()},
+                                cfg, hw)
 
-    report, gp = tiny_loss_parity(np, torch, "training", model, loss_fn_of, batch, top=5)
+    gn = norm == "group_norm"
+    report, gp = tiny_loss_parity(np, torch, "training", model, loss_fn_of, batch, top=5,
+                                  exclude=("backbone.",) if gn else (), cpu_float64=gn)
     if not any(n.startswith("mask_head.") and float(g.abs().max()) > 0 for n, g in gp.items()):
         fail("tiny training: the mask loss gave no gradient")
     return report
@@ -1417,6 +1537,50 @@ def tiny_flow_reid_parity(np, torch):
     return report
 
 
+def tiny_norm_xception_parity(np, torch):
+    """The refinement net (R26, 33² crops) and the ReID net (R26, P = 2,
+    K = 2) with group_norm, and the refinement net on Xception-65 (frozen
+    BN, the preset's norm; 33² crops, narrow ASPP and decoder), from the
+    same seeded weights on CUDA and on the CPU: each float32 loss within
+    1e-4 relative, and the loss and every gradient in float64 at phase 6's
+    bounds. (In float32 a pre-activation within rounding of zero flips a
+    ReLU's gradient on one side; at these 3×3 deep maps that moved an
+    Xception gradient by 2 % on the card; no custom kernel runs here.)"""
+    from premvos_tpu_torch.config import RefineConfig, ReIDConfig
+    from premvos_tpu_torch.finetune.finetune import refine_loss_fn
+    from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.reid import ReIDNet
+    from premvos_tpu_torch.train.train_reid import reid_loss_fn
+
+    rng = np.random.default_rng(8)
+    crops = torch.from_numpy(rng.standard_normal((2, 33, 33, 4)).astype(np.float32))
+    target = torch.from_numpy((rng.uniform(0, 1, (2, 33, 33)) > 0.6).astype(np.float32))
+    cfg = ReIDConfig(backbone_depth=26, embedding_dim=8, crop_size=32, norm="group_norm")
+    reid_crops = torch.from_numpy(rng.standard_normal((4, 3, 32, 32)).astype(np.float32))
+    ids = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
+    cases = []
+    for name, rcfg in (
+        ("refine_group_norm", RefineConfig(crop_size=33, backbone_depth=26, norm="group_norm")),
+        ("refine_xception65", RefineConfig(crop_size=33, backbone="xception65", aspp_channels=32,
+                                           low_level_channels=16, decoder_channels=32)),
+    ):
+        cases.append((name, DeepLabV3Plus(rcfg), refine_loss_fn, (crops, target)))
+    cases.append(("reid_group_norm", ReIDNet(cfg), lambda m: reid_loss_fn(m, cfg.triplet_margin),
+                  (reid_crops, ids)))
+    report = {}
+    for name, net, loss_fn_of, batch in cases:
+        init_module(net, torch.Generator().manual_seed(0))
+        l32 = {d: tiny_loss_grads(torch, net, loss_fn_of, batch, d)[0] for d in ("cuda", "cpu")}
+        rel = abs(l32["cuda"] - l32["cpu"]) / abs(l32["cpu"])
+        if not (np.isfinite(l32["cuda"]) and rel <= 1e-4):
+            fail(f"tiny {name} float32 loss: CUDA {l32['cuda']} vs CPU {l32['cpu']}")
+        report[name] = tiny_loss_parity(np, torch, name, net, loss_fn_of, batch,
+                                        float64=True)[0]
+        report[name]["float32_loss_rel_diff"] = rel
+    return report
+
+
 def tiny_pool_parity(np, torch):
     """One host-pool fine-tune step of each net at phase 4's tiny
     configuration on CUDA (kernels) and on the CPU (plain versions): one
@@ -1518,17 +1682,17 @@ def timed_steps(np, torch, wrappers, step, batch, n_steps: int = 5):
                 launches=launches)
 
 
-def train_full_width(np, torch, wrappers, n_steps: int = 5):
-    """Mask R-CNN training at ProposalConfig() defaults, 480×864, batch 2,
-    8 object slots: one step through `train_maskrcnn`, then `n_steps` timed
-    steps on one fixed batch. Returns a report dict."""
+def train_full_width(np, torch, wrappers, n_steps: int = 5, norm="frozen_bn"):
+    """Mask R-CNN training at ProposalConfig() defaults (with `norm`),
+    480×864, batch 2, 8 object slots: one step through `train_maskrcnn`,
+    then `n_steps` timed steps on one fixed batch. Returns a report dict."""
     from premvos_tpu_torch.config import ProposalConfig
     from premvos_tpu_torch.models.anchors import pyramid_anchors
     from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
     from premvos_tpu_torch.train.train_maskrcnn import sample_batch, train_maskrcnn
     from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
 
-    cfg, hw, slots, bs = ProposalConfig(), (480, 864), 8, 2
+    cfg, hw, slots, bs = ProposalConfig(norm=norm), (480, 864), 8, 2
     dev = torch.device("cuda")
     ds = SyntheticDavis(np)
     t0 = time.perf_counter()
@@ -1547,8 +1711,8 @@ def train_full_width(np, torch, wrappers, n_steps: int = 5):
     missing = [k for k in TRAINING_KERNELS if rep["launches"][k] <= 0]
     if missing:
         fail(f"kernels not launched on the training path: {missing}")
-    return dict(config="ProposalConfig() (R101-FPN, 256 ch, 256 RoIs/image), 480x864, "
-                       "batch 2, 8 slots, Adam 1e-4, float32 without TF32",
+    return dict(config=f"ProposalConfig(norm={norm!r}) (R101-FPN, 256 ch, 256 RoIs/image), "
+                       "480x864, batch 2, 8 slots, Adam 1e-4, float32 without TF32",
                 first_step_s_incl_init=first_s, warmup_loss=warm_loss,
                 images_per_s=bs / rep["median_s_per_step"], **rep)
 
@@ -1731,17 +1895,17 @@ def multi_video_full_width(np, torch, wrappers, cfg, steps: int = 8):
     return report
 
 
-def train_refine_full_width(np, torch, wrappers, n_steps: int = 5):
-    """Refine-net training at RefineConfig() (DeepLabv3+ R50, 385² crops),
-    batch 8, Adam 1e-4, float32, on an in-memory dataset of synthetic
-    480×864 frames: one step through `train_refine`, then `n_steps` timed
-    steps on one fixed batch of its examples."""
+def train_refine_full_width(np, torch, wrappers, n_steps: int = 5, backbone="resnet"):
+    """Refine-net training at RefineConfig(backbone=...) (DeepLabv3+ R50 or
+    Xception-65, 385² crops), batch 8, Adam 1e-4, float32, on an in-memory
+    dataset of synthetic 480×864 frames: one step through `train_refine`,
+    then `n_steps` timed steps on one fixed batch of its examples."""
     from premvos_tpu_torch.config import RefineConfig
     from premvos_tpu_torch.finetune.finetune import refine_loss_fn
     from premvos_tpu_torch.train.train_refine import example_batches, example_stream, train_refine
     from premvos_tpu_torch.train.trainer import create_train_state, make_train_step
 
-    cfg, bs = RefineConfig(), 8
+    cfg, bs = RefineConfig(backbone=backbone), 8
     ds = SyntheticDavis(np, n_sequences=4)
     t0 = time.perf_counter()
     model, warm_loss = train_refine(ds, cfg, steps=1, batch_size=bs, seed=0, log_every=0)
@@ -1754,9 +1918,10 @@ def train_refine_full_width(np, torch, wrappers, n_steps: int = 5):
     state = create_train_state(model, 1e-4)
     step = make_train_step(refine_loss_fn(model), state.optimizer)
     rep = timed_steps(np, torch, wrappers, step, batch, n_steps)
-    return dict(config="RefineConfig() (DeepLabv3+ R50, 385x385 crops), batch 8 of examples cut "
-                       "from 480x864 frames, sigmoid cross-entropy, Adam 1e-4, float32 without "
-                       "TF32",
+    enc = "Xception-65" if backbone == "xception65" else "R50"
+    return dict(config=f"RefineConfig(backbone={backbone!r}) (DeepLabv3+ {enc}, 385x385 crops), "
+                       "batch 8 of examples cut from 480x864 frames, sigmoid cross-entropy, "
+                       "Adam 1e-4, float32 without TF32",
                 first_step_s_incl_init=first_s, warmup_loss=warm_loss,
                 images_per_s=bs / rep["median_s_per_step"], **rep)
 
@@ -1866,6 +2031,70 @@ def track_after_finetune(np, torch, tuned, cfg, n_frames: int = 9):
     if not np.array_equal(lab[0], ids):
         fail("frame 0 labels after the fine-tune differ from the annotation")
     return [int((lab[t] > 0).sum()) for t in range(n_frames)]
+
+# ------------------------------------------------------------- phase 7c
+
+# The cut of the synthetic protocol phase 7c runs: the record's
+# configuration (bench_config(depth=26) on the 128×192 canvas, 24 frames)
+# with fewer sequences, steps, trials and seeds (the record: 16 / 6 / 4
+# sequences, det 1200, refine 600, reid 2400, flow 300 steps, 192 + 96
+# trials, seeds 0 1 2), and an 8-step fused fine-tune per val sequence.
+SYNTHETIC_CUT = ["--canvas", "128", "192", "--depth", "26", "--n-train", "2", "--n-tune", "1",
+                 "--n-val", "1", "--steps-det", "20", "--steps-refine", "10", "--steps-reid",
+                 "20", "--steps-flow", "10", "--tune-trials", "4", "--tune-local", "2",
+                 "--finetune", "--finetune-steps", "8"]
+
+
+def synthetic_protocol_cut(np, torch, wrappers):
+    """`python -m premvos_tpu_torch.eval.synthetic_benchmark` through its
+    main(argv) with SYNTHETIC_CUT, on the card, in a temporary directory
+    (nothing is written in the repo; its printing goes to stderr), the
+    launch counters zeroed just before and read just after: every J&F
+    finite and in [0, 1], all four trained nets changed from their seeded
+    draw, and every kernel of the port launched."""
+    import contextlib
+    import tempfile
+
+    from premvos_tpu_torch.eval import synthetic_benchmark as sb
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params
+    from premvos_tpu_torch.utils.checkpoint import load_params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        params = os.path.join(tmp, "params.pt")
+        argv = SYNTHETIC_CUT + ["--data-root", os.path.join(tmp, "data"),
+                                "--out", os.path.join(tmp, "record.json"),
+                                "--tuned-out", os.path.join(tmp, "tuned.json"),
+                                "--save-params", params]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            record = sb.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        cfg = sb.bench_config(canvas=(128, 192), depth=26)
+        fresh = init_params(build_models(cfg), cfg, seed=0)
+        trained = load_params(params, init_params(build_models(cfg), cfg, seed=0))
+    same = [n for n in ("maskrcnn", "refine", "flow", "reid")
+            if not changed(getattr(fresh, n), getattr(trained, n))]
+    if same:
+        fail(f"synthetic protocol: nets unchanged by training: {same}")
+    scores = [record["held_out"]["J&F"], record["held_out"]["oracle_selection_JF"],
+              record["held_out"]["default_weights_JF"], record["finetune"]["with_finetune_JF"]]
+    scores += [r["J&F"] for r in record["ablation"]]
+    if not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in scores):
+        fail(f"synthetic protocol: J&F outside [0, 1]: {scores}")
+    missing = [k for k in KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched on the synthetic protocol's path: {missing}")
+    return dict(argv=SYNTHETIC_CUT, wall_s=wall, seconds=record["seconds"],
+                held_out=record["held_out"], ablation=record["ablation"],
+                finetune=record["finetune"], peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches)
+
 
 # ------------------------------------------------------------- phase 7b
 
@@ -2160,7 +2389,7 @@ def main() -> int:
     from premvos_tpu_torch import kernels
     from premvos_tpu_torch.config import load_config
     from premvos_tpu_torch.ops import correlation, nms, resample2d, roi_align
-    from premvos_tpu_torch.pipeline.runner import build_models, init_params, run_sequence, stages_batch, get_anchors
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params, run_sequence
 
     wrappers = {
         "nms": nms.nms_cuda,
@@ -2281,66 +2510,21 @@ def main() -> int:
         fail(f"tiny config: CUDA vs CPU agreement {agree} < 0.99 or frame 0 differs")
 
     # Phase 5 — the production preset on 9 frames.
-    p = cfg.pipeline
-    t0 = time.perf_counter()
-    models = init_params(build_models(cfg), cfg, seed=0)
-    report["init_s"] = time.perf_counter() - t0
-    n_frames = 9
-    frames, gt = synthetic_video(np, n_frames, p.image_height, p.image_width, p.max_objects, seed=2)
-    frames_d = torch.from_numpy(frames).cuda()
-    gt_d = torch.from_numpy(gt).cuda()
-
-    t0 = time.perf_counter()
-    run_sequence(models, cfg, frames_d, gt_d, 2).cpu()
-    report["warmup_s"] = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    times, out = [], None
-    for i in range(3):
-        if i == 0:
-            for fn in wrappers.values():
-                fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run_sequence(models, cfg, frames_d, gt_d, 2)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if i == 0:
-            launches = {k: fn.launches for k, fn in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
-    lab = out.cpu().numpy()
-    if lab.shape != (n_frames, p.image_height, p.image_width) or lab.dtype != np.int32:
-        fail(f"labels {lab.shape} {lab.dtype}")
-    if not set(np.unique(lab)) <= {0, 1, 2}:
-        fail(f"labels hold ids {np.unique(lab)}")
-    ids = (np.arange(1, p.max_objects + 1)[:, None, None] * (gt > 0.5)).max(0)
-    if not np.array_equal(lab[0], ids):
-        fail("frame 0 labels differ from the annotation")
-    missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
-    if missing:
-        fail(f"kernels not launched on the inference path: {missing}")
-    if launches["correlation_backward"]:
-        fail("inference launched the correlation backward (it runs without grad)")
-    with torch.inference_mode():
-        f = frames_d[1:9].float() / 255.0
-        outs = stages_batch(models, cfg, get_anchors(cfg, "cuda"), f, frames_d[0:8].float() / 255.0)
-    for name, x in zip(("prop_masks", "scores", "emb", "valid", "flow"), outs):
-        if not torch.isfinite(x.float()).all():
-            fail(f"stages_batch {name} is not finite")
-    med = statistics.median(times)
-    report["production"] = dict(
-        frames=n_frames, run_s=times, median_s=med,
-        frames_per_s=n_frames / med, tracked_frames_per_s=(n_frames - 1) / med,
-        peak_bytes=peak, launches=launches,
-        labels_per_frame=[int((lab[t] > 0).sum()) for t in range(n_frames)],
-    )
-    log(f"davis2017_val, {n_frames} frames: median {med:.3f} s → "
-        f"{n_frames / med:.2f} frames/s, peak {peak / 2**30:.2f} GiB, launches {launches}")
-    del models, outs, frames_d, gt_d, out, f
+    prod = track_preset(np, torch, wrappers, cfg)
+    report["production"] = prod
+    launches = prod["launches"]
+    log(f"davis2017_val, {prod['frames']} frames: median {prod['median_s']:.3f} s → "
+        f"{prod['frames_per_s']:.2f} frames/s, peak {prod['peak_bytes'] / 2**30:.2f} GiB, "
+        f"launches {launches}")
     torch.cuda.empty_cache()
 
     # Phase 6 — tiny training step: CUDA (kernels) vs CPU (plain versions).
     report["tiny_training"] = tiny_train_parity(np, torch)
     log(f"tiny training: {report['tiny_training']}")
+    report["tiny_training_group_norm"] = tiny_train_parity(np, torch, "group_norm")
+    log(f"tiny training, group_norm: {report['tiny_training_group_norm']}")
+    report["tiny_norm_xception"] = tiny_norm_xception_parity(np, torch)
+    log(f"tiny group_norm refine and ReID, Xception-65 refine: {report['tiny_norm_xception']}")
     report["tiny_finetune"] = tiny_finetune_parity(np, torch)
     log(f"tiny fine-tune: {report['tiny_finetune']}")
     report["tiny_flow_reid"] = tiny_flow_reid_parity(np, torch)
@@ -2354,6 +2538,14 @@ def main() -> int:
     log(f"training at full width: median {tr['median_s_per_step']:.4f} s/step → "
         f"{tr['images_per_s']:.2f} images/s, peak {tr['peak_bytes'] / 2**30:.2f} GiB, "
         f"losses {tr['losses']}, launches {tr['launches']}")
+
+    torch.cuda.empty_cache()
+    tr_gn = train_full_width(np, torch, wrappers, norm="group_norm")
+    report["training_group_norm"] = tr_gn
+    log(f"training at full width, group_norm: median {tr_gn['median_s_per_step']:.4f} s/step → "
+        f"{tr_gn['images_per_s']:.2f} images/s, peak {tr_gn['peak_bytes'] / 2**30:.2f} GiB, "
+        f"losses {tr_gn['losses']}, launches {tr_gn['launches']}")
+    torch.cuda.empty_cache()
 
     # Phase 7, continued — the per-video fused fine-tune at full width.
     ftr, tuned = finetune_full_width(np, torch, wrappers, cfg)
@@ -2405,6 +2597,22 @@ def main() -> int:
         f"losses {refine_tr['losses']}")
     torch.cuda.empty_cache()
 
+    # Phase 7, continued — Xception-65: refine training and inference.
+    xrefine_tr = train_refine_full_width(np, torch, wrappers, backbone="xception65")
+    report["train_refine_xception65"] = xrefine_tr
+    log(f"refine training at full width, Xception-65: median "
+        f"{xrefine_tr['median_s_per_step']:.4f} s/step → {xrefine_tr['images_per_s']:.2f} "
+        f"crops/s, peak {xrefine_tr['peak_bytes']} bytes, losses {xrefine_tr['losses']}")
+    torch.cuda.empty_cache()
+    xinf = track_preset(np, torch, wrappers, dataclasses.replace(
+        cfg, refine=dataclasses.replace(cfg.refine, backbone="xception65")))
+    report["production_xception65"] = xinf
+    log(f"davis2017_val with Xception-65, {xinf['frames']} frames: median {xinf['median_s']:.3f} s "
+        f"→ {xinf['frames_per_s']:.2f} frames/s (ResNet: "
+        f"{report['production']['frames_per_s']:.2f}), peak {xinf['peak_bytes'] / 2**30:.2f} GiB "
+        f"(ResNet: {report['production']['peak_bytes'] / 2**30:.2f}), launches {xinf['launches']}")
+    torch.cuda.empty_cache()
+
     # Phase 7b — the DAVIS command lines and the merge-tuning replay.
     t0 = time.perf_counter()
     cli = davis_cli_full_width(np, torch, wrappers, cfg)
@@ -2428,6 +2636,18 @@ def main() -> int:
                     f"{v['with_jf_s']:.3f} s" for k, v in rp["candidates"].items())
         + f"; agreement with run_davis {rp['agreement']}; launches {rp['launches']}; "
         f"phase {cli['phase_s']:.1f} s")
+
+    torch.cuda.empty_cache()
+
+    # Phase 7c — the held-out synthetic protocol, cut.
+    syn = synthetic_protocol_cut(np, torch, wrappers)
+    report["synthetic"] = syn
+    log(f"synthetic protocol (cut: {' '.join(SYNTHETIC_CUT)}): wall {syn['wall_s']:.1f} s, "
+        f"held-out J&F {syn['held_out']['J&F']:.4f}, oracle "
+        f"{syn['held_out']['oracle_selection_JF']:.4f}, with fine-tune "
+        f"{syn['finetune']['with_finetune_JF']:.4f}, seconds {syn['seconds']}, launches "
+        f"{syn['launches']}")
+    torch.cuda.empty_cache()
 
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
@@ -2453,7 +2673,10 @@ def main() -> int:
          FINETUNE_KERNELS + INFERENCE_KERNELS),
         ("stages_cli", {k: sum(v["launches"][k] for v in cli["run_stages"].values())
                         for k in KERNELS}, STAGES_KERNELS),
-        ("replay", rp["launches"], ("resample2d",))) if name in names}
+        ("replay", rp["launches"], ("resample2d",)),
+        ("training_group_norm", tr_gn["launches"], TRAINING_KERNELS),
+        ("inference_xception65", xinf["launches"], INFERENCE_KERNELS),
+        ("synthetic", syn["launches"], tuple(KERNELS))) if name in names}
         for name in KERNELS}
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():

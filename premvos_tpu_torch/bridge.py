@@ -8,7 +8,11 @@ sit at the same path in both (`backbone.stage2_block0.Conv_1` ↔
   Dense           kernel [I, O]         → weight [O, I]
   ConvTranspose   kernel [kh, kw, I, O] → weight [I, O, kh, kw], flipped in
                   space (inverse of the flownet2 converter's mapping)
+  Conv (depthwise) kernel [kh, kw, 1, C] → weight [C, 1, kh, kw] (the Conv
+                  rule; the layer has groups = C)
   FrozenBatchNorm scale / bias / mean / var, copied as they are
+  GroupNorm32     `gn` scale / bias → weight / bias (flax keeps them in the
+                  nn.GroupNorm named gn inside GroupNorm32_i)
 
 Trees are nested dicts of numpy arrays, e.g.
 `jax.tree.map(numpy.asarray, params)` of the JAX package's `init_params`.
@@ -19,7 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from premvos_tpu_torch.models.layers import PARAM_LAYERS, Conv, ConvTranspose, Dense
+from premvos_tpu_torch.models.layers import (
+    PARAM_LAYERS, Conv, ConvTranspose, Dense, GroupNorm32,
+)
 
 
 def _converted(module, leaves: dict) -> dict:
@@ -29,6 +35,8 @@ def _converted(module, leaves: dict) -> dict:
         out = {"weight": np.transpose(leaves["kernel"])}
     elif isinstance(module, ConvTranspose):
         out = {"weight": np.transpose(leaves["kernel"][::-1, ::-1], (2, 3, 0, 1))}
+    elif isinstance(module, GroupNorm32):
+        return {"weight": leaves["scale"], "bias": leaves["bias"]}
     else:  # FrozenBatchNorm
         return {k: leaves[k] for k in ("scale", "bias", "mean", "var")}
     if "bias" in leaves:
@@ -60,12 +68,13 @@ def flax_tensors(module: torch.nn.Module, tree: dict) -> dict:
     for name, mod in module.named_modules():
         if not isinstance(mod, PARAM_LAYERS):
             continue
+        path = f"{name}.gn".lstrip(".") if isinstance(mod, GroupNorm32) else name
         node = tree
-        for part in name.split("."):
+        for part in path.split("."):
             if part not in node:
-                raise KeyError(f"flax tree has no {name!r}")
+                raise KeyError(f"flax tree has no {path!r}")
             node = node[part]
-        used.add(name)
+        used.add(path)
         for key, value in _converted(mod, node).items():
             target = getattr(mod, key)
             arr = torch.from_numpy(np.array(value, dtype=np.float32))
@@ -73,7 +82,7 @@ def flax_tensors(module: torch.nn.Module, tree: dict) -> dict:
                 raise ValueError(
                     f"{name}.{key}: flax {tuple(arr.shape)} vs port {tuple(target.shape)}"
                 )
-            out[f"{name}.{key}"] = arr
+            out[f"{name}.{key}".lstrip(".")] = arr
 
     unused = sorted(set(_layer_paths(tree)) - used)
     if unused:

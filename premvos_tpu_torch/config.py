@@ -35,7 +35,7 @@ class ProposalConfig:
     mask_roi_align_size: int = 14
     mask_resolution: int = 28
     num_classes: int = 2  # category-agnostic: object vs background
-    norm: str = "frozen_bn"  # the port implements frozen_bn only
+    norm: str = "frozen_bn"  # or "group_norm" (training from scratch)
     rpn_loss: str = "dense"
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
@@ -47,7 +47,7 @@ class RefineConfig:
 
     crop_size: int = 385
     box_margin: float = 50.0
-    backbone: str = "resnet"  # the port implements "resnet" only
+    backbone: str = "resnet"  # or "xception65" (the paper's encoder)
     backbone_depth: int = 50
     norm: str = "frozen_bn"
     output_stride: int = 16

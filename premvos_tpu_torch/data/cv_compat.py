@@ -22,7 +22,11 @@ semantics (held against `cv2` in tests/test_torch_pool_finetune.py):
     image never win;
   * `resize_linear_u8` = `cv2.resize(x, (w, h))` (INTER_LINEAR) of uint8:
     OpenCV's 11-bit fixed-point weights and the truncations of its vertical
-    pass, bit for bit (and its INTER_AREA shortcut for an exact 2× shrink).
+    pass, bit for bit (and its INTER_AREA shortcut for an exact 2× shrink);
+  * `resize_cubic` = `cv2.resize(x, (w, h), interpolation=INTER_CUBIC)` of
+    float32: OpenCV's own code bit for bit (cv2.ipp.setUseIPP(False)); with
+    Intel IPP, which OpenCV's wheels turn on, IPP's cubic resize rounds
+    differently (a few float32 ulp, held in tests/test_torch_synthetic.py).
 
 `data/preprocess.py` holds the float32 INTER_LINEAR resize (`resize_linear`)
 and the INTER_AREA and INTER_NEAREST ones.
@@ -274,4 +278,47 @@ def resize_linear_u8(image: np.ndarray, hw: tuple) -> np.ndarray:
     out = (rows[y0] * b0[:, None] >> 16) + (rows[y1] * b1[:, None] >> 16)
     out = (np.clip(out, -32768, 32767) + 2) >> 2
     out = np.clip(out, 0, 255).astype(np.uint8)
+    return out.reshape((h, w) + img.shape[2:])
+
+
+def _cubic_taps(src: int, dst: int):
+    """OpenCV's INTER_CUBIC taps along one axis: source indices [dst, 4]
+    (i − 1 .. i + 2, clamped: the border is replicated) and their float32
+    weights, Keys' cubic with A = −0.75 at the fraction of the float32
+    coordinate (dst + 0.5) · scale − 0.5, scale = 1 / (dst / src) in
+    float64."""
+    f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    i = np.floor(f).astype(np.int64)
+    x = f - i.astype(np.float32)
+    a, one = np.float32(-0.75), np.float32(1.0)
+    x1, y = x + one, one - x
+    c0 = ((a * x1 - np.float32(5.0) * a) * x1 + np.float32(8.0) * a) * x1 - np.float32(4.0) * a
+    c1 = ((a + np.float32(2.0)) * x - (a + np.float32(3.0))) * x * x + one
+    c2 = ((a + np.float32(2.0)) * y - (a + np.float32(3.0))) * y * y + one
+    c3 = one - c0 - c1 - c2
+    idx = np.clip(i[:, None] + np.arange(-1, 3)[None], 0, src - 1)
+    return idx, np.stack([c0, c1, c2, c3], -1).astype(np.float32)
+
+
+def resize_cubic(image: np.ndarray, hw: tuple) -> np.ndarray:
+    """`cv2.resize(image, (w, h), interpolation=cv2.INTER_CUBIC)` of a
+    float32 [H, W(, C)] image, as OpenCV's own code computes it: each row
+    along x first, ((s0·a0 + s1·a1) + s2·a2) + s3·a3 in float32; then along
+    y over the flattened rows, s0·b0 + (s1·b1 + (s2·b2 + s3·b3)) in its
+    4-lane vector loop and left to right in its scalar tail (the last
+    W·C mod 4 values of a row)."""
+    h, w = hw
+    img = np.asarray(image, np.float32)
+    src_h, src_w = img.shape[:2]
+    x = img.reshape(src_h, src_w, -1)
+    xi, xc = _cubic_taps(src_w, w)
+    rows = x[:, xi[:, 0]] * xc[None, :, 0, None]
+    for k in range(1, 4):
+        rows = rows + x[:, xi[:, k]] * xc[None, :, k, None]
+    rows = rows.reshape(src_h, -1)
+    yi, yc = _cubic_taps(src_h, h)
+    taps = [rows[yi[:, k]] * yc[:, k, None] for k in range(4)]
+    out = taps[0] + taps[1] + taps[2] + taps[3]
+    vec = rows.shape[1] - rows.shape[1] % 4
+    out[:, :vec] = (taps[0] + (taps[1] + (taps[2] + taps[3])))[:, :vec]
     return out.reshape((h, w) + img.shape[2:])

@@ -31,11 +31,11 @@ def save_indexed_png(path, labels: np.ndarray) -> None:
 def load_indexed_png(path) -> np.ndarray:
     """Read a palettized (or grayscale) PNG as an [H, W] uint8 label map."""
     pixels, palette = read_png(path)
-    if pixels.ndim == 2:
+    if pixels.ndim == 2 and pixels.dtype == np.uint8:  # Pillow's "P" or "L"
         return pixels
-    # RGB(A) or gray + alpha annotation: map colors back through the
-    # palette (0 for a color not in it).
-    arr = to_rgb(pixels, None).astype(np.int64)
+    # Any other mode (RGB(A), gray + alpha, 1-bit or 16-bit gray): map its
+    # RGB colors back through the palette (0 for a color not in it).
+    arr = to_rgb(pixels, palette).astype(np.int64)
     pal = davis_palette().astype(np.int64)
     lut = {k: i for i, k in enumerate((pal[:, 0] << 16 | pal[:, 1] << 8 | pal[:, 2]).tolist())}
     codes, inverse = np.unique(arr[..., 0] << 16 | arr[..., 1] << 8 | arr[..., 2],

@@ -1,12 +1,14 @@
 """PNG codec in numpy and zlib (the port's counterpart of Pillow's PNG
 plugin, which the card's machine does not have).
 
-`read_png` decodes 8-bit gray, gray + alpha, RGB and RGBA images and
-palette images of 1, 2, 4 or 8 bits, with any of the five row filters of
-the PNG specification (section 9): None and Up are undone over runs of
-rows at once, Sub by a cumulative sum along the row, Average and Paeth
-(sequential along a row) byte by byte. 16-bit and interlaced images are
-refused. `write_png` writes gray, RGB and palette images with filter None.
+`read_png` decodes every image the PNG specification defines: gray, gray +
+alpha, RGB, RGBA and palette images at each of their bit depths, plain or
+Adam7-interlaced, with any of the five row filters (section 9): None and Up
+are undone over runs of rows at once, Sub by a cumulative sum along the
+row, Average and Paeth (sequential along a row) byte by byte. It returns
+what `np.asarray(Image.open(path))` returns (see `read_png`), and `to_rgb`
+what `Image.open(path).convert("RGB")` returns. `write_png` writes gray,
+RGB and palette images of 8 bits with filter None.
 """
 
 from __future__ import annotations
@@ -95,12 +97,55 @@ def _unfilter(rows: np.ndarray, filters: np.ndarray, bpp: int, path) -> np.ndarr
     return out
 
 
+# Adam7 passes (PNG specification, section 8.2): (x0, y0, dx, dy).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(raw: np.ndarray, w: int, h: int, ch: int, depth: int, path) -> np.ndarray:
+    """One (sub)image's filtered bytes, a filter byte leading each row →
+    [h, w, ch] samples (uint16 at depth 16, else uint8)."""
+    stride = (w * ch * depth + 7) // 8
+    rows = raw.reshape(h, stride + 1)
+    rows = _unfilter(rows[:, 1:], rows[:, 0], max(1, ch * depth // 8), path)
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth < 8:
+        # Samples packed from the high bits; each row starts on a byte.
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w * ch]
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        return (bits * weights).sum(-1, dtype=np.uint8).reshape(h, w, ch)
+    return rows.reshape(h, w, ch)
+
+
+def _pillow_mode(samples: np.ndarray, color: int, depth: int) -> np.ndarray:
+    """[H, W, ch] samples → the array Pillow gives for the file's mode:
+    1-bit gray as bool ("1"), 2- and 4-bit gray scaled to 0..255 ("L"),
+    16-bit gray as uint16 ("I;16"), the high byte of every other 16-bit
+    sample, and 16-bit gray + alpha as RGBA (L, L, L, A)."""
+    if color in (0, 3):
+        samples = samples[..., 0]
+        if color == 0 and depth == 1:
+            return samples.astype(bool)
+        if color == 0 and depth in (2, 4):
+            return samples * np.uint8(255 // ((1 << depth) - 1))
+        return samples
+    if depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+        if color == 4:
+            samples = samples[..., [0, 0, 0, 1]]
+    return samples
+
+
 def read_png(path) -> tuple[np.ndarray, np.ndarray | None]:
     """Decode a PNG file → (pixels, palette).
 
-    pixels: uint8 [H, W] (gray, or palette indices), [H, W, 2] (gray +
-    alpha), [H, W, 3] (RGB) or [H, W, 4] (RGBA); palette: [n, 3] uint8 for
-    palette images, else None.
+    pixels: what `np.asarray(Image.open(path))` returns. [H, W] uint8 for
+    gray of 2, 4 or 8 bits and for palette indices, bool for 1-bit gray,
+    uint16 for 16-bit gray; [H, W, 2] gray + alpha, [H, W, 3] RGB and
+    [H, W, 4] RGBA in uint8 (16-bit samples keep their high byte, and 16-bit
+    gray + alpha comes as RGBA). palette: [n, 3] uint8 for palette images,
+    else None. Raises naming the file for a malformed one.
     """
     with open(path, "rb") as f:
         data = f.read()
@@ -119,28 +164,29 @@ def read_png(path) -> tuple[np.ndarray, np.ndarray | None]:
     w, h, depth, color, _, _, interlace = header
     if color not in _CHANNELS:
         raise ValueError(f"{path}: unknown PNG color type {color}")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNGs are not supported")
-    if depth == 16:
-        raise ValueError(f"{path}: 16-bit PNGs are not supported")
-    if depth != 8 and color != 3:
-        raise ValueError(f"{path}: {depth}-bit images of color type {color} are not supported")
+    allowed = (1, 2, 4, 8) if color == 3 else (1, 2, 4, 8, 16) if color == 0 else (8, 16)
+    if depth not in allowed or interlace > 1:
+        raise ValueError(f"{path}: invalid PNG header (depth {depth}, color type "
+                         f"{color}, interlace {interlace})")
     if color == 3 and palette is None:
         raise ValueError(f"{path}: palette PNG without PLTE")
     ch = _CHANNELS[color]
-    stride = (w * ch * depth + 7) // 8
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(w - x0) // dx), -(-(h - y0) // dy)) for x0, y0, dx, dy in passes]
+    nbytes = [ph * ((pw * ch * depth + 7) // 8 + 1) if pw and ph else 0 for pw, ph in sizes]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
-        raise ValueError(f"{path}: PNG data holds {raw.size} bytes, not {h * (stride + 1)}")
-    raw = raw.reshape(h, stride + 1)
-    rows = _unfilter(raw[:, 1:], raw[:, 0], max(1, ch * depth // 8), path)
-    if depth < 8:
-        # Pixels packed from the high bits; each row starts on a byte.
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        pixels = (bits * weights).sum(-1, dtype=np.uint8)
+    if raw.size != sum(nbytes):
+        raise ValueError(f"{path}: PNG data holds {raw.size} bytes, not {sum(nbytes)}")
+    if not interlace:
+        samples = _samples(raw, w, h, ch, depth, path)
     else:
-        pixels = rows.reshape(h, w, ch) if ch > 1 else rows
+        samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for (x0, y0, dx, dy), (pw, ph), n in zip(passes, sizes, nbytes):
+            if n:
+                samples[y0::dy, x0::dx] = _samples(raw[pos:pos + n], pw, ph, ch, depth, path)
+            pos += n
+    pixels = _pillow_mode(samples, color, depth)
     return np.ascontiguousarray(pixels), (palette if color == 3 else None)
 
 
@@ -174,12 +220,17 @@ def write_png(path, pixels: np.ndarray, palette: np.ndarray | None = None) -> No
 
 def to_rgb(pixels: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
     """read_png's output → [H, W, 3] uint8, as Pillow's convert("RGB"):
-    palette colors looked up, gray repeated, alpha dropped."""
+    palette colors looked up, gray repeated (1-bit gray as 0 or 255, 16-bit
+    gray clipped to 255), alpha dropped."""
     if palette is not None:
         lut = np.zeros((256, 3), np.uint8)
         lut[: len(palette)] = palette[:256]
         return lut[pixels]
     if pixels.ndim == 2:
+        if pixels.dtype == bool:
+            pixels = pixels * np.uint8(255)
+        elif pixels.dtype == np.uint16:
+            pixels = np.minimum(pixels, 255).astype(np.uint8)
         return np.repeat(pixels[..., None], 3, axis=-1)
     if pixels.shape[2] == 2:
         return np.repeat(pixels[..., :1], 3, axis=-1)

@@ -35,14 +35,17 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 
 class Conv(nn.Module):
-    """flax `nn.Conv` in NCHW: weight [O, I, k, k], symmetric padding."""
+    """flax `nn.Conv` in NCHW: weight [O, I / groups, k, k], symmetric
+    padding; `groups` is flax's feature_group_count (groups = I is a
+    depthwise convolution, flax kernel [k, k, 1, I])."""
 
     def __init__(self, in_ch, out_ch, k, stride=1, padding=0, dilation=1,
-                 bias=True, dtype=torch.float32):
+                 bias=True, dtype=torch.float32, groups=1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups = groups
         self.dtype = dtype
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -56,7 +59,7 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(
             x.to(self.dtype), self.weight.to(self.dtype), b, self.stride,
-            self.padding, self.dilation,
+            self.padding, self.dilation, self.groups,
         )
 
 
@@ -133,7 +136,59 @@ class FrozenBatchNorm(nn.Module):
         return x * inv.to(self.dtype)[:, None, None] + b.to(self.dtype)[:, None, None]
 
 
-PARAM_LAYERS = (Conv, ConvTranspose, Dense, FrozenBatchNorm)
+class GroupNorm32(nn.Module):
+    """flax `nn.GroupNorm` with the largest group count ≤ 32 that divides C
+    (the JAX package's GroupNorm32, whose flax tree keeps scale and bias
+    under `gn`). As flax computes it: statistics in float32 (or the input's
+    wider type) with the fast variance max(0, E[x²] − E[x]²), eps 1e-6,
+    then (x − mean) · (rsqrt(var + eps) · scale) + bias in that type, cast
+    to the compute dtype."""
+
+    def __init__(self, c, dtype=torch.float32):
+        super().__init__()
+        self.groups = next(g for g in range(32, 0, -1) if c % g == 0)
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.dtype = dtype
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xg = xf.unflatten(1, (self.groups, -1))  # a view in either memory format
+        mean = xg.mean(dim=(2, 3, 4))
+        var = torch.clamp(xg.square().mean(dim=(2, 3, 4)) - mean.square(), min=0.0)
+        per_channel = x.shape[1] // self.groups
+        mean = mean.repeat_interleave(per_channel, dim=1)
+        mul = torch.rsqrt(var + 1e-6).repeat_interleave(per_channel, dim=1) * self.weight
+        y = (xf - mean[:, :, None, None]) * mul[:, :, None, None] + self.bias[:, None, None]
+        return y.to(self.dtype)
+
+
+def make_norm(norm: str, c: int, dtype=torch.float32) -> tuple[str, nn.Module]:
+    """The JAX package's norm factory: 'frozen_bn' (pretrained weights and
+    fine-tuning) or 'group_norm' (training from scratch). Returns the flax
+    class name that names the layer in the tree, and the layer."""
+    if norm == "frozen_bn":
+        return "FrozenBatchNorm", FrozenBatchNorm(c, dtype)
+    if norm == "group_norm":
+        return "GroupNorm32", GroupNorm32(c, dtype)
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def add_norm(module: nn.Module, norm: str, index: int, c: int, dtype=torch.float32) -> str:
+    """Register the `index`-th norm of `module` under flax's auto name
+    (`FrozenBatchNorm_3`, `GroupNorm32_3`) and return that name."""
+    cls, layer = make_norm(norm, c, dtype)
+    name = f"{cls}_{index}"
+    module.add_module(name, layer)
+    return name
+
+
+PARAM_LAYERS = (Conv, ConvTranspose, Dense, FrozenBatchNorm, GroupNorm32)
 
 
 def init_module(module: nn.Module, gen: torch.Generator) -> None:

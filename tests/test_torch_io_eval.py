@@ -50,11 +50,9 @@ def _predict(a, b, c, ftype):
     return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
 
 
-def _filtered_png(path, rows: np.ndarray, width: int, depth: int, color: int, filters,
-                  palette=None, interlace=0):
-    """Write a PNG of raw scanline bytes [H, stride], row y filtered with
+def _filter_bytes(rows: np.ndarray, bpp: int, filters) -> bytearray:
+    """Scanline bytes [H, stride] → filtered stream, row y filtered with
     filters[y] by the specification's formulas (the test's own encoder)."""
-    bpp = max(1, {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color] * depth // 8)
     out, prev = bytearray(), [0] * rows.shape[1]
     for row, ftype in zip(rows.tolist(), filters):
         out.append(ftype)
@@ -63,18 +61,58 @@ def _filtered_png(path, rows: np.ndarray, width: int, depth: int, color: int, fi
             c = prev[i - bpp] if i >= bpp else 0
             out.append((x - _predict(a, prev[i], c, ftype)) & 0xFF)
         prev = row
+    return out
 
+
+def _png_file(path, stream: bytes, width, height, depth, color, palette=None, interlace=0):
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(
             ">I", zlib.crc32(kind + body))
 
     data = png.SIGNATURE + chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", width, rows.shape[0], depth, color, 0, 0, interlace))
+        ">IIBBBBB", width, height, depth, color, 0, 0, interlace))
     if palette is not None:
         data += chunk(b"PLTE", palette.tobytes())
-    data += chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b"")
+    data += chunk(b"IDAT", zlib.compress(bytes(stream))) + chunk(b"IEND", b"")
     with open(path, "wb") as f:
         f.write(data)
+
+
+def _filtered_png(path, rows: np.ndarray, width: int, depth: int, color: int, filters,
+                  palette=None, interlace=0):
+    """Write a PNG of raw scanline bytes [H, stride], row y filtered with
+    filters[y]."""
+    bpp = max(1, {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color] * depth // 8)
+    _png_file(path, _filter_bytes(rows, bpp, filters), width, rows.shape[0], depth, color,
+              palette, interlace)
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """[h, w, ch] samples → scanline bytes [h, stride] (big-endian at 16
+    bits, packed from the high bits below 8)."""
+    flat = samples.reshape(samples.shape[0], -1)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    bits = (flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(flat.shape[0], -1).astype(np.uint8), axis=1)
+
+
+def _sample_png(path, samples: np.ndarray, depth: int, color: int, palette=None,
+                interlace=0, seed=0):
+    """Write [H, W, ch] samples, plain or as the seven Adam7 passes, each
+    row with a random filter."""
+    rng = np.random.default_rng(seed)
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    passes = png._ADAM7 if interlace else ((0, 0, 1, 1),)
+    stream = bytearray()
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            stream += _filter_bytes(_pack(sub, depth), bpp, rng.integers(0, 5, sub.shape[0]))
+    _png_file(path, stream, w, h, depth, color, palette, interlace)
 
 
 # (color type, bit depth, channels) of the images each filter case writes.
@@ -172,23 +210,83 @@ def test_png_written_by_the_port_reads_in_pillow(tmp_path, kind):
 
 
 def test_png_refuses_what_it_cannot_read(tmp_path):
-    """16-bit, interlaced and corrupt files raise with the file's name."""
+    """Corrupt files and invalid headers raise with the file's name, and
+    the writer takes uint8 only."""
     p16 = tmp_path / "sixteen.png"
     Image.fromarray(np.arange(600, dtype=np.uint16).reshape(20, 30)).save(p16)
-    with pytest.raises(ValueError, match="16-bit"):
-        png.read_png(p16)
-    pil = tmp_path / "interlaced.png"
-    _filtered_png(pil, np.zeros((4, 5), np.uint8), 5, 8, 0, [0] * 4, interlace=1)
-    with pytest.raises(ValueError, match="interlaced"):
-        png.read_png(pil)
     bad = tmp_path / "corrupt.png"
-    data = bytearray((tmp_path / "sixteen.png").read_bytes())
+    data = bytearray(p16.read_bytes())
     data[40] ^= 0xFF
     bad.write_bytes(bytes(data))
     with pytest.raises(ValueError, match="corrupt.png"):
         png.read_png(bad)
+    invalid = tmp_path / "palette16.png"
+    _filtered_png(invalid, np.zeros((4, 10), np.uint8), 5, 16, 3, [0] * 4,
+                  palette=np.zeros((2, 3), np.uint8))
+    with pytest.raises(ValueError, match="palette16.png.*invalid PNG header"):
+        png.read_png(invalid)
+    short = tmp_path / "short.png"
+    _sample_png(short, np.zeros((9, 9, 1), np.uint8), 8, 0, interlace=1)
+    data = short.read_bytes()
+    _png_file(short, zlib.decompress(b"".join(
+        body for k, body in png._chunks(data, short) if k == b"IDAT"))[:-1], 9, 9, 8, 0,
+        interlace=1)
+    with pytest.raises(ValueError, match="short.png: PNG data holds"):
+        png.read_png(short)
     with pytest.raises(ValueError, match="uint8"):
         png.write_png(tmp_path / "x.png", np.zeros((2, 2), np.float32))
+
+
+# (color type, depth, channels) of the images the Pillow-mode cases write:
+# every depth the specification allows, plain and Adam7.
+_MODES = [(0, 1, 1), (0, 2, 1), (0, 4, 1), (0, 8, 1), (0, 16, 1), (2, 8, 3), (2, 16, 3),
+          (3, 1, 1), (3, 2, 1), (3, 4, 1), (3, 8, 1), (4, 8, 2), (4, 16, 2), (6, 8, 4),
+          (6, 16, 4)]
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("hw", [(13, 11), (3, 2), (17, 33)])
+def test_png_reads_every_depth_and_interlace_as_pillow(tmp_path, hw, interlace):
+    """Every color type at every bit depth, plain and Adam7-interlaced
+    (the (3, 2) image leaves passes empty), reads as Pillow reads it:
+    read_png as np.asarray(Image.open), to_rgb as convert("RGB"), and an
+    annotation through load_indexed_png as the JAX package's reader."""
+    from premvos_tpu.data import palette as jpal
+
+    rng = np.random.default_rng(hw[0] + interlace)
+    for color, depth, ch in _MODES:
+        samples = rng.integers(0, 1 << depth, (*hw, ch)).astype(np.uint16)
+        if depth == 16 and color == 0:
+            samples[0, : hw[1] // 2] %= 300  # some gray below and near 255
+        pal = davis_palette(1 << depth) if color == 3 else None
+        path = tmp_path / f"c{color}_d{depth}_i{interlace}.png"
+        _sample_png(path, samples, depth, color, pal, interlace, seed=color * 17 + depth)
+        ref = Image.open(path)
+        got, got_pal = png.read_png(path)
+        want = np.asarray(ref)
+        assert got.dtype == want.dtype and got.shape == want.shape, (color, depth)
+        np.testing.assert_array_equal(got, want, err_msg=f"{color}/{depth}")
+        np.testing.assert_array_equal(png.to_rgb(got, got_pal), np.asarray(ref.convert("RGB")),
+                                      err_msg=f"{color}/{depth}")
+        np.testing.assert_array_equal(load_indexed_png(path), jpal.load_indexed_png(path),
+                                      err_msg=f"{color}/{depth}")
+
+
+def test_png_reads_pillow_written_16_bit_gray(tmp_path):
+    """A 16-bit gray file Pillow writes ("I;16") reads as its array, its
+    frame as convert("RGB") (clipped at 255), and its annotation as the JAX
+    reader's."""
+    from premvos_tpu.data import palette as jpal
+
+    a = np.random.default_rng(4).integers(0, 520, (21, 30)).astype(np.uint16)
+    path = tmp_path / "i16.png"
+    Image.fromarray(a).save(path)
+    got, pal = png.read_png(path)
+    np.testing.assert_array_equal(got, a)
+    np.testing.assert_array_equal(png.to_rgb(got, pal), np.asarray(Image.open(path).convert("RGB")))
+    np.testing.assert_array_equal(load_indexed_png(path), jpal.load_indexed_png(path))
+    np.testing.assert_array_equal(tdavis.read_frame(path),
+                                  np.asarray(Image.open(path).convert("RGB")))
 
 
 def test_label_pngs_match_pillow_both_ways(tmp_path):

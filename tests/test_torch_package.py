@@ -93,9 +93,10 @@ def test_trainers_and_readers_import_no_jax_cv2_or_pil():
 
 
 def test_clis_and_replay_import_no_jax_cv2_or_pil():
-    """Importing the command lines, the replay harness, the J&F measures
-    and the file codecs in a fresh interpreter loads no jax*, no
-    premvos_tpu(.*), no cv2 and no PIL (the card's machine has none)."""
+    """Importing the command lines, the replay harness, the J&F measures,
+    the file codecs and the synthetic protocol (its generator, search and
+    entry point) in a fresh interpreter loads no jax*, no premvos_tpu(.*),
+    no cv2 and no PIL (the card's machine has none)."""
     code = (
         "import sys\n"
         "import premvos_tpu_torch.pipeline.run_davis\n"
@@ -108,6 +109,10 @@ def test_clis_and_replay_import_no_jax_cv2_or_pil():
         "import premvos_tpu_torch.stages.proposals\n"
         "import premvos_tpu_torch.utils.checkpoint\n"
         "import premvos_tpu_torch.utils.logging\n"
+        "import premvos_tpu_torch.eval.synthetic_benchmark\n"
+        "import premvos_tpu_torch.eval.tune\n"
+        "import premvos_tpu_torch.data.synthetic_vos\n"
+        "import premvos_tpu_torch.models.xception\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'premvos_tpu', 'cv2', 'PIL'))\n"
         "print(bad)\n"
@@ -122,7 +127,9 @@ def test_clis_and_replay_import_no_jax_cv2_or_pil():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("module", ["eval/davis_eval.py", "io_compat/png.py", "data/palette.py"])
+@pytest.mark.parametrize("module", ["eval/davis_eval.py", "io_compat/png.py", "data/palette.py",
+                                    "data/synthetic_vos.py", "data/cv_compat.py",
+                                    "eval/synthetic_benchmark.py", "eval/tune.py"])
 def test_codecs_and_measures_never_import_cv2_or_pil(module):
     """Not even inside a function: these run on the card's machine."""
     import ast
@@ -350,11 +357,33 @@ def test_kernel_wrappers_reject_bad_shapes(call):
 
 
 def test_unported_norm_is_refused():
+    """group_norm is ported: ReIDNet builds with it and takes the JAX
+    package's tree (GroupNorm32_k/gn) on every layer. A norm that neither
+    package has is refused."""
+    import jax
+    import jax.numpy as jnp
+
+    import premvos_tpu.config as jc
+    from premvos_tpu.models.reid import ReIDNet as JaxReID
+    from premvos_tpu_torch.bridge import load_flax_tree
     from premvos_tpu_torch.config import ReIDConfig
     from premvos_tpu_torch.models.reid import ReIDNet
 
-    with pytest.raises(NotImplementedError, match="group_norm"):
-        ReIDNet(ReIDConfig(backbone_depth=26, norm="group_norm"))
+    kw = dict(backbone_depth=26, embedding_dim=8, crop_size=32, norm="group_norm")
+    net = ReIDNet(ReIDConfig(**kw))
+    shapes = jax.eval_shape(
+        lambda: JaxReID(cfg=jc.ReIDConfig(**kw)).init(jax.random.PRNGKey(0),
+                                                      jnp.zeros((1, 32, 32, 3))))
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    load_flax_tree(net, tree)
+    gn = tree["params"]["backbone"]["stage2_block0"]["GroupNorm32_1"]["gn"]
+    np.testing.assert_array_equal(net.backbone.stage2_block0.GroupNorm32_1.weight.detach(),
+                                  gn["scale"])
+    np.testing.assert_array_equal(net.backbone.stage2_block0.GroupNorm32_1.bias.detach(),
+                                  gn["bias"])
+    with pytest.raises(ValueError, match="unknown norm 'batch_norm'"):
+        ReIDNet(ReIDConfig(backbone_depth=26, norm="batch_norm"))
 
 
 def test_bridge_rejects_mismatched_trees():
