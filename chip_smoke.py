@@ -6,7 +6,8 @@
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from premvos_tpu_torch/kernels/*.cu with nvcc
-     for sm_90a;
+     for sm_90a, and beside them the two host libraries (the JPEG decoder
+     and the RLE codec, kernels/*.cc) with g++, all started together;
   3. hold each kernel against its plain PyTorch version (and the RoIAlign
      backward against the plain version's autograd) on the card at the
      shapes of its path (inference: configs/davis2017_val.json; training:
@@ -42,6 +43,9 @@ Phases (any failure raises and exits non-zero):
      and NMS (1×2384 → 256, 1×256 → 32) and the multilevel RoIAlign
      (B = 1) at run_stages' proposals stage, which runs the proposal net
      one frame at a time (`check_stage_shapes` ties them to davis2017_val);
+     and the correlation backward's error on each of its CUDA test's cases
+     (the training shapes, c200, h50_w30, d61_groups, d61_c72, ...) as a
+     share of its 1e-5 tolerance;
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement;
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
@@ -135,6 +139,26 @@ Phases (any failure raises and exits non-zero):
      fine-tune), in a temporary directory, the launch counters zeroed just
      before and read just after: every J&F finite and in [0, 1], the four
      trained nets changed, every kernel launched;
+  7d. checkpoints and JPEG frames at davis2017_val: (a) seeded random
+     source nets (frozen-BN statistics and biases drawn away from 1 and 0)
+     written as a TF dict (Mask R-CNN, refinement, ReID), a
+     torchvision-named ResNet state dict (the Mask R-CNN backbone) and a
+     flownet2-pytorch state dict, each converted into fresh modules: every
+     parameter bit for bit equal, each converter's host seconds; (b)
+     `run_sequence` with the converted nets and no device argument on phase
+     5's 9 frames: labels equal to the source nets', every inference kernel
+     launched (counters zeroed just before, read just after), frames/s and
+     peak bytes; (c) the converted nets on the first 3 frames on the CPU
+     against the card, in float32 and bfloat16, object by object over the
+     pixels either labels: frame 0 exact, each object's IoU ≥ 0.99 in
+     float32, the bfloat16 IoUs reported; (d) the committed JPEG fixtures
+     (tests/data/jpeg, 480×854, quality 96) decoded without Pillow equal to
+     their committed Pillow decodes, ms a frame beside the PNG codec's, and
+     `run_davis` through main(argv) with --checkpoint (the converted
+     weights saved by utils/checkpoint.py) on a 32-frame tree of those
+     frames in a cycle: 480×854 PNGs, frame 0 the annotation, frames/s; (e) the C++
+     RLE codec equal to the numpy one on 480×854 masks, both timed, and
+     `mask_iou` on the card equal to the CPU's;
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
      RoIAlign, correlation and its backward, resample2d and the training
@@ -145,7 +169,7 @@ Phases (any failure raises and exits non-zero):
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 5, 7, 7b or 7c, and `launches_by_path` gives each path's
+zeroed window of phase 5, 7, 7b, 7c or 7d, and `launches_by_path` gives each path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
 stderr, and with --json the whole report to PATH. Imports nothing of JAX.
@@ -203,6 +227,10 @@ KERNELS = {
         "premvos_tpu/ops/correlation.py:113 (_correlation_grads, an XLA scan)",
     ),
 }
+
+# The host libraries phase 2 builds beside the kernels (g++): the JPEG
+# decoder and the RLE codec.
+HOST_SOURCES = ("jpeg_decode.cc", "rle.cc")
 
 # The kernels each main path must launch: inference (phase 5) and training
 # (phase 7).
@@ -986,6 +1014,30 @@ def resample_row(torch, src, flow, grid, shape):
     return dict(shape=shape, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                 bound=bound_ms(nbytes, flops), bound_bytes=nbytes, library_ms=lib_ms,
                 library_err=lib_err)
+
+
+def corr_grad_margins(torch, dev) -> dict:
+    """The correlation backward's error on each case of
+    tests/test_torch_cuda.py (its inputs) as a share of the tolerance, 1e-5
+    of each gradient's largest |grad|: {case: {"df1": share, "df2": share}};
+    fails above 1."""
+    from premvos_tpu_torch.ops.correlation import (
+        correlation_backward_cuda,
+        correlation_grads_reference,
+    )
+    from tests.test_torch_cuda import CORR_GRAD_CASES, _corr_grad_inputs
+
+    out = {}
+    for name, case in CORR_GRAD_CASES.items():
+        f1, f2, g = _corr_grad_inputs(dev, case)
+        md, stride = case[4:]
+        got = correlation_backward_cuda(f1, f2, g, md, stride)
+        want = correlation_grads_reference(f1, f2, g, md, stride)
+        out[name] = {k: max_abs(x, y) / (1e-5 * float(y.abs().max()))
+                     for k, x, y in zip(("df1", "df2"), got, want)}
+        if max(out[name].values()) > 1:
+            fail(f"correlation backward {name}: {out[name]} of the tolerance")
+    return out
 
 
 # ------------------------------------------------------------- phase 8
@@ -2096,6 +2148,325 @@ def synthetic_protocol_cut(np, torch, wrappers):
                 launches=launches)
 
 
+# ------------------------------------------------------------- phase 7d
+
+# The JPEG fixtures (scripts/make_jpeg_fixtures.py, written by Pillow): three
+# 480×854 frames at quality 96, frame 0's annotation, and each frame's
+# Pillow decode as PNG.
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+NETS = ("maskrcnn", "refine", "flow", "reid")
+
+
+def converted_nets(np, torch, cfg):
+    """Phase 7d (a): seeded random source nets at `cfg` (davis2017_val) on
+    the card, their frozen BN statistics and biases drawn away from 1 and 0;
+    a checkpoint in each source format written from them by the helper the
+    tier-1 test uses (io_compat/_synthetic_checkpoints.py): a TF dict for the
+    Mask R-CNN, refinement and ReID nets, a torchvision-named ResNet state
+    dict for the Mask R-CNN backbone, a flownet2-pytorch state dict for
+    FlowNet2; each converted into fresh modules on the card, every
+    parameter equal to its source bit for bit. Returns (src, dst, report):
+    each converter's host seconds (its checkpoint's writing apart)."""
+    from premvos_tpu_torch.io_compat import _synthetic_checkpoints as sc
+    from premvos_tpu_torch.io_compat.convert_flownet import convert_flownet2_state_dict
+    from premvos_tpu_torch.io_compat.convert_resnet import convert_resnet_state_dict
+    from premvos_tpu_torch.io_compat.convert_tf_maskrcnn import convert_tf_maskrcnn
+    from premvos_tpu_torch.io_compat.convert_tf_refine import convert_tf_refine
+    from premvos_tpu_torch.io_compat.convert_tf_reid import convert_tf_reid
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params
+
+    ra, fpn = cfg.proposal.roi_align_size, cfg.proposal.fpn_channels
+    src = init_params(build_models(cfg), cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for net in NETS:
+        sc.perturb(getattr(src, net), gen)
+    dst = build_models(cfg)
+
+    def flownet(ck):
+        state, unused = convert_flownet2_state_dict(ck, dst.flow)
+        if unused:
+            fail(f"flownet2 converter left keys unused: {unused[:5]}")
+        return state
+
+    # (converter, net, checkpoint writer, converter call, the part it fills)
+    steps = (
+        ("tf_maskrcnn", "maskrcnn", lambda: sc.tf_maskrcnn_vars(src.maskrcnn, ra, fpn),
+         lambda ck: convert_tf_maskrcnn(ck, dst.maskrcnn, ra, fpn), ""),
+        ("resnet", "maskrcnn", lambda: sc.torchvision_resnet_state_dict(src.maskrcnn, ("backbone",)),
+         lambda ck: convert_resnet_state_dict(ck, dst.maskrcnn, ("backbone",)), "backbone."),
+        ("tf_refine", "refine", lambda: sc.tf_refine_vars(src.refine),
+         lambda ck: convert_tf_refine(ck, dst.refine), ""),
+        ("tf_reid", "reid", lambda: sc.tf_reid_vars(src.reid),
+         lambda ck: convert_tf_reid(ck, dst.reid), ""),
+        ("flownet2", "flow", lambda: sc.flownet2_state_dict(src.flow), flownet, ""),
+    )
+    report = {}
+    for name, net, write, convert, prefix in steps:
+        t0 = time.perf_counter()
+        ck = write()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = convert(ck)
+        convert_s = time.perf_counter() - t0
+        want = getattr(src, net).state_dict()
+        bad = [k for k, v in state.items() if k.startswith(prefix)
+               and not torch.equal(v, want[k].cpu())]
+        if bad:
+            fail(f"{name}: converted parameters differ from the source: {bad[:5]}")
+        getattr(dst, net).load_state_dict(state, strict=True)
+        report[name] = dict(convert_s=convert_s, checkpoint_write_s=write_s,
+                            entries=len(ck), converted=sum(k.startswith(prefix) for k in state))
+    for net in NETS:
+        want = getattr(src, net).state_dict()
+        for k, v in getattr(dst, net).state_dict().items():
+            if not torch.equal(v, want[k]):
+                fail(f"converted {net}.{k} differs from its source on the card")
+    return src, dst, report
+
+
+def object_ious(np, a, b, k):
+    """Per frame of two label stacks [T, H, W]: {object id: IoU} for each
+    of the k objects that either labels there, and the share of the pixels
+    that either labels on which they agree."""
+    rows = []
+    for la, lb in zip(a, b):
+        either = (la > 0) | (lb > 0)
+        ious = {}
+        for i in range(1, k + 1):
+            ia, ib = la == i, lb == i
+            union = int((ia | ib).sum())
+            if union:
+                ious[i] = float((ia & ib).sum()) / union
+        rows.append(dict(iou=ious, labelled=(int((la > 0).sum()), int((lb > 0).sum())),
+                         union_agreement=float((la[either] == lb[either]).mean())
+                         if either.any() else 1.0))
+    return rows
+
+
+# Phase 7d (c)'s bound on each object's IoU, CUDA against the CPU, in
+# float32 (both devices labelled every pixel alike on "NVIDIA H100 80GB
+# HBM3, 700.00 W").
+CPU_IOU_MIN = 0.99
+
+
+def track_converted(np, torch, wrappers, cfg, src, dst, n_frames: int = 9, cpu_frames: int = 3):
+    """Phase 7d (b) and (c): `run_sequence` with the converted nets on
+    phase 5's frames (one chunk), with no device argument, its labels equal
+    to the source nets' on the same frames; the launch counters zeroed just
+    before the converted run and read just after, every inference kernel
+    launched; frames/s and peak bytes of that run. Then the converted nets
+    on the first `cpu_frames` frames on the CPU (device="cpu", plain
+    versions) against the card, in float32 and in the preset's bfloat16,
+    compared object by object over the pixels either device labels: frame
+    0 exact in both; in float32 every object's IoU ≥ CPU_IOU_MIN on every
+    frame. At random weights each selected mask peaks near 0.52, so
+    bfloat16's step of 2^-8 at the 0.5 threshold flips much of it (and as
+    much between bfloat16 and float32 on one device): the bfloat16 IoUs
+    are reported beside each device's bfloat16-against-float32 IoUs, with
+    no bound (scripts/cuda_cpu_label_gap.py takes the gap apart). Returns a
+    report dict."""
+    from premvos_tpu_torch.pipeline.runner import build_models, run_sequence
+
+    p = cfg.pipeline
+    frames, gt = synthetic_video(np, n_frames, p.image_height, p.image_width, p.max_objects, seed=2)
+    frames_d, gt_d = torch.from_numpy(frames).cuda(), torch.from_numpy(gt).cuda()
+    want = run_sequence(src, cfg, frames_d, gt_d, 2).cpu().numpy()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = run_sequence(dst, cfg, frames_d, gt_d, 2)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    got = got.cpu().numpy()
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"converted nets' labels differ from the source nets' on "
+             f"{float((got != want).mean()) if got.shape == want.shape else 1.0:.5f} of pixels")
+    if not (got[1:] > 0).any():
+        fail("run_sequence on converted weights labelled no pixel after frame 0: "
+             "the comparison would hold nothing")
+    missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched by run_sequence on converted weights: {missing}")
+
+    labels, cpu_s = {}, {}
+    for dtype in ("float32", p.dtype):
+        cfg_x = dataclasses.replace(cfg, pipeline=dataclasses.replace(p, dtype=dtype))
+        on = {"cuda": dst if dtype == p.dtype else build_models(cfg_x),
+              "cpu": build_models(cfg_x, device="cpu")}
+        for dev, models in on.items():
+            for net in NETS:
+                getattr(models, net).load_state_dict(
+                    {k: v.to(dev) for k, v in getattr(dst, net).state_dict().items()}, strict=True)
+        t0 = time.perf_counter()
+        labels["cpu", dtype] = run_sequence(
+            on["cpu"], cfg_x, frames[:cpu_frames], gt, 2, device="cpu").numpy()
+        cpu_s[dtype] = time.perf_counter() - t0
+        labels["cuda", dtype] = run_sequence(
+            on["cuda"], cfg_x, frames_d[:cpu_frames], gt_d, 2).cpu().numpy()
+        del on
+        if not np.array_equal(labels["cpu", dtype][0], labels["cuda", dtype][0]):
+            fail(f"davis2017_val, converted nets, {dtype}: CUDA vs CPU frame 0 differs")
+    k = p.max_objects
+    vs = {f"cuda_vs_cpu_{dt}": object_ious(np, labels["cuda", dt], labels["cpu", dt], k)
+          for dt in ("float32", p.dtype)}
+    for dev in ("cuda", "cpu"):
+        vs[f"{dev}_{p.dtype}_vs_float32"] = object_ious(
+            np, labels[dev, p.dtype], labels[dev, "float32"], k)
+    f32 = vs["cuda_vs_cpu_float32"]
+    low = [(t, i, v) for t, row in enumerate(f32) for i, v in row["iou"].items()
+           if v < CPU_IOU_MIN]
+    if low:
+        fail(f"davis2017_val, converted nets, float32: CUDA vs CPU object IoU below "
+             f"{CPU_IOU_MIN} (frame, object, IoU): {low}")
+    if not all(row["iou"] for row in f32[1:]):
+        fail("davis2017_val, converted nets, float32: a frame with no object labelled")
+    return dict(frames=n_frames, run_s=run_s, frames_per_s=n_frames / run_s,
+                tracked_frames_per_s=(n_frames - 1) / run_s, peak_bytes=peak,
+                launches=launches, labels_per_frame=[int((got[t] > 0).sum()) for t in range(n_frames)],
+                cpu_frames=cpu_frames, cpu_s=cpu_s, cuda_vs_cpu=vs)
+
+
+def jpeg_full_width(np, torch, wrappers, cfg, dst, repeats: int = 5, seq_frames: int = 32):
+    """Phase 7d (d): the committed JPEG fixtures decoded by the port (no
+    Pillow) equal their committed Pillow decodes exactly; the decode's ms
+    per 480×854 frame beside the PNG codec's on the same pixels (the median
+    of `repeats`); then `run_davis` through main(argv) with the converted
+    weights saved by utils/checkpoint.py and passed by --checkpoint, on a
+    DAVIS tree of `seq_frames` JPEG frames (the three fixtures copied in a
+    cycle, frame 0 annotated): 480×854 PNGs out, frame 0 the annotation,
+    the summary's frames/s over the tracked frames, the launch counters
+    zeroed just before and read just after. Returns a report dict."""
+    import shutil
+    import tempfile
+
+    from premvos_tpu_torch.data.palette import load_indexed_png
+    from premvos_tpu_torch.io_compat.jpeg import read_jpeg
+    from premvos_tpu_torch.io_compat.png import read_png
+    from premvos_tpu_torch.pipeline import run_davis
+    from premvos_tpu_torch.utils.checkpoint import save_params
+
+    names = sorted(os.listdir(os.path.join(JPEG_FIXTURES, "frames")))
+    jpeg_ms, png_ms = [], []
+    for name in names:
+        path = os.path.join(JPEG_FIXTURES, "frames", name)
+        want_path = os.path.join(JPEG_FIXTURES, "decoded", name[:-4] + ".png")
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            got = read_jpeg(path)
+            times.append(time.perf_counter() - t0)
+        jpeg_ms.append(1e3 * statistics.median(times))
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            want = read_png(want_path)[0]
+            times.append(time.perf_counter() - t0)
+        png_ms.append(1e3 * statistics.median(times))
+        if got.shape != (480, 854, 3) or not np.array_equal(got, want):
+            fail(f"{path}: the port's decode differs from Pillow's")
+    report = dict(frames=names, jpeg_decode_ms=jpeg_ms, png_decode_ms=png_ms)
+
+    preset = os.path.join(REPO, "configs", "davis2017_val.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        root, seq = os.path.join(tmp, "davis"), "jpeg_seq"
+        fd = os.path.join(root, "JPEGImages", "480p", seq)
+        ad = os.path.join(root, "Annotations", "480p", seq)
+        os.makedirs(fd)
+        os.makedirs(ad)
+        os.makedirs(os.path.join(root, "ImageSets", "2017"))
+        with open(os.path.join(root, "ImageSets", "2017", "val.txt"), "w") as f:
+            f.write(seq)
+        seq_names = [f"{i:05d}.jpg" for i in range(seq_frames)]
+        for i, name in enumerate(seq_names):
+            shutil.copy(os.path.join(JPEG_FIXTURES, "frames", names[i % len(names)]),
+                        os.path.join(fd, name))
+        shutil.copy(os.path.join(JPEG_FIXTURES, "annotation.png"), os.path.join(ad, "00000.png"))
+        ckpt = os.path.join(tmp, "converted.pt")
+        t0 = time.perf_counter()
+        save_params(ckpt, dst)
+        report["checkpoint_save_s"] = time.perf_counter() - t0
+        out = os.path.join(tmp, "out")
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        summary = run_davis.main(["--davis_root", root, "--output", out, "--config", preset,
+                                  "--checkpoint", ckpt])
+        report["wall_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        report["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+        files = sorted(os.listdir(os.path.join(out, seq)))
+        if files != [n[:-4] + ".png" for n in seq_names]:
+            fail(f"run_davis on JPEG frames wrote {files}")
+        labs = np.stack([load_indexed_png(os.path.join(out, seq, f)) for f in files])
+        if labs.shape != (seq_frames, 480, 854):
+            fail(f"run_davis on JPEG frames: labels {labs.shape}")
+        if not np.array_equal(labs[0], load_indexed_png(os.path.join(ad, "00000.png"))):
+            fail("run_davis on JPEG frames: frame 0 differs from the annotation")
+        if summary["frames"] != seq_frames - 1:
+            fail(f"run_davis on JPEG frames tracked {summary['frames']} frames")
+    missing = [k for k in INFERENCE_KERNELS if report["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels not launched by run_davis on JPEG frames: {missing}")
+    if "PIL" in sys.modules:
+        fail("the JPEG path loaded PIL")
+    report.update(summary=summary, frames_per_s=summary["fps"],
+                  labelled_pixels=[int((lab > 0).sum()) for lab in labs])
+    return report
+
+
+def codecs_full_width(np, torch, repeats: int = 5):
+    """Phase 7d (e): the C++ RLE codec (io_compat/rle_native.py, built from
+    kernels/rle.cc) equal to the numpy codec on 480×854 masks (the JPEG
+    fixture's two objects and two seeded random masks): strings, masks and
+    IoUs, with both codecs' encode + decode ms (median of `repeats`); and
+    `ops.mask_iou` on the card equal to the CPU's on [8, 480, 854] soft
+    masks."""
+    from premvos_tpu_torch.data.palette import load_indexed_png
+    from premvos_tpu_torch.io_compat import rle, rle_native
+    from premvos_tpu_torch.ops import mask_iou
+
+    if not rle_native.available():
+        fail("rle_native did not build")
+    ann = load_indexed_png(os.path.join(JPEG_FIXTURES, "annotation.png"))
+    rng = np.random.default_rng(13)
+    masks = [(ann == 1).astype(np.uint8), (ann == 2).astype(np.uint8),
+             (rng.uniform(0, 1, ann.shape) < 0.2).astype(np.uint8),
+             (rng.uniform(0, 1, ann.shape) < 0.7).astype(np.uint8)]
+
+    def ms(fn):
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    rows = []
+    for i, m in enumerate(masks):
+        r = rle.encode(m)
+        if rle_native.encode(m) != r or not np.array_equal(rle_native.decode(r), m):
+            fail(f"rle_native differs from the numpy codec on mask {i}")
+        for j in range(i):
+            rj = rle.encode(masks[j])
+            if abs(rle_native.iou(r, rj) - rle.iou(r, rj)) > 1e-12:
+                fail(f"rle_native IoU differs from the numpy codec's on masks {j}, {i}")
+        rows.append(dict(runs=len(rle.decode_counts(r["counts"])),
+                         native_ms=ms(lambda: rle_native.decode(rle_native.encode(m))),
+                         numpy_ms=ms(lambda: rle.decode(rle.encode(m)))))
+    a = torch.from_numpy(rng.uniform(0, 1, (8, *ann.shape)).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(0, 1, (8, *ann.shape)).astype(np.float32))
+    want = mask_iou(a, b)
+    got = mask_iou(a.cuda(), b.cuda()).cpu()
+    if not torch.equal(got, want):
+        fail(f"mask_iou on the card differs from the CPU's by {float((got - want).abs().max())}")
+    return dict(rle=rows, mask_iou_max_abs_err=0.0)
+
+
 # ------------------------------------------------------------- phase 7b
 
 # The kernels run_stages' stages launch: the proposals stage NMS and the
@@ -2411,12 +2782,24 @@ def main() -> int:
     report["card"] = smi
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # Phase 2 — build.
+    # Phase 2 — build: the kernels (one nvcc a source) and, beside them, the
+    # two host libraries (g++), all started together.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from premvos_tpu_torch.io_compat import jpeg, rle_native
+
     t0 = time.perf_counter()
-    lib_path = kernels.build()
+    with ThreadPoolExecutor(len(HOST_SOURCES)) as pool:
+        host = [pool.submit(kernels.build_host, src) for src in HOST_SOURCES]
+        lib_path = kernels.build()
+        host_libs = [f.result() for f in host]
     kernels.load()
+    jpeg.load()
+    if not rle_native.available():
+        fail("rle_native did not load")
     report["build_s"] = time.perf_counter() - t0
-    log(f"built {os.path.basename(lib_path)} in {report['build_s']:.1f} s")
+    log(f"built {os.path.basename(lib_path)} and "
+        f"{', '.join(os.path.basename(h) for h in host_libs)} in {report['build_s']:.1f} s")
     with open(lib_path.replace("libpremvos_kernels_", "ptxas_").replace(".so", ".log")) as f:
         ptxas = [ln.strip() for ln in f if "registers" in ln or "Compiling entry" in ln]
     report["ptxas"] = ptxas
@@ -2485,6 +2868,7 @@ def main() -> int:
     grad_gen = torch.Generator().manual_seed(40)
     checks["correlation_backward"] = [check_correlation_backward(torch, grad_gen, dev, case)
                                       for case in CORR_GRAD_CASES]
+    report["corr_grad_margins"] = corr_grad_margins(torch, dev)
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
     for name, rows in checks.items():
@@ -2495,6 +2879,10 @@ def main() -> int:
             log(f"{name}: {r['shape']}: err {r['max_abs_err']:.3g} (tol {r['tol']}), "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library {r['library_ms']}")
+    log("correlation backward, error as a share of its tolerance (1e-5 of each gradient's "
+        "max |grad|), the CUDA test's cases: " + ", ".join(
+            f"{k} df1 {v['df1']:.3f} df2 {v['df2']:.3f}"
+            for k, v in report["corr_grad_margins"].items()))
 
     # Phase 4 — tiny config: CUDA (kernels) vs CPU (plain versions).
     tiny = tiny_config()
@@ -2649,6 +3037,35 @@ def main() -> int:
         f"{syn['launches']}")
     torch.cuda.empty_cache()
 
+    # Phase 7d — converted checkpoints, JPEG frames, rle_native, mask_iou.
+    t0 = time.perf_counter()
+    src, dst, conv = converted_nets(np, torch, cfg)
+    log("converters at davis2017_val, host s: " + ", ".join(
+        f"{k} {v['convert_s']:.3f} (checkpoint written in {v['checkpoint_write_s']:.3f}, "
+        f"{v['converted']} tensors)" for k, v in conv.items()) + "; every parameter equal")
+    track = track_converted(np, torch, wrappers, cfg, src, dst)
+    log(f"run_sequence on converted weights, {track['frames']} frames: {track['run_s']:.3f} s → "
+        f"{track['frames_per_s']:.2f} frames/s, peak {track['peak_bytes']} bytes, labels equal "
+        f"to the source nets', launches {track['launches']}; on {track['cpu_frames']} frames, "
+        f"CPU s {track['cpu_s']}, object IoU and union agreement by frame: " + "; ".join(
+            f"{name} " + ", ".join(f"{row['iou']} {row['union_agreement']:.5f}" for row in rows)
+            for name, rows in track["cuda_vs_cpu"].items()))
+    del src
+    torch.cuda.empty_cache()
+    jpg = jpeg_full_width(np, torch, wrappers, cfg, dst)
+    log(f"JPEG 480x854 decode (port, no Pillow): {jpg['jpeg_decode_ms']} ms a frame; PNG decode "
+        f"of the same pixels {jpg['png_decode_ms']} ms; run_davis --checkpoint on the JPEG tree: "
+        f"{jpg['frames_per_s']:.2f} tracked frames/s, wall {jpg['wall_s']:.2f} s, checkpoint "
+        f"saved in {jpg['checkpoint_save_s']:.2f} s, launches {jpg['launches']}")
+    del dst
+    torch.cuda.empty_cache()
+    codecs = codecs_full_width(np, torch)
+    log(f"rle_native vs numpy RLE at 480x854, encode + decode ms: "
+        + ", ".join(f"{r['runs']} runs {r['native_ms']:.3f} vs {r['numpy_ms']:.3f}"
+                    for r in codecs["rle"]) + "; mask_iou on the card equals the CPU's")
+    report["converted"] = dict(converters=conv, track=track, jpeg=jpg, codecs=codecs,
+                               phase_s=time.perf_counter() - t0)
+
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
     for name in KERNELS:
@@ -2676,7 +3093,9 @@ def main() -> int:
         ("replay", rp["launches"], ("resample2d",)),
         ("training_group_norm", tr_gn["launches"], TRAINING_KERNELS),
         ("inference_xception65", xinf["launches"], INFERENCE_KERNELS),
-        ("synthetic", syn["launches"], tuple(KERNELS))) if name in names}
+        ("synthetic", syn["launches"], tuple(KERNELS)),
+        ("converted_inference", track["launches"], INFERENCE_KERNELS),
+        ("davis_cli_jpeg", jpg["launches"], INFERENCE_KERNELS)) if name in names}
         for name in KERNELS}
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():

@@ -10,12 +10,16 @@ reference. Layout mirrors the JAX package module for module:
                        sequence prefetch, lucid-dream augmentation, and
                        numpy versions of the OpenCV calls the JAX package
                        makes (cv_compat.py)
-  io_compat/           PNG (numpy + zlib: no Pillow), PPM, .flo, RLE and
-                       the proposals JSON
+  io_compat/           PNG (numpy + zlib) and JPEG (host C++) readers, no
+                       Pillow; PPM, .flo, RLE (numpy and C++), the
+                       proposals JSON, and the checkpoint converters (TF
+                       Mask R-CNN, refine and ReID nets, torchvision
+                       ResNet, flownet2-pytorch)
   ops/                 boxes, masks, crop/paste, NMS, RoIAlign, correlation,
                        resample2d, channelnorm, resize (each kernel-backed op
                        keeps its plain PyTorch version beside the kernel)
-  kernels/             the CUDA C++ sources and their ctypes binding
+  kernels/             the CUDA C++ sources and their ctypes binding, and
+                       the host C++ JPEG decoder and RLE codec
   models/              ResNet, FPN, RPN, heads, Mask R-CNN, DeepLabv3+,
                        FlowNet2, ReID
   stages/              proposals, refine, flow (and mask warps), ReID,

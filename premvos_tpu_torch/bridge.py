@@ -28,20 +28,65 @@ from premvos_tpu_torch.models.layers import (
 )
 
 
-def _converted(module, leaves: dict) -> dict:
+def port_name(module, leaf: str) -> str:
+    """The port's attribute for one flax leaf of a layer."""
+    if leaf == "kernel" or (isinstance(module, GroupNorm32) and leaf == "scale"):
+        return "weight"
+    return leaf
+
+
+def port_layout(module, leaf: str, value):
+    """One flax leaf's value in the port's layout (the table above)."""
+    if leaf != "kernel":
+        return value
     if isinstance(module, Conv):
-        out = {"weight": np.transpose(leaves["kernel"], (3, 2, 0, 1))}
-    elif isinstance(module, Dense):
-        out = {"weight": np.transpose(leaves["kernel"])}
-    elif isinstance(module, ConvTranspose):
-        out = {"weight": np.transpose(leaves["kernel"][::-1, ::-1], (2, 3, 0, 1))}
-    elif isinstance(module, GroupNorm32):
-        return {"weight": leaves["scale"], "bias": leaves["bias"]}
-    else:  # FrozenBatchNorm
-        return {k: leaves[k] for k in ("scale", "bias", "mean", "var")}
-    if "bias" in leaves:
-        out["bias"] = leaves["bias"]
+        return np.transpose(value, (3, 2, 0, 1))
+    if isinstance(module, Dense):
+        return np.transpose(value)
+    return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))  # ConvTranspose
+
+
+def flax_layout(module, leaf: str, value):
+    """Inverse of `port_layout`: a port tensor's value in flax's layout."""
+    if leaf != "kernel":
+        return value
+    if isinstance(module, Conv):
+        return np.transpose(value, (2, 3, 1, 0))
+    if isinstance(module, Dense):
+        return np.transpose(value)
+    return np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]  # ConvTranspose
+
+
+def flax_leaves(module) -> tuple[str, ...]:
+    """The flax leaves of one layer of the port."""
+    if isinstance(module, (Conv, Dense, ConvTranspose)):
+        return ("kernel",) if module.bias is None else ("kernel", "bias")
+    if isinstance(module, GroupNorm32):
+        return ("scale", "bias")
+    return ("scale", "bias", "mean", "var")
+
+
+def flax_targets(module: torch.nn.Module) -> dict:
+    """{flax path (without "params"): (layer, flax leaf, state-dict name)}
+    for every parameter and buffer of `module`'s layers (a GroupNorm32's
+    leaves sit under `gn`, as in flax)."""
+    out = {}
+    for name, mod in module.named_modules():
+        if not isinstance(mod, PARAM_LAYERS):
+            continue
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(mod, GroupNorm32):
+            path += ("gn",)
+        for leaf in flax_leaves(mod):
+            out[(*path, leaf)] = (mod, leaf, f"{name}.{port_name(mod, leaf)}".lstrip("."))
     return out
+
+
+def _converted(module, leaves: dict) -> dict:
+    names = flax_leaves(module)
+    if isinstance(module, (Conv, Dense, ConvTranspose)):
+        names = ("kernel", "bias") if "bias" in leaves else ("kernel",)
+    return {port_name(module, n): port_layout(module, n, leaves[n]) for n in names}
 
 
 def _layer_paths(node: dict, prefix: str = ""):

@@ -9,9 +9,11 @@ augmented PK batches; `DavisObjectCrops` takes per-object crops from a
 DAVIS-layout dataset. Every reader draws from the numpy generator in the
 JAX package's order, so one seed gives the same batches in both.
 
-Pillow is imported inside the functions that read or write images (the
-card's machine has none), and `DavisObjectCrops` resizes with
-`data/preprocess.py::resize_linear` in place of OpenCV's INTER_LINEAR.
+No Pillow (the card's machine has none): images are read by
+`data/davis.py::read_frame` (the port's PNG codec and JPEG decoder), COCO
+and VOC crops resized by `data/preprocess.py::resize_bicubic_pil` (Pillow's
+default BICUBIC, bit for bit), and `DavisObjectCrops` resizes with
+`resize_linear` in place of OpenCV's INTER_LINEAR.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from pathlib import Path
 
 import numpy as np
 
-from premvos_tpu_torch.data.preprocess import resize_linear
+from premvos_tpu_torch.data.davis import read_frame
+from premvos_tpu_torch.data.preprocess import resize_bicubic_pil, resize_linear
 from premvos_tpu_torch.io_compat import rle as rle_codec
+from premvos_tpu_torch.io_compat.png import write_png
 
 
 class InstanceCropDataset:
@@ -45,13 +49,9 @@ class InstanceCropDataset:
 
     def load_crop(self, idx: int, rng=None, jitter: float = 0.1) -> np.ndarray:
         """One [S, S, 3] uint8 crop; optional box jitter for augmentation."""
-        from PIL import Image
-
         ann = self.instances[idx]
         im_info = self.images[ann["image_id"]]
-        img = np.asarray(
-            Image.open(self.images_dir / im_info["file_name"]).convert("RGB")
-        )
+        img = read_frame(self.images_dir / im_info["file_name"])
         h, w = img.shape[:2]
         x, y, bw, bh = ann["bbox"]
         if rng is not None and jitter > 0:
@@ -65,9 +65,7 @@ class InstanceCropDataset:
         if x2 - x1 < 2 or y2 - y1 < 2:
             x1, y1, x2, y2 = 0, 0, w, h
         crop = img[y1:y2, x1:x2]
-        out = np.asarray(
-            Image.fromarray(crop).resize((self.crop_size, self.crop_size))
-        )
+        out = resize_bicubic_pil(crop, (self.crop_size, self.crop_size))
         if rng is not None and rng.uniform() < 0.5:
             out = out[:, ::-1]
         return out
@@ -137,10 +135,10 @@ class VocCropDataset(InstanceCropDataset):
 
 def make_synthetic_coco(root, num_images: int = 4, per_image: int = 2,
                         hw=(64, 64)):
-    """A COCO-format tree: coloured rectangles as instances (the JAX
-    package's fixture, the same files)."""
-    from PIL import Image
-
+    """A COCO-format tree: coloured rectangles as instances. The JAX
+    package's fixture draws the same images and annotations and saves the
+    images as JPEG (quality 95) with Pillow; the port writes them as PNG
+    through its own codec (`{i:06d}.png`), so they hold the drawn pixels."""
     root = Path(root)
     (root / "images").mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
@@ -167,8 +165,8 @@ def make_synthetic_coco(root, num_images: int = 4, per_image: int = 2,
                 }
             )
             aid += 1
-        name = f"{i:06d}.jpg"
-        Image.fromarray(img).save(root / "images" / name, quality=95)
+        name = f"{i:06d}.png"
+        write_png(root / "images" / name, img)
         images.append({"id": i, "file_name": name, "height": h, "width": w})
     with open(root / "instances.json", "w") as f:
         json.dump({"images": images, "annotations": annotations}, f)

@@ -8,9 +8,9 @@ Layout (the standard DAVIS distribution):
 
 Frames are padded bottom/right to the static canvas on load;
 `crop_result` un-pads label maps for evaluation and dumping. PNG frames and
-annotations go through the port's own codec (io_compat/png.py); JPEG frames
-need Pillow, imported where a `.jpg` is read (the card's machine has no
-Pillow: give it PNG frames).
+annotations go through the port's own codec (io_compat/png.py), JPEG frames
+through its decoder (io_compat/jpeg.py): both read what Pillow reads, and
+the port needs no Pillow.
 """
 
 from __future__ import annotations
@@ -22,24 +22,21 @@ from pathlib import Path
 import numpy as np
 
 from premvos_tpu_torch.data.palette import load_indexed_png, save_indexed_png
+from premvos_tpu_torch.io_compat.jpeg import read_jpeg
 from premvos_tpu_torch.io_compat.png import read_png, to_rgb, write_png
 
 
 def read_frame(path) -> np.ndarray:
-    """One frame → [H, W, 3] uint8 RGB: PNG by the port's codec, anything
-    else by Pillow, which raises naming the file where Pillow is missing."""
+    """One frame → [H, W, 3] uint8 RGB, as Pillow's `convert("RGB")`: PNG
+    by the port's codec, JPEG by its decoder; any other suffix raises
+    naming the file."""
     path = Path(path)
-    if path.suffix == ".png":
+    suffix = path.suffix.lower()
+    if suffix == ".png":
         return to_rgb(*read_png(path))
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise RuntimeError(
-            f"{path}: reading a {path.suffix} frame needs Pillow, which is not "
-            "installed; convert the frames to PNG"
-        ) from e
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
+    if suffix in (".jpg", ".jpeg"):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: reads PNG and JPEG frames, not {path.suffix!r}")
 
 
 class DavisDataset:

@@ -3,9 +3,10 @@
 host resizes the JAX package does with OpenCV, in numpy: `resize_area_u8`
 (INTER_AREA) and `resize_nearest` (INTER_NEAREST) of the fused fine-tune's
 set-up (finetune/fused.py), and `resize_linear` (INTER_LINEAR on float32)
-of the ReID crops (data/crops.py) and the host-pool fine-tune
+of DavisObjectCrops (data/crops.py) and the host-pool fine-tune
 (data/lucid.py, finetune/finetune.py; its other OpenCV calls are in
-data/cv_compat.py)."""
+data/cv_compat.py); and `resize_bicubic_pil`, the uint8 resize the JAX
+package's COCO and VOC crops do with Pillow."""
 
 from __future__ import annotations
 
@@ -128,3 +129,64 @@ def resize_linear(image: np.ndarray, hw: tuple, window=None) -> np.ndarray:
     rows = x[:, x0] * (np.float32(1) - fx) + x[:, x1] * fx
     fy = fy.reshape((len(fy), 1) + (1,) * (x.ndim - 2))
     return (rows[y0] * (np.float32(1) - fy) + rows[y1] * fy).astype(np.float32)
+
+
+# Pillow's fixed-point resampling (libImaging/Resample.c): coefficients
+# scaled by 2**22, sums started at half of that, each pass's result cut to
+# uint8.
+_PIL_PRECISION_BITS = 22
+
+
+def _pil_bicubic(x: float) -> float:
+    """Pillow's bicubic filter (a = -0.5, support 2)."""
+    x = abs(x)
+    if x < 1.0:
+        return (1.5 * x - 2.5) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * -0.5
+    return 0.0
+
+
+def _pil_bicubic_matrix(src: int, dst: int) -> np.ndarray:
+    """[dst, src] int64 fixed-point taps, as Resample.c's precompute_coeffs
+    and normalize_coeffs_8bpc compute them (in float64, in its order)."""
+    scale = src / dst
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ss = 1.0 / filterscale
+    out = np.zeros((dst, src), np.int64)
+    for xx in range(dst):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), src) - xmin
+        w = [_pil_bicubic((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for x, v in enumerate(w):
+            k = v / ww if ww != 0.0 else v
+            k *= 1 << _PIL_PRECISION_BITS
+            out[xx, xmin + x] = int(k - 0.5) if k < 0 else int(k + 0.5)
+    return out
+
+
+def _pil_pass(x: np.ndarray, taps: np.ndarray, axis: int) -> np.ndarray:
+    acc = np.tensordot(x.astype(np.int64), taps, axes=([axis], [1]))
+    acc = np.moveaxis(acc, -1, axis) + (1 << (_PIL_PRECISION_BITS - 1))
+    return np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bicubic_pil(image: np.ndarray, hw: tuple) -> np.ndarray:
+    """uint8 [H, W, C] → [h, w, C] as
+    `np.asarray(Image.fromarray(image).resize((w, h)))` (Pillow's default
+    BICUBIC on RGB): the columns first, then the rows, each a fixed-point
+    convolution whose support widens with the shrink factor, cut to uint8
+    between the passes. A pass whose size does not change is skipped, as in
+    Pillow."""
+    h, w = hw
+    x = np.asarray(image, np.uint8)
+    if x.shape[1] != w:
+        x = _pil_pass(x, _pil_bicubic_matrix(x.shape[1], w), 1)
+    if x.shape[0] != h:
+        x = _pil_pass(x, _pil_bicubic_matrix(x.shape[0], h), 0)
+    return x

@@ -35,6 +35,12 @@ their inputs contiguous themselves). At the merge warp's shape the kernel
 runs for a few microseconds, so this host path is what a call costs
 (PERF.md, section 6).
 
+Two host libraries sit here too, C++ with a plain C interface and no CUDA:
+`jpeg_decode.cc` (the frame readers' JPEG decoder, io_compat/jpeg.py) and
+`rle.cc` (the COCO RLE codec, io_compat/rle_native.py). `build_host()`
+compiles one with the host C++ compiler (`g++`, which nvcc also uses) at
+first use, into the same `build/`, and raises if that fails.
+
 Nothing here runs at import time: this module is imported on machines with
 no CUDA toolkit, where only the plain PyTorch versions of the ops run.
 """
@@ -157,6 +163,37 @@ def build() -> str:
          "-o", tmp],
         check=True,
     )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler: set CXX or put g++ on PATH")
+    return found
+
+
+def build_host(source: str) -> str:
+    """Compile the host source `source` (a file beside this one) into a
+    shared library in build/, named by a hash of the source and the flags;
+    a library already built from it is reused. Raises with the compiler's
+    output if it fails."""
+    path = os.path.join(_HERE, source)
+    with open(path, "rb") as f:
+        tag = hashlib.sha256(" ".join(HOST_FLAGS).encode() + f.read()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}_{tag}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([_cxx(), *HOST_FLAGS, path, "-o", tmp],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {source} failed:\n{proc.stdout}")
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -7,6 +7,20 @@ import torch
 from premvos_tpu_torch.ops.roi_align import interp_dtype
 
 
+def mask_iou(a: torch.Tensor, b: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """IoU matrix between [N, H, W] and [M, H, W] masks → [N, M]: each mask
+    binarized at `threshold` first (0: the inputs are already binary {0, 1}
+    floats), then intersection over union as one matmul, 0 where the union
+    is empty."""
+    ab = (a > threshold).to(torch.float32) if threshold else a
+    bb = (b > threshold).to(torch.float32) if threshold else b
+    af = ab.reshape(ab.shape[0], -1)
+    bf = bb.reshape(bb.shape[0], -1)
+    inter = af @ bf.T
+    union = af.sum(-1)[:, None] + bf.sum(-1)[None, :] - inter
+    return torch.where(union > 0, inter / torch.clamp(union, min=1.0), torch.zeros_like(inter))
+
+
 def soft_mask_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Soft IoU Σmin/Σmax-style: [N, H, W] × [M, H, W] → [N, M] (no
     binarization; computed in the promoted dtype of a and b)."""

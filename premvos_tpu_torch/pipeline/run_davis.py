@@ -11,8 +11,10 @@ reports J&F (where the annotations cover every frame) and throughput:
       [--device cpu]
 
 It runs on the CUDA card unless `--device` names another device, and
-raises without a card. PNG frames need nothing beyond numpy; JPEG frames
-need Pillow (data/davis.py).
+raises without a card. PNG and JPEG frames are read without Pillow
+(data/davis.py::read_frame). `--checkpoint` takes a
+`utils/checkpoint.py::save_params` file, e.g. of nets loaded from the
+reference's checkpoints through io_compat's converters.
 """
 
 from __future__ import annotations

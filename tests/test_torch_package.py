@@ -16,8 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     """Import every module of premvos_tpu_torch (and chip_smoke.py) in a
     fresh interpreter: no jax* and no premvos_tpu(.*) may be loaded, and no
-    PIL (the card's machine has no Pillow; the image readers import it
-    inside their functions)."""
+    PIL (the card's machine has no Pillow, and the port never imports it)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import premvos_tpu_torch\n"
@@ -67,8 +66,8 @@ def test_finetune_imports_no_jax_cv2_or_pil():
 def test_trainers_and_readers_import_no_jax_cv2_or_pil():
     """Importing the flow and ReID trainers, their datasets and the file
     codecs in a fresh interpreter loads no jax*, no premvos_tpu(.*), no cv2
-    and no PIL (the crop readers import Pillow inside the functions that
-    read images; DavisObjectCrops resizes without OpenCV)."""
+    and no PIL (the crop readers decode and resize without Pillow;
+    DavisObjectCrops resizes without OpenCV)."""
     code = (
         "import sys\n"
         "import premvos_tpu_torch.train.train_flow\n"
@@ -127,9 +126,61 @@ def test_clis_and_replay_import_no_jax_cv2_or_pil():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_jpeg_tree_and_converters_load_no_jax_cv2_or_pil(tmp_path):
+    """Reading a DAVIS tree of JPEG frames (the JAX fixture's, written here
+    by Pillow) and COCO crops, and converting a checkpoint in each source
+    format, in a fresh interpreter, loads no jax*, no premvos_tpu(.*), no
+    cv2 and no PIL (the card's machine has none)."""
+    from premvos_tpu.data.crops import make_synthetic_coco
+    from premvos_tpu.data.davis import make_synthetic_davis
+
+    make_synthetic_davis(tmp_path / "davis", t=2, hw=(40, 56))
+    images, ann = make_synthetic_coco(tmp_path / "coco", num_images=2, per_image=1)
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from premvos_tpu_torch.data.davis import DavisDataset\n"
+        "from premvos_tpu_torch.data.crops import InstanceCropDataset\n"
+        "from premvos_tpu_torch.config import ReIDConfig\n"
+        "from premvos_tpu_torch.models.reid import ReIDNet\n"
+        "from premvos_tpu_torch.models.flownet import FlowNet2\n"
+        "from premvos_tpu_torch.io_compat import _synthetic_checkpoints as sc\n"
+        "from premvos_tpu_torch.io_compat import convert_tf_reid, rle_native\n"
+        "from premvos_tpu_torch.io_compat.convert_resnet import convert_resnet_state_dict\n"
+        "from premvos_tpu_torch.io_compat.convert_flownet import convert_flownet2_state_dict\n"
+        f"ds = DavisDataset({str(tmp_path / 'davis')!r})\n"
+        "seq = ds.load_sequence(ds.sequences[0], 48, 64, 2)\n"
+        "assert seq['frames'].shape == (2, 48, 64, 3) and seq['frames'].any()\n"
+        f"crops = InstanceCropDataset({str(images)!r}, {str(ann)!r}, crop_size=16)\n"
+        "assert crops.load_crop(0).shape == (16, 16, 3)\n"
+        "net = ReIDNet(ReIDConfig(backbone_depth=26, embedding_dim=8))\n"
+        "net.load_state_dict(convert_tf_reid(sc.tf_reid_vars(net), net))\n"
+        "net.load_state_dict(convert_resnet_state_dict(\n"
+        "    sc.torchvision_resnet_state_dict(net, ('backbone',)), net, ('backbone',)))\n"
+        "flow = FlowNet2(variant='flownetc', max_displacement=4)\n"
+        "flow.load_state_dict(convert_flownet2_state_dict(sc.flownet2_state_dict(flow), flow)[0])\n"
+        "assert rle_native.encode(np.eye(4, dtype=np.uint8))['size'] == [4, 4]\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'premvos_tpu', 'cv2', 'PIL'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("module", ["eval/davis_eval.py", "io_compat/png.py", "data/palette.py",
                                     "data/synthetic_vos.py", "data/cv_compat.py",
-                                    "eval/synthetic_benchmark.py", "eval/tune.py"])
+                                    "eval/synthetic_benchmark.py", "eval/tune.py",
+                                    "data/davis.py", "data/crops.py", "data/preprocess.py",
+                                    "io_compat/jpeg.py", "io_compat/rle_native.py",
+                                    "io_compat/convert_tf.py", "io_compat/convert_resnet.py",
+                                    "io_compat/convert_flownet.py"])
 def test_codecs_and_measures_never_import_cv2_or_pil(module):
     """Not even inside a function: these run on the card's machine."""
     import ast
