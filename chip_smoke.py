@@ -159,6 +159,39 @@ Phases (any failure raises and exits non-zero):
      frames in a cycle: 480×854 PNGs, frame 0 the annotation, frames/s; (e) the C++
      RLE codec equal to the numpy one on 480×854 masks, both timed, and
      `mask_iou` on the card equal to the CPU's;
+  7e. data parallelism (premvos_tpu_torch.parallel): (a) a world-size-1
+     NCCL group in this process on cuda:0, Mask R-CNN at full width
+     (ProposalConfig(), 480×864, batch 2, float32 without TF32):
+     make_dp_train_step against make_train_step from the same weights,
+     the loss equal bit for bit and every parameter after Adam within
+     1e-2 of its norm (DP_PARAM_BOUND: two plain steps are not repeatable,
+     the RoIAlign backward adds with float atomics, and their distance is
+     reported beside it), and on the exact gradients of one backward
+     (`exact_grad_loss`) the DP step equal to make_train_step bit for
+     bit; 5 timed steps of each and the NCCL all_reduce of the gradient
+     bucket; (b) two gloo ranks sharing cuda:0 (CUDA tensors through the
+     host: not NVLink, and two processes share the card's SMs, so the
+     numbers show the code path, not scaling), spawned with their launch
+     counters zeroed at the start and read at the end: (i) the DP Mask
+     R-CNN step at global batch 2, one image a rank, against (a)'s
+     one-process step: loss 1e-5 relative, every averaged gradient 1e-4
+     of its largest |grad| from one process's at batch 2, every parameter
+     after Adam within DP_PARAM_BOUND of its norm, both ranks' parameters
+     equal bit for bit, and on exact gradients (rank r's: one process's
+     times r + 1) the parameters equal, bit for bit, to one process's
+     Adam step on their mean; (ii)
+     `run_sequences_sharded` at davis2017_val in float32 on phase 5's 9
+     frames and their mirror image, one sequence a rank, against
+     `run_sequence` of each: frame 0 exact, each object's IoU ≥ 0.99;
+     (iii) the fused fine-tune over the mesh, FinetuneConfig(steps=8):
+     finite losses, both nets changed, both ranks equal; (iv) the
+     two-video fine-tune, one video a rank: both copies changed and equal
+     on both ranks; (v) one `train_flownet_c` step over the mesh at
+     phase 7's FlowNetC configuration (a global batch of 8, 4 a rank):
+     loss 1e-5 relative from one process's, both ranks equal; s/step of
+     each path and the ms of an all_reduce of each net's gradient bytes;
+     NMS, both RoIAligns, the RoIAlign backward, the correlation and its
+     backward and resample2d must have launched (`launches_by_path` "dp");
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
      RoIAlign, correlation and its backward, resample2d and the training
@@ -169,7 +202,7 @@ Phases (any failure raises and exits non-zero):
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 5, 7, 7b, 7c or 7d, and `launches_by_path` gives each path's
+zeroed window of phase 5, 7, 7b, 7c, 7d or 7e, and `launches_by_path` gives each path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
 stderr, and with --json the whole report to PATH. Imports nothing of JAX.
@@ -179,6 +212,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -1703,12 +1737,12 @@ class SyntheticDavis:
         return {"frames": frames, "gt_labels": labels[None]}
 
 
-def timed_steps(np, torch, wrappers, step, batch, n_steps: int = 5):
+def timed_steps(np, torch, wrappers, step, batch, n_steps: int = 5, must_fall: bool = True):
     """`n_steps` steps of `step` on one batch, back to back as the trainers
     run them (no loss read between steps), with the launch counters zeroed
     just before and read just after; CUDA events between steps give each
     step's span on the device's timeline. Fails unless every loss is
-    finite and the last is below the first."""
+    finite and (with must_fall) the last is below the first."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
@@ -1727,7 +1761,7 @@ def timed_steps(np, torch, wrappers, step, batch, n_steps: int = 5):
     losses = [float(x) for x in out]
     if not all(np.isfinite(x) for x in losses):
         fail(f"training losses not finite: {losses}")
-    if not losses[-1] < losses[0]:
+    if must_fall and not losses[-1] < losses[0]:
         fail(f"training loss did not fall over {n_steps} steps on one batch: {losses}")
     return dict(losses=losses, step_s=times, median_s_per_step=statistics.median(times),
                 wall_s_per_step=wall / n_steps, peak_bytes=torch.cuda.max_memory_allocated(),
@@ -2742,6 +2776,502 @@ def davis_cli_full_width(np, torch, wrappers, cfg, n_frames: int = 9, stage_fram
     return report
 
 
+# ------------------------------------------------------------- phase 7e
+
+# The kernels phase 7e (b)'s data-parallel paths launch on each rank: the
+# Mask R-CNN step and the fused fine-tune's proposal net (NMS, the
+# training RoIAlign and its backward), the fused fine-tune's lucid warps
+# and sharded inference (NMS, multilevel RoIAlign, correlation,
+# resample2d), the FlowNetC step (the correlation and its backward). The
+# multi-video fine-tune's refine net runs none.
+DP_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d", "roi_align",
+              "roi_align_backward", "correlation_backward")
+
+
+def kernel_wrappers():
+    """The launch-counting wrappers, by kernel name (this process's own)."""
+    from premvos_tpu_torch.ops import correlation, nms, resample2d, roi_align
+
+    return {
+        "nms": nms.nms_cuda,
+        "multilevel_roi_align": roi_align.multilevel_roi_align_cuda,
+        "correlation": correlation.correlation_cuda,
+        "resample2d": resample2d.resample2d_cuda,
+        "roi_align": roi_align.roi_align_cuda,
+        "roi_align_backward": roi_align.roi_align_backward_cuda,
+        "correlation_backward": correlation.correlation_backward_cuda,
+    }
+
+
+def dp_maskrcnn_case(np, torch, dev):
+    """Phase 7's Mask R-CNN at full width (ProposalConfig(), 480×864, 8
+    slots) from seeded weights (seed 0), and its batch of 2 from phase 7's
+    batch assembly (seed 1): (model, loss_fn, batch)."""
+    from premvos_tpu_torch.config import ProposalConfig
+    from premvos_tpu_torch.models.anchors import pyramid_anchors
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.maskrcnn import MaskRCNN
+    from premvos_tpu_torch.pipeline.runner import place
+    from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
+    from premvos_tpu_torch.train.train_maskrcnn import sample_batch
+
+    cfg, hw, slots = ProposalConfig(), (480, 864), 8
+    model = MaskRCNN(cfg)
+    init_module(model, torch.Generator().manual_seed(0))
+    model = place(model, dev).train()
+    anchors = {k: torch.from_numpy(v).to(dev)
+               for k, v in pyramid_anchors(*hw, cfg.anchor_scales, cfg.anchor_ratios).items()}
+    batch = sample_batch(SyntheticDavis(np), np.random.default_rng(1), hw, slots, 2, dev)
+    return model, lambda m: maskrcnn_loss_fn(m, anchors, cfg, hw), batch
+
+
+def float32_cfg(cfg):
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline, dtype="float32"))
+
+
+def dp_sequences(np, cfg, n_frames: int = 9):
+    """Phase 5's frames and annotation, and their mirror image: frames
+    [2, T, H, W, 3], gt [2, K, H, W]."""
+    p = cfg.pipeline
+    frames, gt = synthetic_video(np, n_frames, p.image_height, p.image_width, p.max_objects,
+                                 seed=2)
+    return (np.stack([frames, np.ascontiguousarray(frames[:, :, ::-1])]),
+            np.stack([gt, np.ascontiguousarray(gt[:, :, ::-1])]))
+
+
+def largest(d: dict) -> tuple:
+    """The largest (value, name) of {name: value}."""
+    return max((v, n) for n, v in d.items())
+
+
+def norm_ratios(torch, module, ref: dict) -> dict:
+    """{name: |p − ref[name]| / |ref[name]|} (L2) for module's parameters."""
+    return {n: float((p.detach().cpu() - ref[n]).norm() / ref[n].norm().clamp_min(1e-30))
+            for n, p in module.named_parameters()}
+
+
+def params_equal(torch, a, b) -> bool:
+    """Whether modules a and b hold equal parameters, bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+
+
+def digest(module) -> str:
+    """sha256 of a module's parameters and buffers, in order."""
+    h = hashlib.sha256()
+    for t in [*module.parameters(), *module.buffers()]:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def params_digest(module) -> str:
+    """sha256 of a module's parameters, in order."""
+    h = hashlib.sha256()
+    for t in module.parameters():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def flow_train_step(np, torch, mesh):
+    """One train_flownet_c step over `mesh` at phase 7's FlowNetC
+    configuration (md 20, a global batch of 8 random 256² crops of
+    synthetic 384×512 pairs, seed 0): (model, loss)."""
+    import tempfile
+
+    from premvos_tpu_torch.data.flow_pairs import FlowPairDataset, make_synthetic_chairs
+    from premvos_tpu_torch.train.train_flow import train_flownet_c
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = FlowPairDataset(make_synthetic_chairs(tmp, n=8, hw=(384, 512)))
+        return train_flownet_c(ds, steps=1, batch_size=8, crop_hw=(256, 256),
+                               max_displacement=20, seed=0, log_every=0, mesh=mesh)
+
+
+# The bound on a data-parallel step's parameters after Adam against one
+# process's step from the same weights, as a share of each parameter's
+# norm (L2). The card's float32 step is not repeatable (the RoIAlign
+# backward adds with float atomics; Adam's first step turns that noise into
+# whole steps where a gradient is near zero): two plain steps lie 1.7e-3 of
+# a norm apart. The bit-for-bit checks on exact gradients
+# (`exact_grad_loss`) are the ones a fault in the reduce or the step fails.
+DP_PARAM_BOUND = 1e-2
+
+
+def exact_grad_loss(model, grads: list):
+    """A loss whose gradient is `grads` exactly (Σ over the parameters of
+    sum(p · g), `grads` in the order of model.parameters()): its backward
+    multiplies ones by g and rounds nothing, so a step on it is
+    repeatable, and a DP step on it must equal one process's Adam step on
+    the ranks' mean gradients bit for bit."""
+    params = list(model.parameters())
+    return lambda batch: sum((p * g).sum() for p, g in zip(params, grads))
+
+
+def step_ratios(torch, module, ref: dict, before: dict) -> dict:
+    """{name: |p − ref[name]| / |ref[name] − before[name]|} (L2): the
+    distance from the reference step as a share of that step's length."""
+    return {n: float((p.detach().cpu() - ref[n]).norm()
+                     / (ref[n] - before[n]).norm().clamp_min(1e-30))
+            for n, p in module.named_parameters()}
+
+
+def dp_one_rank_nccl(np, torch, wrappers, n_steps: int = 5):
+    """Phase 7e (a): a world-size-1 NCCL group in this process (FileStore
+    rendezvous) on cuda:0. From one seeded Mask R-CNN at full width and
+    one batch of 2, float32 without TF32: make_train_step twice and
+    make_dp_train_step once, one step each. The losses must be equal bit
+    for bit, and the DP step's parameters within DP_PARAM_BOUND of each
+    norm from the plain step's (the two plain steps' own distance is
+    reported beside it: the floor). On the exact gradients of one backward
+    (`exact_grad_loss`), the DP step (bucket, NCCL all_reduce, Adam) must
+    equal make_train_step bit for bit. Then 5 timed steps of each (plain,
+    DP, DP, plain; finite losses: the runs go on from their first step, so
+    the loss need not fall), and the all_reduce of the net's gradient
+    bucket (ms). Returns (report, {"loss", "params", "grads": the plain
+    step's loss and parameters after it, and one process's gradients at
+    batch 2})."""
+    import copy
+    import tempfile
+
+    import torch.distributed as dist
+
+    from premvos_tpu_torch.parallel.mesh import make_mesh
+    from premvos_tpu_torch.pipeline.runner import float32_precision
+    from premvos_tpu_torch.train.trainer import (
+        create_train_state,
+        make_dp_train_step,
+        make_train_step,
+        replicate_state,
+    )
+
+    dev = torch.device("cuda", 0)
+    base, loss_of, batch = dp_maskrcnn_case(np, torch, dev)
+    before = {n: p.detach().cpu().clone() for n, p in base.named_parameters()}
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="premvos_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, backend="nccl")
+
+            def one_step(name, loss_fn_of, data):
+                m = copy.deepcopy(base)
+                st = create_train_state(m, 1e-4)
+                step = (make_train_step(loss_fn_of(m), st.optimizer) if "plain" in name else
+                        make_dp_train_step(loss_fn_of(m), replicate_state(st, mesh).optimizer,
+                                           mesh))
+                return m, float(step(data)), step
+
+            runs = {name: one_step(name, loss_of, batch) for name in ("plain", "plain_again",
+                                                                      "dp")}
+            torch.cuda.synchronize()
+            losses = {k: v[1] for k, v in runs.items()}
+            if not (np.float32(losses["dp"]).tobytes() == np.float32(losses["plain"]).tobytes()):
+                fail(f"one-rank NCCL DP step: loss {losses['dp']!r} != make_train_step's "
+                     f"{losses['plain']!r}")
+            ref = dict(loss=losses["plain"], params={
+                n: p.detach().cpu().clone() for n, p in runs["plain"][0].named_parameters()})
+            floor = largest(norm_ratios(torch, runs["plain_again"][0], ref["params"]))
+            dp_err = largest(norm_ratios(torch, runs["dp"][0], ref["params"]))
+            if not dp_err[0] <= DP_PARAM_BOUND:
+                fail(f"one-rank NCCL DP step: {dp_err[1]} {dp_err[0]:.3g} of its norm from "
+                     f"make_train_step's (bound {DP_PARAM_BOUND}; two plain steps {floor[0]:.3g})")
+            dp_step_err = largest(step_ratios(torch, runs["dp"][0], ref["params"], before))
+            floor_step = largest(step_ratios(torch, runs["plain_again"][0], ref["params"], before))
+            # One process's gradients at batch 2, float32 without TF32, then
+            # both steps on exactly those gradients.
+            m = copy.deepcopy(base)
+            with float32_precision():
+                loss_of(m)(batch).backward()
+            grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).detach()
+                     for p in m.parameters()]
+            ref["grads"] = {n: g.cpu() for (n, _), g in zip(m.named_parameters(), grads)}
+            del m
+            exact = {name: one_step(name, lambda m: exact_grad_loss(m, grads), None)
+                     for name in ("plain", "dp")}
+            if not (params_equal(torch, exact["plain"][0], exact["dp"][0])
+                    and exact["plain"][1] == exact["dp"][1]):
+                fail("one-rank NCCL DP step on exact gradients differs from make_train_step's")
+            del exact, grads
+            report.update(losses=losses, dp_vs_plain=dp_err, plain_vs_plain=floor,
+                          dp_vs_plain_of_step=dp_step_err, plain_vs_plain_of_step=floor_step,
+                          exact_grads_bit_equal=True)
+            times = {}
+            for name in ("plain", "dp", "dp_again", "plain_again"):
+                key = name.replace("_again", "")
+                rep = timed_steps(np, torch, wrappers, runs[key][2], batch, n_steps,
+                                  must_fall=False)
+                times.setdefault(key, []).append(rep["median_s_per_step"])
+            report["s_per_step"] = times
+            numel = sum(p.numel() for p in base.parameters())
+            flat = torch.zeros(numel + 1, device=dev)
+            report["allreduce_ms"] = cuda_ms(lambda: mesh.all_reduce_(flat), 10)
+            report["bucket_bytes"] = 4 * (numel + 1)
+            del runs
+        finally:
+            dist.destroy_process_group()
+    return report, ref
+
+
+def dp_rank(mesh, cfg, ref_path):
+    """Phase 7e (b), one rank of two sharing cuda:0 over gloo (CUDA
+    tensors through the host). Every launch counter is zeroed at the start
+    and read at the end. Returns this rank's report."""
+    import numpy as np
+    import torch
+
+    from premvos_tpu_torch.finetune.fused import finetune_video_fused
+    from premvos_tpu_torch.finetune.multi_video import finetune_refine_videos
+    from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.parallel.mesh import replicate, run_sequences_sharded
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params, place
+    from premvos_tpu_torch.train.trainer import (
+        create_train_state,
+        make_dp_train_step,
+        replicate_state,
+        shard_train_batch,
+    )
+
+    dev = mesh.device
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = {"rank": mesh.rank, "device": str(dev)}
+
+    # (i) Mask R-CNN at global batch 2, one image a rank, against one
+    # process's step at batch 2: the averaged gradients Adam is given (the
+    # optimizer's step records them) and the parameters after it.
+    model, loss_of, batch = dp_maskrcnn_case(np, torch, dev)
+    st = replicate_state(create_train_state(model, 1e-4), mesh)
+    step = make_dp_train_step(loss_of(model), st.optimizer, mesh)
+    grads, adam_step = {}, st.optimizer.step
+
+    def record_then_step(*a, **k):
+        grads.update({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        st.optimizer.step = adam_step  # the first step only
+        return adam_step(*a, **k)
+
+    st.optimizer.step = record_then_step
+    local = shard_train_batch(batch, mesh)
+    t0 = time.perf_counter()
+    loss = float(step(local))
+    first = time.perf_counter() - t0
+    ref = torch.load(ref_path, weights_only=True)
+    ratios = norm_ratios(torch, model, ref["params"])
+    grad_err = {n: float((g - ref["grads"][n]).abs().max()
+                         / ref["grads"][n].abs().max().clamp_min(1e-30)) for n, g in grads.items()}
+    out["maskrcnn"] = dict(loss=loss, first_step_s=first, grads_vs_plain=largest(grad_err),
+                           params_vs_plain=largest(ratios), digest=digest(model),
+                           grad_numel=sum(p.numel() for p in model.parameters()))
+    grads.clear()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(local)
+    torch.cuda.synchronize(dev)
+    out["maskrcnn"]["s_per_step"] = (time.perf_counter() - t0) / 3
+    del model, st, step
+    # The DP step on exact gradients: rank r's are one process's gradients
+    # at batch 2 times r + 1 (exact_grad_loss), with the parameters' strides.
+    model, _, _ = dp_maskrcnn_case(np, torch, dev)
+    grads = [torch.empty_like(p).copy_(ref["grads"][n] * (mesh.rank + 1))
+             for n, p in model.named_parameters()]
+    st = replicate_state(create_train_state(model, 1e-4), mesh)
+    make_dp_train_step(exact_grad_loss(model, grads), st.optimizer, mesh)(None)
+    out["maskrcnn"]["exact_digest"] = params_digest(model)
+    del model, st, grads
+    torch.cuda.empty_cache()
+
+    # (ii) Sequence-sharded inference at davis2017_val in float32.
+    c32 = float32_cfg(cfg)
+    models = init_params(build_models(c32, dev), c32, seed=0, device=dev)
+    frames, gt = dp_sequences(np, c32)
+    nobj = np.array([2, 2], np.int32)
+    run_sequences_sharded(models, c32, frames, gt, nobj, mesh)  # warm-up
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for m in models:  # the replication each call begins with, alone
+        replicate(m, mesh)
+    torch.cuda.synchronize(dev)
+    replicate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = run_sequences_sharded(models, c32, frames, gt, nobj, mesh)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    out["sharded"] = dict(wall_s=wall, replicate_s=replicate_s,
+                          frames=int(frames.shape[0] * frames.shape[1]),
+                          labels=labels.cpu().numpy() if mesh.rank == 0 else None,
+                          labels_digest=hashlib.sha256(labels.cpu().numpy().tobytes()).hexdigest())
+    del models
+    torch.cuda.empty_cache()
+
+    # (iii) The fused fine-tune over the mesh, 8 steps a net.
+    ft = dataclasses.replace(cfg.finetune, steps=8)
+    models = init_params(build_models(cfg, dev), cfg, seed=0, device=dev)
+    p = cfg.pipeline
+    frame0, lab0 = bench_finetune_frame(np, p.image_height, p.image_width)
+    stats = {}
+    t0 = time.perf_counter()
+    tuned, losses = finetune_video_fused(models, frame0, lab0, cfg, ft, stats=stats, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out["fused"] = dict(
+        wall_s=time.perf_counter() - t0, losses=losses,
+        changed={n: changed(getattr(models, n), getattr(tuned, n)) for n in ("refine", "maskrcnn")},
+        digests={n: digest(getattr(tuned, n)) for n in ("refine", "maskrcnn")},
+        s_per_step={n: sum(c[1] for c in stats[k]["chunks"]) / ft.steps
+                    for n, k in (("refine", "refine"), ("maskrcnn", "proposal"))})
+    grad_numel = {n: sum(q.numel() for q in getattr(models, n).parameters())
+                  for n in ("refine", "flow", "reid")}
+    del models, tuned
+    torch.cuda.empty_cache()
+
+    # (iv) Two videos over the mesh, one a rank.
+    model = DeepLabV3Plus(cfg.refine, getattr(torch, cfg.pipeline.dtype))
+    init_module(model, torch.Generator().manual_seed(0))
+    model = place(model, dev)
+    videos = [(frame0, lab0), (np.ascontiguousarray(frame0[:, ::-1]),
+                               np.ascontiguousarray(lab0[:, ::-1]))]
+    t0 = time.perf_counter()
+    vt, vlosses = finetune_refine_videos(model, videos, cfg.refine, ft, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out["videos"] = dict(wall_s=time.perf_counter() - t0, losses=[float(x) for x in vlosses],
+                         changed=[changed(model, m) for m in vt], digests=[digest(m) for m in vt],
+                         on_card=[next(m.parameters()).is_cuda for m in vt])
+    del model, vt
+
+    # (v) FlowNetC through train_flownet_c over the mesh: phase 7's step
+    # (batch 8 of 256² crops, md 20), 4 pairs a rank.
+    t0 = time.perf_counter()
+    flow, flow_loss = flow_train_step(np, torch, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out["flow"] = dict(loss=flow_loss, wall_s=time.perf_counter() - t0, digest=digest(flow))
+    del flow
+    out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+
+    # The all_reduce of each net's gradient bucket (float32, on the card,
+    # through the host on gloo), after the launch window.
+    grad_numel["maskrcnn"] = out["maskrcnn"]["grad_numel"]
+    ms = {}
+    for n, numel in grad_numel.items():
+        flat = torch.zeros(numel + 1, device=dev)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            mesh.all_reduce_(flat)
+            torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[n] = dict(bytes=4 * (numel + 1), ms=statistics.median(times[1:]))
+        del flat
+    out["allreduce"] = ms
+    return out
+
+
+def dp_two_ranks(np, torch, cfg, ref):
+    """Phase 7e (b): two gloo ranks sharing cuda:0 (parallel/dryrun.py::
+    spawn), each running dp_rank; the checks and the report."""
+    import tempfile
+
+    from premvos_tpu_torch.parallel.dryrun import spawn
+    from premvos_tpu_torch.parallel.mesh import as_mesh
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params, run_sequence
+    from premvos_tpu_torch.train.trainer import create_train_state
+
+    # The single-process references: each sequence alone, float32 (the
+    # first run also warms up; the second's seconds are one process's rate).
+    c32 = float32_cfg(cfg)
+    frames, gt = dp_sequences(np, c32)
+    models = init_params(build_models(c32), c32, seed=0)
+    alone, alone_s = [], []
+    for s in range(2):
+        t0 = time.perf_counter()
+        alone.append(run_sequence(models, c32, frames[s], gt[s], 2).cpu().numpy())
+        alone_s.append(time.perf_counter() - t0)
+    del models
+    # One process's Adam step on the ranks' mean exact gradients ((g + 2g) / 2,
+    # the sum rounded as the reduce rounds it), and its FlowNetC step.
+    dev = torch.device("cuda", 0)
+    model, _, _ = dp_maskrcnn_case(np, torch, dev)
+    for n, p in model.named_parameters():
+        g = ref["grads"][n].to(dev)
+        p.grad = torch.empty_like(p).copy_((g + 2 * g) / 2)
+    create_train_state(model, 1e-4).optimizer.step()
+    exact_digest = params_digest(model)
+    del model
+    flow_loss = flow_train_step(np, torch, as_mesh(None, dev))[1]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="premvos_dp_") as tmp:
+        ref_path = os.path.join(tmp, "maskrcnn_after_one_step.pt")
+        torch.save(ref, ref_path)
+        t0 = time.perf_counter()
+        ranks = spawn(dp_rank, 2, "gloo", cfg, ref_path, device="cuda:0")
+        wall = time.perf_counter() - t0
+    a, b = ranks
+    # (i)
+    mr = [r["maskrcnn"] for r in ranks]
+    if mr[0]["digest"] != mr[1]["digest"]:
+        fail("DP Mask R-CNN step: the two ranks' parameters differ")
+    for r in mr:
+        if not abs(r["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]):
+            fail(f"DP Mask R-CNN step: loss {r['loss']} vs one process {ref['loss']}")
+        err, name = r["grads_vs_plain"]
+        if not err <= 1e-4:
+            fail(f"DP Mask R-CNN step: {name}'s averaged gradient {err:.3g} of its largest "
+                 "|grad| from one process's at batch 2")
+        err, name = r["params_vs_plain"]
+        if not err <= DP_PARAM_BOUND:
+            fail(f"DP Mask R-CNN step: {name} {err:.3g} of its norm from one process's step "
+                 f"(bound {DP_PARAM_BOUND})")
+        if r["exact_digest"] != exact_digest:
+            fail("DP Mask R-CNN step on exact gradients: parameters differ from one process's "
+                 "Adam step on their mean")
+    # (ii)
+    labels = a["sharded"]["labels"]
+    if a["sharded"]["labels_digest"] != b["sharded"]["labels_digest"]:
+        fail("sharded inference: the ranks gathered different labels")
+    ious = []
+    for s in range(2):
+        if not np.array_equal(labels[s, 0], alone[s][0]):
+            fail(f"sharded inference: sequence {s} frame 0 differs from run_sequence's")
+        rows = object_ious(np, labels[s], alone[s], c32.pipeline.max_objects)
+        low = [(t, i, v) for t, row in enumerate(rows) for i, v in row["iou"].items()
+               if v < CPU_IOU_MIN]
+        if low:
+            fail(f"sharded inference: sequence {s} object IoU below {CPU_IOU_MIN}: {low}")
+        ious.append([row["iou"] for row in rows])
+    # (iii), (iv)
+    for r in ranks:
+        f = r["fused"]
+        if not all(np.isfinite(v) for v in f["losses"].values()) or not all(f["changed"].values()):
+            fail(f"DP fused fine-tune on rank {r['rank']}: losses {f['losses']}, changed "
+                 f"{f['changed']}")
+        v = r["videos"]
+        if not (np.isfinite(v["losses"]).all() and all(v["changed"]) and all(v["on_card"])):
+            fail(f"DP two-video fine-tune on rank {r['rank']}: {v}")
+    if a["fused"]["digests"] != b["fused"]["digests"]:
+        fail("DP fused fine-tune: the two ranks' parameters differ")
+    if a["videos"]["digests"] != b["videos"]["digests"]:
+        fail("DP two-video fine-tune: the two ranks returned different nets")
+    # (v)
+    if a["flow"]["digest"] != b["flow"]["digest"]:
+        fail("DP FlowNetC step: the two ranks' parameters differ")
+    for r in ranks:
+        if not abs(r["flow"]["loss"] - flow_loss) <= 1e-5 * abs(flow_loss):
+            fail(f"DP FlowNetC step: loss {r['flow']['loss']} vs one process {flow_loss}")
+    launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    missing = [k for k in DP_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched on the data-parallel paths: {missing}")
+    for r in ranks:
+        r["sharded"].pop("labels")
+    return dict(spawn_wall_s=wall, ranks=ranks, launches=launches, sharded_ious=ious,
+                one_process_sequence_s=alone_s, one_process_flow_loss=flow_loss,
+                sharded_frames_per_s=a["sharded"]["frames"] / max(a["sharded"]["wall_s"],
+                                                                   b["sharded"]["wall_s"]),
+                transport="gloo, CUDA tensors copied through the host (not NVLink); two "
+                          "processes share one card's SMs: this shows the code path, not "
+                          "scaling")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     ap.add_argument("--json", help="also write the full report (JSON) here")
@@ -2759,18 +3289,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from premvos_tpu_torch import kernels
     from premvos_tpu_torch.config import load_config
-    from premvos_tpu_torch.ops import correlation, nms, resample2d, roi_align
     from premvos_tpu_torch.pipeline.runner import build_models, init_params, run_sequence
 
-    wrappers = {
-        "nms": nms.nms_cuda,
-        "multilevel_roi_align": roi_align.multilevel_roi_align_cuda,
-        "correlation": correlation.correlation_cuda,
-        "resample2d": resample2d.resample2d_cuda,
-        "roi_align": roi_align.roi_align_cuda,
-        "roi_align_backward": roi_align.roi_align_backward_cuda,
-        "correlation_backward": correlation.correlation_backward_cuda,
-    }
+    wrappers = kernel_wrappers()
     report = {}
 
     # Phase 1 — the card.
@@ -3065,6 +3586,49 @@ def main() -> int:
                     for r in codecs["rle"]) + "; mask_iou on the card equals the CPU's")
     report["converted"] = dict(converters=conv, track=track, jpeg=jpg, codecs=codecs,
                                phase_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # Phase 7e — data parallelism: one rank on NCCL, two ranks sharing the
+    # card on gloo.
+    t0 = time.perf_counter()
+    dp1, dp_ref = dp_one_rank_nccl(np, torch, wrappers)
+    log(f"one-rank NCCL mesh, Mask R-CNN at full width: loss {dp1['losses']}; the DP step's "
+        f"farthest parameter from make_train_step's {dp1['dp_vs_plain'][1]} "
+        f"{dp1['dp_vs_plain'][0]:.3g} of its norm ({dp1['dp_vs_plain_of_step'][0]:.3g} of its "
+        f"step), two plain steps' {dp1['plain_vs_plain'][1]} {dp1['plain_vs_plain'][0]:.3g} "
+        f"({dp1['plain_vs_plain_of_step'][0]:.3g}); on exact gradients the DP step equals "
+        f"make_train_step bit for bit; s/step plain {dp1['s_per_step']['plain']}, DP "
+        f"{dp1['s_per_step']['dp']}; NCCL all_reduce of {dp1['bucket_bytes']} bytes "
+        f"{dp1['allreduce_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    dp2 = dp_two_ranks(np, torch, cfg, dp_ref)
+    ref_loss = dp_ref["loss"]
+    del dp_ref
+    r0, r1 = dp2["ranks"]
+    log(f"two gloo ranks on one card ({dp2['transport']}), spawn wall {dp2['spawn_wall_s']:.1f} s: "
+        f"Mask R-CNN global batch 2 loss {r0['maskrcnn']['loss']} / {r1['maskrcnn']['loss']} (one "
+        f"process {ref_loss}), farthest gradient from one process's at batch 2 "
+        f"{r0['maskrcnn']['grads_vs_plain'][1]} {r0['maskrcnn']['grads_vs_plain'][0]:.3g} of its "
+        f"largest |grad|, farthest parameter after Adam {r0['maskrcnn']['params_vs_plain'][1]} "
+        f"{r0['maskrcnn']['params_vs_plain'][0]:.3g} of its norm (on exact gradients: one "
+        f"process's Adam step on their mean, bit for bit), s/step "
+        f"{r0['maskrcnn']['s_per_step']:.4f} "
+        f"/ {r1['maskrcnn']['s_per_step']:.4f}; sharded davis2017_val float32, 2 x 9 frames: "
+        f"{dp2['sharded_frames_per_s']:.2f} frames/s (of its {r0['sharded']['wall_s']:.2f} s, "
+        f"replicating the nets from rank 0 through the host {r0['sharded']['replicate_s']:.2f} "
+        f"s; one process alone: a 9-frame sequence in {dp2['one_process_sequence_s'][1]:.2f} s), "
+        f"object IoUs vs run_sequence "
+        f"{dp2['sharded_ious']}; fused fine-tune 8 steps a net: losses {r0['fused']['losses']}, "
+        f"s/step {r0['fused']['s_per_step']} / {r1['fused']['s_per_step']}; two videos: losses "
+        f"{r0['videos']['losses']}, wall {r0['videos']['wall_s']:.2f} / "
+        f"{r1['videos']['wall_s']:.2f} s; FlowNetC step (4 pairs a rank) loss "
+        f"{r0['flow']['loss']} (one process {dp2['one_process_flow_loss']}), wall "
+        f"{r0['flow']['wall_s']:.2f} / {r1['flow']['wall_s']:.2f} s; all_reduce ms of each "
+        f"net's gradient bytes "
+        f"{r0['allreduce']}; launches {dp2['launches']}")
+    report["data_parallel"] = dict(one_rank_nccl=dp1, two_ranks_gloo=dp2,
+                                   phase_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
 
     # Phase 8 — device times by kernel name, after the timed phases.
     device_times(torch, dev, checks)
@@ -3095,7 +3659,8 @@ def main() -> int:
         ("inference_xception65", xinf["launches"], INFERENCE_KERNELS),
         ("synthetic", syn["launches"], tuple(KERNELS)),
         ("converted_inference", track["launches"], INFERENCE_KERNELS),
-        ("davis_cli_jpeg", jpg["launches"], INFERENCE_KERNELS)) if name in names}
+        ("davis_cli_jpeg", jpg["launches"], INFERENCE_KERNELS),
+        ("dp", dp2["launches"], DP_KERNELS)) if name in names}
         for name in KERNELS}
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():

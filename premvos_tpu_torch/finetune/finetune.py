@@ -25,6 +25,14 @@ the JAX package's oracle:
 The host work is numpy and needs no OpenCV (data/cv_compat.py). The
 fine-tunes copy the caller's module (a fresh Adam over the copy) and return
 the copy, which lives on the device the module lives on.
+
+With `mesh=` (parallel/mesh.py) a fine-tune is data-parallel, as the JAX
+package's: every rank builds the same pool from default_rng(seed) and makes
+the same row draws of the global batch, the refine net's max(batch_size,
+n) − (that % n) rows and the proposal net's max(b − b % n, n) with b =
+max(1, batch_size // 2); each rank gathers its block of the rows, and the
+gradients and loss are averaged over the mesh. The module must lie on the
+mesh's device; rank 0's copy is replicated first.
 """
 
 from __future__ import annotations
@@ -39,11 +47,14 @@ from premvos_tpu_torch.config import FinetuneConfig, RefineConfig
 from premvos_tpu_torch.data.cv_compat import dilate, erode, resize_linear_u8
 from premvos_tpu_torch.data.lucid import lucid_batch
 from premvos_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD, resize_linear
+from premvos_tpu_torch.parallel.mesh import as_mesh
 from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
 from premvos_tpu_torch.train.losses import sigmoid_xent
 from premvos_tpu_torch.train.trainer import (
+    dp_batch_size,
     fresh_train_state,
     make_pool_train_step,
+    replicate_state,
     sample_pool_draws,
 )
 
@@ -178,9 +189,11 @@ def finetune_refine(model, first_frame: np.ndarray, first_labels: np.ndarray,
                     refine_cfg: RefineConfig = RefineConfig(),
                     ft_cfg: FinetuneConfig = FinetuneConfig(), seed: int = 0,
                     log_every: int = 0, pool: tuple | None = None,
-                    draw: Callable | None = None, stats: dict | None = None):
+                    draw: Callable | None = None, stats: dict | None = None,
+                    mesh=None):
     """Fine-tune the refinement net on one video's first frame, on the
-    device `model` lives on.
+    device `model` lives on (with a `mesh`, data-parallel over it; see the
+    module's docstring).
 
     Returns (fine-tuned copy of `model`, final loss), or (`model`, NaN)
     when no example survives. `pool` = a prebuilt (images, labels) lucid
@@ -190,8 +203,9 @@ def finetune_refine(model, first_frame: np.ndarray, first_labels: np.ndarray,
     call time). `stats`, where given, gets "examples_s" (host seconds of
     make_refine_examples) and the loss reads' "chunks".
     """
+    mesh = as_mesh(mesh, next(model.parameters()).device)
     rng = np.random.default_rng(seed)
-    bs = max(ft_cfg.batch_size, 1)
+    bs = dp_batch_size(ft_cfg.batch_size, mesh.size)
     if pool is None:
         pool = lucid_batch(first_frame, first_labels, rng, pool_size(ft_cfg))
     imgs, labs = pool
@@ -203,12 +217,11 @@ def finetune_refine(model, first_frame: np.ndarray, first_labels: np.ndarray,
         stats["examples"] = len(crops)
     if len(crops) == 0:
         return model, float("nan")
-    dev = next(model.parameters()).device
-    state = fresh_train_state(model, ft_cfg.learning_rate)
+    state = replicate_state(fresh_train_state(model, ft_cfg.learning_rate), mesh)
     draws = (draw or sample_pool_draws)(torch.Generator().manual_seed(seed), ft_cfg.steps,
                                         len(crops), bs)
     step = make_pool_train_step(refine_loss_fn(state.model), state.optimizer, (crops, tgts),
-                                draws, dev)
+                                draws, mesh)
     loss = run_chunks(step, ft_cfg.steps, ft_cfg.chunk, log_every, "-refine", stats)
     return state.model, loss
 
@@ -244,11 +257,12 @@ def finetune_proposals(model, anchors: dict, proposal_cfg, first_frame: np.ndarr
                        first_labels: np.ndarray, ft_cfg: FinetuneConfig = FinetuneConfig(),
                        seed: int = 0, max_objects: int = 8, log_every: int = 0,
                        pool: tuple | None = None, draw: Callable | None = None,
-                       stats: dict | None = None):
+                       stats: dict | None = None, mesh=None):
     """Per-video fine-tune of the Mask R-CNN proposal net on the pool's
     frames at their full size (anchors: the pyramid's at that size, on the
-    model's device), on the device `model` lives on. Returns (fine-tuned
-    copy of `model`, final loss).
+    model's device), on the device `model` lives on (with a `mesh`,
+    data-parallel over it). Returns (fine-tuned copy of `model`, final
+    loss).
 
     The pool is stored uint8 on the device and normalized per batch; each
     pool frame has a per-item seed (drawn after the pool, in [0, 2³¹ − 1)),
@@ -257,9 +271,10 @@ def finetune_proposals(model, anchors: dict, proposal_cfg, first_frame: np.ndarr
     them (the dense one draws nothing). `pool` and `draw` as in
     finetune_refine.
     """
+    mesh = as_mesh(mesh, next(model.parameters()).device)
     rng = np.random.default_rng(seed)
     h, w = np.asarray(first_frame).shape[:2]
-    bs = max(1, ft_cfg.batch_size // 2)
+    bs = dp_batch_size(max(1, ft_cfg.batch_size // 2), mesh.size)
     if pool is None:
         pool = lucid_batch(first_frame, first_labels, rng, pool_size(ft_cfg))
     imgs, labs = pool
@@ -267,8 +282,7 @@ def finetune_proposals(model, anchors: dict, proposal_cfg, first_frame: np.ndarr
     gt_boxes, gt_masks, gt_valid = proposal_pool(labs, max_objects)
     seeds = rng.integers(0, 2**31 - 1, size=pool_n).astype(np.uint32)
 
-    dev = next(model.parameters()).device
-    state = fresh_train_state(model, ft_cfg.learning_rate)
+    state = replicate_state(fresh_train_state(model, ft_cfg.learning_rate), mesh)
 
     def resalt_seeds(batch, rows, salt):
         # A fresh salt a step, so resampling a pool item does not repeat
@@ -279,6 +293,6 @@ def finetune_proposals(model, anchors: dict, proposal_cfg, first_frame: np.ndarr
                                         pool_n, bs)
     step = make_pool_train_step(proposal_loss_fn(state.model, anchors, proposal_cfg, (h, w)),
                                 state.optimizer, (imgs, gt_boxes, gt_masks, gt_valid), draws,
-                                dev, batch_transform=resalt_seeds)
+                                mesh, batch_transform=resalt_seeds)
     loss = run_chunks(step, ft_cfg.steps, ft_cfg.chunk, log_every, "-prop", stats)
     return state.model, loss

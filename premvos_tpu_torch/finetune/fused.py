@@ -32,9 +32,18 @@ seeds.
 `finetune_video` also dispatches to the host-pool oracle (`method "pool"`,
 `finetune_video_pool`, built on finetune/finetune.py).
 
-Left out, by design: the JAX package's `shard_map`/`pmean` data
-parallelism (one device here), and `chunk_lengths` and `steps_list`, which
-exist only to pre-compile XLA scan programs per chunk length.
+With `mesh=` (parallel/mesh.py) every entry point is data-parallel, as the
+JAX package's `shard_map` + `pmean`: each rank builds batch_size // n
+examples a step (the proposal net (batch_size // 2) // n, at least 1) from
+generators of its own, and the gradients and loss are averaged over the
+mesh (train/trainer.py::make_dp_train_step). Rank 0 seeds both generators
+with `seed`, exactly as one device does; rank r > 0 seeds both with
+`rank_seed(seed, r)` = np.random.SeedSequence([seed, r]).generate_state(1)[0]
+(the JAX package folds the shard's axis_index into the key). Pass
+`build_fused_runner` the same mesh.
+
+Left out, by design: `chunk_lengths` and `steps_list`, which exist only to
+pre-compile XLA scan programs per chunk length.
 """
 
 from __future__ import annotations
@@ -62,10 +71,15 @@ from premvos_tpu_torch.finetune.lucid_device import (
     sample_refine_draws,
 )
 from premvos_tpu_torch.models.anchors import pyramid_anchors
+from premvos_tpu_torch.parallel.mesh import Mesh, as_mesh
 from premvos_tpu_torch.pipeline.runner import check_on, get_anchors, resolve_device
 from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
 from premvos_tpu_torch.train.losses import sigmoid_xent
-from premvos_tpu_torch.train.trainer import fresh_train_state, make_train_step
+from premvos_tpu_torch.train.trainer import (
+    fresh_train_state,
+    make_dp_train_step,
+    replicate_state,
+)
 
 
 class Consts(NamedTuple):
@@ -113,23 +127,29 @@ def _prep_consts(frame0, lab0, max_objects: int, device, background=None, hw=Non
     )
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s generators: `seed` itself at rank 0,
+    np.random.SeedSequence([seed, rank]).generate_state(1)[0] above."""
+    return seed if rank == 0 else int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
 def _run_chunks(run: FusedRun, state, consts: Consts, seed: int, steps: int, chunk: int,
-                log_every: int = 0, label: str = "", stats: dict | None = None):
-    """`steps` steps, reading the loss on the host once per `chunk` steps
-    (finetune.py::run_chunks, which fills `stats`). Returns (module, final
-    loss)."""
+                mesh: Mesh, log_every: int = 0, label: str = "", stats: dict | None = None):
+    """`steps` steps over the mesh, reading the loss on the host once per
+    `chunk` steps (finetune.py::run_chunks, which fills `stats`; rank 0
+    alone logs). Returns (module, final loss)."""
     if steps < 1:
         raise ValueError(
             f"fused fine-tune needs steps >= 1 (got {steps}); with 0 steps "
             "there is no loss to report — use the initial modules directly"
         )
     module = state.model
-    dev = next(module.parameters()).device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    host_gen = torch.Generator().manual_seed(seed)
-    step = make_train_step(lambda d: run.loss(module, run.batch(d, consts)), state.optimizer)
-    loss = run_chunks(lambda i: step(run.draw(gen, host_gen)), steps, chunk, log_every,
-                      f"-fused{label}", stats)
+    gen = torch.Generator(device=mesh.device).manual_seed(rank_seed(seed, mesh.rank))
+    host_gen = torch.Generator().manual_seed(rank_seed(seed, mesh.rank))
+    loss_fn = lambda d: run.loss(module, run.batch(d, consts))  # noqa: E731
+    step = make_dp_train_step(loss_fn, state.optimizer, mesh)
+    loss = run_chunks(lambda i: step(run.draw(gen, host_gen)), steps, chunk,
+                      log_every if mesh.rank == 0 else 0, f"-fused{label}", stats)
     return module, loss
 
 
@@ -139,10 +159,11 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 
 def build_refine_fused_runs(image_hw, refine_cfg: RefineConfig = RefineConfig(),
                             ft_cfg: FinetuneConfig = FinetuneConfig(),
-                            max_objects: int = 8) -> FusedRun:
-    """The refine net's fused step at frame size `image_hw`."""
+                            max_objects: int = 8, mesh=None) -> FusedRun:
+    """The refine net's fused step at frame size `image_hw` (with a mesh,
+    each rank's batch_size // n examples)."""
     h, w = image_hw
-    bs = max(ft_cfg.batch_size, 1)
+    bs = max(ft_cfg.batch_size // (mesh.size if mesh else 1), 1)
     patch = min(ft_cfg.aug_patch, min(h, w))
 
     def draw(gen, host_gen):
@@ -164,15 +185,17 @@ def build_refine_fused_runs(image_hw, refine_cfg: RefineConfig = RefineConfig(),
 def finetune_refine_fused(model, frame0, lab0, refine_cfg: RefineConfig = RefineConfig(),
                           ft_cfg: FinetuneConfig = FinetuneConfig(), seed: int = 0,
                           max_objects: int = 8, log_every: int = 0, background=None,
-                          built: FusedRun | None = None, stats: dict | None = None):
-    """Per-video refine-net fine-tune on the device `model` lives on.
+                          built: FusedRun | None = None, stats: dict | None = None,
+                          mesh=None):
+    """Per-video refine-net fine-tune on the device `model` lives on (with a
+    `mesh`, data-parallel over it, rank 0's weights replicated first).
     Returns (fine-tuned copy of `model`, final loss)."""
-    dev = next(model.parameters()).device
-    consts = _prep_consts(frame0, lab0, max_objects, dev, background)
+    mesh = as_mesh(mesh, next(model.parameters()).device)
+    consts = _prep_consts(frame0, lab0, max_objects, mesh.device, background)
     hw = tuple(consts.image255.shape[1:])
-    run = built or build_refine_fused_runs(hw, refine_cfg, ft_cfg, max_objects)
-    state = fresh_train_state(model, ft_cfg.learning_rate)
-    return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1),
+    run = built or build_refine_fused_runs(hw, refine_cfg, ft_cfg, max_objects, mesh)
+    state = replicate_state(fresh_train_state(model, ft_cfg.learning_rate), mesh)
+    return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1), mesh,
                        log_every, "-refine", stats)
 
 
@@ -186,16 +209,17 @@ def proposal_finetune_hw(frame_hw, ft_cfg: FinetuneConfig) -> tuple:
 
 
 def build_proposal_fused_runs(proposal_cfg, image_hw, ft_cfg: FinetuneConfig = FinetuneConfig(),
-                              max_objects: int = 8, device=None) -> FusedRun:
+                              max_objects: int = 8, device=None, mesh=None) -> FusedRun:
     """The Mask R-CNN fused step at `image_hw`, with anchors rebuilt for it
-    on `device`."""
+    on `device` (with a mesh, each rank's (batch_size // 2) // n images, at
+    least 1)."""
     h, w = image_hw
     anchors = {
         k: torch.from_numpy(v).to(resolve_device(device))
         for k, v in pyramid_anchors(h, w, proposal_cfg.anchor_scales,
                                     proposal_cfg.anchor_ratios).items()
     }
-    bs = max(1, ft_cfg.batch_size // 2)
+    bs = max(max(1, ft_cfg.batch_size // 2) // (mesh.size if mesh else 1), 1)
     patch = min(ft_cfg.aug_patch, min(h, w))
 
     def draw(gen, host_gen):
@@ -214,35 +238,38 @@ def finetune_proposals_fused(model, proposal_cfg, frame0, lab0,
                              ft_cfg: FinetuneConfig = FinetuneConfig(), seed: int = 0,
                              max_objects: int = 8, log_every: int = 0, background=None,
                              image_hw=None, built: FusedRun | None = None,
-                             stats: dict | None = None):
+                             stats: dict | None = None, mesh=None):
     """Per-video Mask R-CNN fine-tune on the device `model` lives on, at
-    `image_hw` (default: proposal_finetune_hw of the frame). Returns
-    (fine-tuned copy of `model`, final loss)."""
-    dev = next(model.parameters()).device
+    `image_hw` (default: proposal_finetune_hw of the frame); with a `mesh`,
+    data-parallel over it. Returns (fine-tuned copy of `model`, final
+    loss)."""
+    mesh = as_mesh(mesh, next(model.parameters()).device)
     if image_hw is None:
         image_hw = built.image_hw if built else proposal_finetune_hw(
             np.asarray(frame0).shape[:2], ft_cfg)
-    run = built or build_proposal_fused_runs(proposal_cfg, image_hw, ft_cfg, max_objects, dev)
-    consts = _prep_consts(frame0, lab0, max_objects, dev, background, hw=image_hw)
-    state = fresh_train_state(model, ft_cfg.learning_rate)
-    return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1),
+    run = built or build_proposal_fused_runs(proposal_cfg, image_hw, ft_cfg, max_objects,
+                                             mesh.device, mesh)
+    consts = _prep_consts(frame0, lab0, max_objects, mesh.device, background, hw=image_hw)
+    state = replicate_state(fresh_train_state(model, ft_cfg.learning_rate), mesh)
+    return _run_chunks(run, state, consts, seed, ft_cfg.steps, max(int(ft_cfg.chunk), 1), mesh,
                        log_every, "-prop", stats)
 
 
 def finetune_video(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None = None,
                    seed: int = 0, log_every: int = 0, built: dict | None = None,
-                   device=None, stats: dict | None = None):
+                   device=None, stats: dict | None = None, mesh=None):
     """Method-dispatching per-video fine-tune of both nets: "fused" (the
     default) runs finetune_video_fused, "pool" the host-pool oracle
-    finetune_video_pool (`built` serves the fused runs only). Returns (models',
-    {"refine": loss, "proposal": loss})."""
+    finetune_video_pool (`built` serves the fused runs only); with a
+    `mesh`, either data-parallel over it. Returns (models', {"refine":
+    loss, "proposal": loss})."""
     ft = ft_cfg or cfg.finetune
     if ft.method == "fused":
         return finetune_video_fused(models, frame0, lab0, cfg, ft, seed, log_every, built,
-                                    device, stats)
+                                    device, stats, mesh)
     if ft.method == "pool":
         return finetune_video_pool(models, frame0, lab0, cfg, ft, seed, log_every, device,
-                                   stats)
+                                   stats, mesh)
     raise ValueError(f"unknown FinetuneConfig.method {ft.method!r}")
 
 
@@ -253,20 +280,23 @@ def _check_models_on(models, dev, who: str) -> None:
 
 def finetune_video_pool(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None = None,
                         seed: int = 0, log_every: int = 0, device=None,
-                        stats: dict | None = None):
+                        stats: dict | None = None, mesh=None):
     """Fine-tune both nets for one video on one host-built lucid pool (the
     JAX package's `method "pool"` branch of finetune_video; finetune/
     finetune.py): the pool from default_rng(seed), then the refine net on
     examples cut from it and the proposal net on its frames at the frame's
     size (frame0 at the pipeline canvas, whose anchors it uses).
 
-    models on `device` (CUDA unless the caller passes one). Returns (models
-    with new `refine` and `maskrcnn` modules, {"refine": loss, "proposal":
-    loss}). `stats`, where given, gets "pool_s" (host seconds of the pool),
-    and under "refine" ("examples_s": host seconds of make_refine_examples,
-    "examples", "chunks") and "proposal" ("chunks") each net's log.
+    models on `device` (CUDA unless the caller passes one; with a `mesh`,
+    the mesh's device, every rank building the same pool, data-parallel
+    steps). Returns (models with new `refine` and `maskrcnn` modules,
+    {"refine": loss, "proposal": loss}). `stats`, where given, gets
+    "pool_s" (host seconds of the pool), and under "refine" ("examples_s":
+    host seconds of make_refine_examples, "examples", "chunks") and
+    "proposal" ("chunks") each net's log.
     """
-    dev = resolve_device(device)
+    mesh = as_mesh(mesh, device)
+    dev = mesh.device
     _check_models_on(models, dev, "finetune_video_pool")
     ft = ft_cfg or cfg.finetune
     frame0 = np.asarray(frame0, np.uint8)
@@ -277,29 +307,31 @@ def finetune_video_pool(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None
         stats["pool_s"] = time.perf_counter() - t0
     sub = (lambda key: stats.setdefault(key, {})) if stats is not None else (lambda key: None)
     refine, loss_r = finetune_refine(models.refine, frame0, lab0, cfg.refine, ft, seed=seed,
-                                     log_every=log_every, pool=pool, stats=sub("refine"))
+                                     log_every=log_every, pool=pool, stats=sub("refine"),
+                                     mesh=mesh)
     maskrcnn, loss_p = finetune_proposals(
         models.maskrcnn, get_anchors(cfg, dev), cfg.proposal, frame0, lab0, ft, seed=seed,
         max_objects=cfg.pipeline.max_objects, log_every=log_every, pool=pool,
-        stats=sub("proposal"),
+        stats=sub("proposal"), mesh=mesh,
     )
     return models._replace(refine=refine, maskrcnn=maskrcnn), {"refine": loss_r, "proposal": loss_p}
 
 
 def build_fused_runner(models, cfg, ft_cfg: FinetuneConfig | None = None, image_hw=None,
-                       device=None) -> dict:
+                       device=None, mesh=None) -> dict:
     """Both nets' fused steps for one frame size (every sequence of a
     dataset run shares the pipeline canvas), to pass to finetune_video as
-    `built`."""
+    `built` (with the same `mesh`)."""
     ft = ft_cfg or cfg.finetune
     if image_hw is None:
         image_hw = (cfg.pipeline.image_height, cfg.pipeline.image_width)
     prop_hw = proposal_finetune_hw(image_hw, ft)
     k = cfg.pipeline.max_objects
     return {
-        "refine": build_refine_fused_runs(image_hw, cfg.refine, ft, k),
+        "refine": build_refine_fused_runs(image_hw, cfg.refine, ft, k, mesh),
         "proposal": build_proposal_fused_runs(cfg.proposal, prop_hw, ft, k,
-                                              device or next(models.maskrcnn.parameters()).device),
+                                              device or next(models.maskrcnn.parameters()).device,
+                                              mesh),
         "proposal_hw": prop_hw,
         "image_hw": tuple(image_hw),
     }
@@ -307,8 +339,9 @@ def build_fused_runner(models, cfg, ft_cfg: FinetuneConfig | None = None, image_
 
 def finetune_video_fused(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | None = None,
                          seed: int = 0, log_every: int = 0, built: dict | None = None,
-                         device=None, stats: dict | None = None):
-    """Fine-tune both nets for one video, sharing one host inpainting.
+                         device=None, stats: dict | None = None, mesh=None):
+    """Fine-tune both nets for one video, sharing one host inpainting (with
+    a `mesh`, each net data-parallel over it, on the mesh's device).
 
     models: the pipeline's `Models` (build_models), on `device` (CUDA
     unless the caller passes one; without a card and without device="cpu"
@@ -318,7 +351,8 @@ def finetune_video_fused(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | Non
     caller's are untouched. `stats`, where given, gets "inpaint_s" (host
     seconds) and each net's chunk log under "refine" and "proposal".
     """
-    dev = resolve_device(device)
+    mesh = as_mesh(mesh, device)
+    dev = mesh.device
     _check_models_on(models, dev, "finetune_video_fused")
     ft = ft_cfg or cfg.finetune
     frame0 = np.asarray(frame0, np.uint8)
@@ -332,12 +366,12 @@ def finetune_video_fused(models, frame0, lab0, cfg, ft_cfg: FinetuneConfig | Non
     refine, loss_r = finetune_refine_fused(
         models.refine, frame0, lab0, cfg.refine, ft, seed=seed, max_objects=k,
         log_every=log_every, background=bg, built=built["refine"] if built else None,
-        stats=sub("refine"),
+        stats=sub("refine"), mesh=mesh,
     )
     maskrcnn, loss_p = finetune_proposals_fused(
         models.maskrcnn, cfg.proposal, frame0, lab0, ft, seed=seed, max_objects=k,
         log_every=log_every, background=bg,
         image_hw=built["proposal_hw"] if built else None,
-        built=built["proposal"] if built else None, stats=sub("proposal"),
+        built=built["proposal"] if built else None, stats=sub("proposal"), mesh=mesh,
     )
     return models._replace(refine=refine, maskrcnn=maskrcnn), {"refine": loss_r, "proposal": loss_p}

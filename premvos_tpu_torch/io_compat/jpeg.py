@@ -1,14 +1,15 @@
 """JPEG frames without Pillow.
 
 `read_jpeg(path)` returns what `np.asarray(Image.open(path).convert("RGB"))`
-returns, bit for bit: baseline and progressive Huffman JPEG, 8-bit, gray or
-three components, any integral sampling factors, restart intervals. The
-decoder is host C++ (kernels/jpeg_decode.cc), built with the host C++
-compiler at first use into kernels/build/ and bound by ctypes; it follows
-libjpeg-turbo's defaults, which Pillow runs: the ISLOW integer IDCT, fancy
-upsampling and jdcolor.c's fixed-point YCbCr → RGB. A file it cannot read
-(arithmetic coding, 12-bit samples, lossless or hierarchical JPEG, CMYK or
-YCCK) raises ValueError naming the file and the feature; a failed build
+returns, bit for bit: baseline and progressive Huffman JPEG, 8-bit, gray,
+three or four components (CMYK, YCCK), any integral sampling factors,
+restart intervals. The decoder is host C++ (kernels/jpeg_decode.cc), built
+with the host C++ compiler at first use into kernels/build/ and bound by
+ctypes; it follows libjpeg-turbo's defaults, which Pillow runs: the ISLOW
+integer IDCT, fancy upsampling, jdcolor.c's fixed-point YCbCr → RGB and
+YCCK → CMYK, then Pillow's inverted CMYK and its CMYK → RGB. A file it
+cannot read (arithmetic coding, 12-bit samples, lossless or hierarchical
+JPEG) raises ValueError naming the file and the feature; a failed build
 raises, and nothing falls back to Pillow.
 
 The JAX package decodes on the host with Pillow; this is its counterpart

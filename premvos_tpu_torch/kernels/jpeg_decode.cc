@@ -5,7 +5,7 @@
 // bit. Pillow runs libjpeg-turbo with its defaults, so this follows the same
 // arithmetic:
 //   * Huffman-coded baseline, extended sequential and progressive JPEG,
-//     8-bit samples, 1 (gray) or 3 components, any integral sampling
+//     8-bit samples, 1 (gray), 3 or 4 components, any integral sampling
 //     factors, restart intervals;
 //   * dequantisation and the ISLOW integer IDCT of jidctint.c (CONST_BITS
 //     13, PASS1_BITS 2), its output clamped to 0..255 as the SIMD version
@@ -16,11 +16,16 @@
 //     columns replicated as libjpeg's context rows are;
 //   * jdcolor.c's fixed-point YCbCr → RGB tables (SCALEBITS 16) with range
 //     limiting; an RGB-coded file (Adobe transform 0, or component ids
-//     'R', 'G', 'B') is copied; gray is replicated into R, G and B.
-// Arithmetic coding, 12-bit samples, lossless and hierarchical JPEG, CMYK
-// and YCCK (4 components), and a progressive file whose scans leave
-// coefficients 0-9 unrefined (libjpeg would smooth its blocks) are refused
-// with a message naming the feature.
+//     'R', 'G', 'B') is copied; gray is replicated into R, G and B;
+//   * four components as libjpeg reads them: CMYK (no Adobe marker, or
+//     Adobe transform 0) as it is, YCCK (any other Adobe transform) through
+//     jdcolor.c's ycck_cmyk_convert; then Pillow's own steps: its "CMYK;I"
+//     raw mode inverts every sample (Adobe's polarity, assumed for every
+//     CMYK JPEG), and its convert("RGB") takes
+//     R = clip(nk - (c·nk + 128 + ((c·nk + 128) >> 8)) >> 8), nk = 255 - k.
+// Arithmetic coding, 12-bit samples, lossless and hierarchical JPEG, and a
+// progressive file whose scans leave coefficients 0-9 unrefined (libjpeg
+// would smooth its blocks) are refused with a message naming the feature.
 //
 // C interface: premvos_jpeg_info reads the header (height, width,
 // components); premvos_jpeg_decode writes height × width × 3 bytes of RGB.
@@ -118,7 +123,7 @@ class Decoder {
   bool qdefined_[4] = {false, false, false, false};
   uint16_t qt_[4][64];
   Huffman dc_[4], ac_[4];
-  Component comp_[3];
+  Component comp_[4];
   // Scan state.
   int ns_ = 0, sidx_[4], ss_ = 0, se_ = 0, ah_ = 0, al_ = 0;
   int eobrun_ = 0;
@@ -248,8 +253,7 @@ void Decoder::read_sof(int marker) {
   if (precision != 8) fail("only 8-bit samples are supported, not " + std::to_string(precision) + "-bit");
   if (height == 0) fail("a DNL marker (height 0 in the frame header) is not supported");
   if (width == 0) fail("image width 0");
-  if (ncomp == 4) fail("CMYK/YCCK (4-component) JPEG is not supported");
-  if (ncomp != 1 && ncomp != 3) fail(std::to_string(ncomp) + "-component JPEG is not supported");
+  if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(std::to_string(ncomp) + "-component JPEG is not supported");
   progressive_ = marker == 0xC2;
   for (int i = 0; i < ncomp; ++i) {
     Component& c = comp_[i];
@@ -774,6 +778,46 @@ void upsample(const uint8_t* in, int stride, int dw, int dh, int rh, int rv, int
   }
 }
 
+uint8_t limit(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// jdcolor.c build_ycc_rgb_table: fixed point with SCALEBITS 16.
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int64_t half = (int64_t)1 << 15;
+    auto fix = [](double x) { return (int64_t)(x * (1L << 16) + 0.5); };
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      cr_r[i] = (int)((fix(1.40200) * x + half) >> 16);
+      cb_b[i] = (int)((fix(1.77200) * x + half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+  }
+  int g(int cb, int cr) const { return (int)((cb_g[cb] + cr_g[cr]) >> 16); }
+};
+
+// Four components → RGB as Pillow gives them: libjpeg's CMYK (YCCK first
+// through ycck_cmyk_convert), inverted by Pillow's "CMYK;I" raw mode, then
+// Pillow's cmyk2rgb.
+void cmyk_to_rgb(const std::vector<uint8_t>* planes, size_t npix, bool ycck, uint8_t* out) {
+  const YccTables t;
+  for (size_t p = 0; p < npix; ++p) {
+    int cmy[3] = {planes[0][p], planes[1][p], planes[2][p]};
+    if (ycck) {
+      int y = cmy[0], cb = cmy[1], cr = cmy[2];
+      cmy[0] = limit(255 - (y + t.cr_r[cr]));
+      cmy[1] = limit(255 - (y + t.g(cb, cr)));
+      cmy[2] = limit(255 - (y + t.cb_b[cb]));
+    }
+    int nk = planes[3][p];  // 255 - the inverted K
+    for (int c = 0; c < 3; ++c) {
+      int v = (255 - cmy[c]) * nk + 128;
+      out[3 * p + c] = limit(nk - (((v >> 8) + v) >> 8));
+    }
+  }
+}
+
 void Decoder::finish(uint8_t* out) {
   if (progressive_) {
     // libjpeg smooths the blocks (jdcoefct.c, smoothing_ok) when every
@@ -788,7 +832,7 @@ void Decoder::finish(uint8_t* out) {
       fail("a progressive JPEG whose scans leave low-frequency coefficients unrefined "
            "(libjpeg's block smoothing) is not supported");
   }
-  std::vector<uint8_t> planes[3];
+  std::vector<uint8_t> planes[4];
   for (int i = 0; i < ncomp; ++i) {
     Component& c = comp_[i];
     if (c.qlatched < 0) {
@@ -811,6 +855,10 @@ void Decoder::finish(uint8_t* out) {
     for (size_t p = 0; p < npix; ++p) out[3 * p] = out[3 * p + 1] = out[3 * p + 2] = planes[0][p];
     return;
   }
+  if (ncomp == 4) {
+    cmyk_to_rgb(planes, npix, saw_adobe_ && adobe_transform_ != 0, out);
+    return;
+  }
   bool rgb;
   if (saw_jfif_) {
     rgb = false;
@@ -827,24 +875,12 @@ void Decoder::finish(uint8_t* out) {
     }
     return;
   }
-  // jdcolor.c build_ycc_rgb_table and ycc_rgb_convert.
-  const int kScale = 16;
-  const int64_t kHalf = (int64_t)1 << (kScale - 1);
-  auto fix = [](double x) { return (int64_t)(x * (1L << 16) + 0.5); };
-  int cr_r[256], cb_b[256];
-  int64_t cr_g[256], cb_g[256];
-  for (int i = 0, x = -128; i < 256; ++i, ++x) {
-    cr_r[i] = (int)((fix(1.40200) * x + kHalf) >> kScale);
-    cb_b[i] = (int)((fix(1.77200) * x + kHalf) >> kScale);
-    cr_g[i] = -fix(0.71414) * x;
-    cb_g[i] = -fix(0.34414) * x + kHalf;
-  }
-  auto limit = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+  const YccTables t;
   for (size_t p = 0; p < npix; ++p) {
     int y = planes[0][p], cb = planes[1][p], cr = planes[2][p];
-    out[3 * p] = limit(y + cr_r[cr]);
-    out[3 * p + 1] = limit(y + (int)((cb_g[cb] + cr_g[cr]) >> kScale));
-    out[3 * p + 2] = limit(y + cb_b[cb]);
+    out[3 * p] = limit(y + t.cr_r[cr]);
+    out[3 * p + 1] = limit(y + t.g(cb, cr));
+    out[3 * p + 2] = limit(y + t.cb_b[cb]);
   }
 }
 

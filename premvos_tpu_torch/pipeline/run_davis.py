@@ -11,8 +11,13 @@ reports J&F (where the annotations cover every frame) and throughput:
       [--device cpu]
 
 It runs on the CUDA card unless `--device` names another device, and
-raises without a card. PNG and JPEG frames are read without Pillow
-(data/davis.py::read_frame). `--checkpoint` takes a
+raises without a card. Started by a launcher (`torchrun --nproc_per_node N
+-m premvos_tpu_torch.pipeline.run_davis ...`), as the JAX CLI with its
+`make_mesh()`: every rank reads each sequence and `--finetune` fine-tunes
+data-parallel over the N ranks (parallel/mesh.py; NCCL, one card a rank,
+or gloo with `--device cpu`), and rank 0 alone tracks, writes the PNGs and
+reports J&F; the sequences are not sharded. PNG and JPEG frames are read
+without Pillow (data/davis.py::read_frame). `--checkpoint` takes a
 `utils/checkpoint.py::save_params` file, e.g. of nets loaded from the
 reference's checkpoints through io_compat's converters.
 """
@@ -33,10 +38,10 @@ from premvos_tpu_torch.config import PremvosConfig, load_config
 from premvos_tpu_torch.data.davis import DavisDataset, crop_result, save_results
 from premvos_tpu_torch.data.prefetch import prefetch_sequences
 from premvos_tpu_torch.eval.davis_eval import evaluate_dataset, evaluate_sequence
+from premvos_tpu_torch.parallel.mesh import init_from_env
 from premvos_tpu_torch.pipeline.runner import (
     build_models,
     init_params,
-    resolve_device,
     run_sequence,
 )
 from premvos_tpu_torch.utils.logging import get_logger
@@ -76,7 +81,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     log = get_logger()
-    device = resolve_device(args.device)
+    mesh = init_from_env(args.device)
+    device, tracks = mesh.device, mesh.rank == 0
+    if not (tracks or args.finetune):
+        return None  # a rank with neither fine-tune steps nor tracking
     cfg = load_config(args.config) if args.config else PremvosConfig()
     p = cfg.pipeline
     models = build_models(cfg, device)
@@ -111,7 +119,7 @@ def main(argv=None):
         from premvos_tpu_torch.finetune.fused import build_fused_runner, finetune_video
 
         if cfg.finetune.method == "fused":
-            ft_built = build_fused_runner(models, cfg, device=device)
+            ft_built = build_fused_runner(models, cfg, device=device, mesh=mesh)
 
     results, total_frames, total_time = [], 0, 0.0
     for name, seq in prefetch_sequences(
@@ -128,8 +136,10 @@ def main(argv=None):
             frame0 = seq["frames"][0].cpu().numpy()
             t0 = time.perf_counter()
             seq_models, losses = finetune_video(
-                models, frame0, first_lab, cfg, built=ft_built, device=device
+                models, frame0, first_lab, cfg, built=ft_built, device=device, mesh=mesh
             )
+            if not tracks:
+                continue
             log.info(
                 "finetuned %s in %.1fs (refine %.4f, proposal %.4f)",
                 name, time.perf_counter() - t0, losses["refine"], losses["proposal"],
@@ -166,6 +176,8 @@ def main(argv=None):
             results.append(r)
             log.info("%s: J=%.3f F=%.3f", name, r["J"], r["F"])
 
+    if not tracks:
+        return None
     summary = {"frames": total_frames, "seconds": total_time,
                "fps": total_frames / max(total_time, 1e-9)}
     if results:

@@ -3,11 +3,14 @@
 Trains on any DAVIS-layout dataset (anything with `.sequences` and
 `.load_sequence(seq, h, w, max_objects)`): every annotated frame yields an
 image with GT boxes and masks, through the full detection loss
-(train/detection.py) and the single-device step (train/trainer.py). Runs on
-CUDA unless the caller passes device="cpu".
+(train/detection.py) and the step of train/trainer.py, on one device or,
+with `mesh=`, data-parallel over the mesh's ranks (the global batch sharded
+by image; under torchrun the CLI builds the mesh and rank 0 alone logs and
+saves). Runs on CUDA unless the caller passes device="cpu".
 
   python -m premvos_tpu_torch.train.train_maskrcnn --davis_root D --split train \\
       --steps 5000 [--height 480 --width 864] [--out model.pt]
+  torchrun --nproc_per_node N -m premvos_tpu_torch.train.train_maskrcnn ...
 """
 
 from __future__ import annotations
@@ -25,20 +28,22 @@ from premvos_tpu_torch.finetune.finetune import labels_to_boxes_masks
 from premvos_tpu_torch.models.anchors import pyramid_anchors
 from premvos_tpu_torch.models.layers import init_module
 from premvos_tpu_torch.models.maskrcnn import MaskRCNN
-from premvos_tpu_torch.pipeline.runner import place, resolve_device
+from premvos_tpu_torch.parallel.mesh import as_mesh, init_from_env, shard_batch
+from premvos_tpu_torch.pipeline.runner import place
 from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
-from premvos_tpu_torch.train.trainer import run_steps
+from premvos_tpu_torch.train.trainer import dp_batch_size, run_steps
 
 
 def sample_batch(ds, rng: np.random.Generator, image_hw, max_objects: int,
-                 batch_size: int, device):
+                 batch_size: int, device, mesh=None):
     """One batch, drawn from `rng` in the JAX engine's order: for each image
     a sequence, then one of its annotated frames (frames without an object
     are drawn again), then the per-image sampling seeds.
 
     Returns (images [B, H, W, 3] normalized, gt_boxes [B, K, 4], gt_masks
     [B, K, H, W], gt_valid [B, K]) on `device`, and seeds [B] uint32 on the
-    host.
+    host; with a `mesh`, every rank draws the whole batch and keeps its
+    block of B / n images.
     """
     h, w = image_hw
     mean = np.asarray(IMAGENET_MEAN, np.float32)
@@ -59,8 +64,10 @@ def sample_batch(ds, rng: np.random.Generator, image_hw, max_objects: int,
         gms.append(masks)
         gvs.append(valid)
     seeds = rng.integers(0, 2**31 - 1, size=batch_size).astype(np.uint32)
-    arrays = (np.stack(imgs), np.stack(gbs), np.stack(gms), np.stack(gvs))
-    return (*(torch.from_numpy(a).to(device) for a in arrays), seeds)
+    arrays = (np.stack(imgs), np.stack(gbs), np.stack(gms), np.stack(gvs), seeds)
+    if mesh is not None:
+        arrays = shard_batch(arrays, mesh)
+    return (*(torch.from_numpy(a).to(device) for a in arrays[:4]), arrays[4])
 
 
 def train_maskrcnn(
@@ -75,10 +82,15 @@ def train_maskrcnn(
     model: MaskRCNN | None = None,
     log_every: int = 100,
     device=None,
+    mesh=None,
 ):
     """Train `model` (else a MaskRCNN(cfg) with weights drawn from `seed`)
-    for `steps` Adam steps in float32. Returns (model, last loss)."""
-    device = resolve_device(device)
+    for `steps` Adam steps in float32. With a `mesh`: the global batch is
+    max(batch_size − batch_size % n, n) images, drawn whole on every rank,
+    each rank's block on its device, rank 0's weights replicated first, the
+    gradients and loss averaged over the mesh. Returns (model, last loss)."""
+    mesh = as_mesh(mesh, device)
+    device, bs = mesh.device, dp_batch_size(batch_size, mesh.size)
     h, w = image_hw
     if model is None:
         model = MaskRCNN(cfg)
@@ -91,8 +103,8 @@ def train_maskrcnn(
     rng = np.random.default_rng(seed)
     loss = run_steps(
         model, maskrcnn_loss_fn(model, anchors, cfg, image_hw),
-        lambda: sample_batch(ds, rng, image_hw, max_objects, batch_size, device),
-        steps, learning_rate, log_every, "maskrcnn",
+        lambda: sample_batch(ds, rng, image_hw, max_objects, bs, device, mesh),
+        steps, mesh, learning_rate, log_every, "maskrcnn",
     )
     return model, loss
 
@@ -110,11 +122,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+    mesh = init_from_env(args.device)
     ds = DavisDataset(args.davis_root, split=args.split)
     model, loss = train_maskrcnn(
         ds, image_hw=(args.height, args.width), steps=args.steps,
-        batch_size=args.batch_size, device=args.device,
+        batch_size=args.batch_size, mesh=mesh,
     )
+    if mesh.rank != 0:
+        return
     if args.out:
         torch.save(model.state_dict(), args.out)
     print({"final_loss": loss})

@@ -6,6 +6,7 @@ CUDA card.
     python3 scripts/profile_train_port.py --finetune [--steps N] [--json PATH]
     python3 scripts/profile_train_port.py --flow_reid [--steps N] [--json PATH]
     python3 scripts/profile_train_port.py --pool [--steps N] [--json PATH]
+    python3 scripts/profile_train_port.py --dp [--root DIR] [--steps N] [--json PATH]
 
 The step of chip_smoke.py's phase 7: ProposalConfig() defaults (ResNet-101
 FPN, 256 channels, 256 RoIs per image), 480×864 images, batch 2, 8 object
@@ -46,6 +47,16 @@ forward + loss, backward, Adam and zero_grad timed from outside them (the
 rest of the whole step is the gather and the host's work), and the
 profile.
 
+With --dp, the training step of the default mode through the steps the
+package ships, in a world-size-1 NCCL group of this process (FileStore
+rendezvous): make_train_step and make_dp_train_step from the same weights
+on the same batch, in the order plain, DP, DP, plain, each `--steps` steps
+after 3 warm-up ones, with the device's busy share, the largest kernels
+and the largest host-side calls (the CUDA runtime's among them) under
+torch.profiler. `--root DIR` imports the package from another checkout
+(e.g. a parent commit unpacked by `git archive`), so two versions of the
+step compare in one call.
+
 Prints both as text (and with --json writes them to PATH). Imports nothing
 of JAX.
 """
@@ -73,6 +84,9 @@ def main() -> int:
                     help="profile the FlowNetC and ReID training steps instead")
     ap.add_argument("--pool", action="store_true",
                     help="profile the host-pool fine-tune steps and refine training instead")
+    ap.add_argument("--dp", action="store_true",
+                    help="profile make_dp_train_step at one NCCL rank beside make_train_step")
+    ap.add_argument("--root", default=REPO, help="the checkout whose package --dp imports")
     args = ap.parse_args()
 
     import numpy as np
@@ -81,7 +95,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train_port: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.root) if args.dp else REPO)
+    if args.dp:
+        return profile_dp(args)
     if args.finetune:
         return profile_finetune(args)
     if args.flow_reid:
@@ -274,6 +290,75 @@ def profile_parts(torch, name, step_of, steps: int, warmup: int = 3, top: int = 
             "kernels_per_step": [{"name": kk, "ms": ms, "count": n} for kk, ms, n in rows]}
 
 
+def host_profile(torch, fn, steps: int, top: int = 12):
+    """The largest host-side calls by self time (ms per call of fn) of
+    `steps` calls under torch.profiler: the CUDA runtime's calls
+    (cudaMalloc, cudaFree, synchronizations) among them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.key, ev.self_cpu_time_total / 1e3 / steps, ev.count / steps)
+                   for ev in prof.key_averages() if ev.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])
+    return rows[:top]
+
+
+def profile_dp(args) -> int:
+    """make_train_step and make_dp_train_step at one NCCL rank: spans of
+    the whole step, the kernel profile and the host's largest calls."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from premvos_tpu_torch.parallel.mesh import make_mesh
+    from premvos_tpu_torch.train.trainer import (
+        create_train_state,
+        make_dp_train_step,
+        make_train_step,
+        replicate_state,
+    )
+
+    print(f"package from {os.path.abspath(args.root)}", flush=True)
+    base, loss_of, batch = chip_smoke.dp_maskrcnn_case(np, torch, torch.device("cuda", 0))
+    out = {"root": os.path.abspath(args.root)}
+    with tempfile.TemporaryDirectory(prefix="premvos_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, backend="nccl")
+            steps = {}
+            for name in ("plain", "dp"):
+                m = copy.deepcopy(base)
+                st = create_train_state(m, 1e-4)
+                steps[name] = (make_train_step(loss_of(m), st.optimizer) if name == "plain" else
+                               make_dp_train_step(loss_of(m),
+                                                  replicate_state(st, mesh).optimizer, mesh))
+            for key in ("plain", "dp", "dp_again", "plain_again"):
+                step = steps[key.replace("_again", "")]
+                res = profile_parts(torch, f"Mask R-CNN training step, {key}",
+                                    lambda timed, step=step: lambda: timed("1 whole step", step,
+                                                                           batch),
+                                    args.steps)
+                res["host_calls_per_step"] = [
+                    {"name": kk, "ms": ms, "count": n}
+                    for kk, ms, n in host_profile(torch, lambda: step(batch), args.steps)]
+                for row in res["host_calls_per_step"]:
+                    print(f"    host {row['ms']:9.3f} ms  {row['count']:7.1f}  {row['name'][:80]}")
+                out[key] = res
+            del steps
+        finally:
+            dist.destroy_process_group()
+    return write_report(args, out)
+
+
 def write_report(args, out: dict) -> int:
     """Print the card; with --json write `out` (and the card) there."""
     smi = subprocess.run(
@@ -434,6 +519,7 @@ def profile_pool(args) -> int:
     import chip_smoke
     from premvos_tpu_torch.config import RefineConfig, load_config
     from premvos_tpu_torch.finetune import finetune as ftmod
+    from premvos_tpu_torch.parallel.mesh import as_mesh
     from premvos_tpu_torch.pipeline.runner import build_models, get_anchors, init_params
     from premvos_tpu_torch.train.train_refine import (
         example_batches,
@@ -490,7 +576,7 @@ def profile_pool(args) -> int:
         def step_of(timed):
             shipped = make_pool_train_step(
                 shipped_spans(timed, loss_of(state.model), state.optimizer), state.optimizer,
-                pool, draws, dev, batch_transform=transform)
+                pool, draws, as_mesh(None, dev), batch_transform=transform)
 
             def step():
                 i = it[0] % len(draws.idx)

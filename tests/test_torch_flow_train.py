@@ -240,8 +240,10 @@ def test_train_flownet_c_needs_cuda_or_explicit_cpu(chairs, monkeypatch):
 
 def test_train_flow_main_saves_the_state_dict(chairs, monkeypatch, capsys):
     """The CLI hands its arguments to `train_flownet_c` (recorded here, with
-    a stand-in model) and the trained state_dict to torch.save (recorded,
-    not written)."""
+    a stand-in model; without a launcher the mesh is one rank on the named
+    device) and the trained state_dict to torch.save (recorded, not
+    written)."""
+    from premvos_tpu_torch.parallel.mesh import as_mesh
     from premvos_tpu_torch.train import train_flow
 
     calls, saved = [], []
@@ -258,7 +260,7 @@ def test_train_flow_main_saves_the_state_dict(chairs, monkeypatch, capsys):
     (ds, kw), = calls
     assert isinstance(ds, tpairs.FlowPairDataset) and len(ds) == 4
     assert kw == dict(steps=3, batch_size=2, crop_hw=(32, 48), max_displacement=MD,
-                      device="cpu")
+                      mesh=as_mesh(None, "cpu"))
     (state, path), = saved
     assert path == "flownetc.pt" and set(state) == {"weight", "bias"}
     assert "'final_loss': 0.5" in capsys.readouterr().out

@@ -8,7 +8,9 @@ the qualities the JAX fixtures use (75 by default, 95 in
 data/davis.py::make_synthetic_davis, 96 in data/synthetic_vos.py). It only
 writes 4:4:4, 4:2:2 and 4:2:0, so `_encode` below writes the other
 sampling factors (4:4:0, 4:1:1, mixed chroma factors), gray at 2×2 and the
-RGB-coded files (component ids 'R', 'G', 'B'; Adobe transform 0): a plain
+RGB-coded files (component ids 'R', 'G', 'B'; Adobe transform 0) and the
+four-component files Pillow cannot write (YCCK, Adobe transform 2; CMYK
+without the Adobe marker; CMYK with subsampled components): a plain
 baseline encoder whose output Pillow then decodes as the reference.
 """
 
@@ -233,6 +235,13 @@ ENCODED_CASES = [
     ("adobe_rgb", (37, 29), [(1, 1)] * 3, dict(jfif=False, adobe=0), "rgb"),
     ("adobe_ycc", (37, 29), [(2, 1), (1, 1), (1, 1)], dict(jfif=False, adobe=1), "ycc"),
     ("no_markers_ycc", (37, 29), [(2, 2), (1, 1), (1, 1)], dict(jfif=False), "ycc"),
+    ("ycck_adobe_2", (37, 29), [(1, 1)] * 4, dict(ids=(1, 2, 3, 4), jfif=False, adobe=2),
+     "ycck"),
+    ("ycck_adobe_2_420", (45, 61), [(2, 2), (1, 1), (1, 1), (2, 2)],
+     dict(ids=(1, 2, 3, 4), jfif=False, adobe=2, restart=2), "ycck"),
+    ("cmyk_adobe_0_h2v1", (37, 29), [(2, 1), (1, 1), (1, 1), (1, 1)],
+     dict(ids=(1, 2, 3, 4), jfif=False, adobe=0), "cmyk"),
+    ("cmyk_no_marker", (37, 29), [(1, 1)] * 4, dict(ids=(1, 2, 3, 4), jfif=False), "cmyk"),
 ]
 
 
@@ -241,11 +250,55 @@ ENCODED_CASES = [
 def test_decoder_equals_pillow_on_other_sampling_and_color(name, hw, factors, kw, planes,
                                                            tmp_path):
     rgb = _image(*hw, seed=7)
+    cmy = [255.0 - rgb[..., i] for i in range(3)]
+    k = np.clip(_image(*hw, seed=8)[..., 1].astype(np.float64), 40, 220)
     data = {"ycc": _ycc(rgb), "rgb": [rgb[..., i].astype(np.float64) for i in range(3)],
-            "gray": [_ycc(rgb)[0]]}[planes]
+            "gray": [_ycc(rgb)[0]], "cmyk": [*cmy, k], "ycck": [*_ycc(rgb), k]}[planes]
     path = tmp_path / f"{name}.jpg"
     path.write_bytes(_encode(data, factors, **kw))
     np.testing.assert_array_equal(jpeg.read_jpeg(path), _pillow_rgb(path.read_bytes()))
+
+
+# (name, (H, W), Pillow's save arguments): Pillow writes CMYK inverted, with
+# an Adobe marker of transform 0; its `subsampling` samples the first
+# component (C) at 2×1 or 2×2 and the other three at 1×1.
+CMYK_CASES = [
+    ("q75", (64, 96), {}),
+    ("q95_444", (61, 83), dict(quality=95, subsampling=0)),
+    ("q90_422", (64, 96), dict(quality=90, subsampling=1)),
+    ("q90_420", (61, 83), dict(quality=90, subsampling=2)),
+    ("q95_progressive", (64, 96), dict(quality=95, progressive=True)),
+    ("q80_restart_progressive_420", (97, 131), dict(quality=80, subsampling=2,
+                                                    progressive=True, restart_marker_rows=1)),
+]
+
+
+def _adobe_stripped(data):
+    """The file without its APP14 "Adobe" segment."""
+    at = data.index(b"\xff\xee")
+    end = at + 2 + int.from_bytes(data[at + 2:at + 4], "big")
+    assert data[at + 4:at + 9] == b"Adobe"
+    return data[:at] + data[end:]
+
+
+@pytest.mark.parametrize("name,hw,kw", CMYK_CASES, ids=[c[0] for c in CMYK_CASES])
+def test_decoder_equals_pillow_on_cmyk(name, hw, kw, tmp_path):
+    """Pillow-written CMYK JPEGs (Adobe transform 0), and the same files
+    without their Adobe marker, read as `Image.open(p).convert("RGB")`, the
+    JAX reader's frame (premvos_tpu/data/davis.py:82)."""
+    arr = np.array(Image.fromarray(_image(*hw, seed=len(name))).convert("CMYK"))
+    arr[..., 3] = _image(*hw, seed=99)[..., 2] // 2  # a K plane of its own
+    ImageFile.MAXBLOCK = max(ImageFile.MAXBLOCK, 1 << 22)
+    buf = io.BytesIO()
+    Image.fromarray(arr, "CMYK").save(buf, "JPEG", **kw)
+    data = buf.getvalue()
+    assert Image.open(io.BytesIO(data)).mode == "CMYK" and b"Adobe" in data
+    for tag, body in (("adobe", data), ("no_marker", _adobe_stripped(data))):
+        path = tmp_path / f"{name}_{tag}.jpg"
+        path.write_bytes(body)
+        got = jpeg.read_jpeg(path)
+        assert got.shape == (*hw, 3)
+        np.testing.assert_array_equal(got, _pillow_rgb(body), err_msg=tag)
 
 
 # ------------------------------------------------------------- refusals
@@ -260,19 +313,12 @@ def _patched_sof(marker=None, precision=None):
     return bytes(data)
 
 
-def _cmyk():
-    buf = io.BytesIO()
-    Image.fromarray(_image(16, 16)).convert("CMYK").save(buf, "JPEG")
-    return buf.getvalue()
-
-
 REFUSALS = {
     "arithmetic": (lambda: _patched_sof(marker=0xC9), "arithmetic coding"),
     "progressive_arithmetic": (lambda: _patched_sof(marker=0xCA), "arithmetic coding"),
     "12_bit": (lambda: _patched_sof(marker=0xC1, precision=12), "12-bit samples"),
     "lossless": (lambda: _patched_sof(marker=0xC3), "lossless JPEG"),
     "hierarchical": (lambda: _patched_sof(marker=0xC5), "hierarchical"),
-    "cmyk": (_cmyk, "CMYK/YCCK"),
     "not_a_jpeg": (lambda: b"\x89PNG\r\n\x1a\n" + bytes(32), "not a JPEG"),
     "truncated_header": (lambda: _pillow(_image(16, 16))[:40], "truncated"),
 }

@@ -126,6 +126,31 @@ def test_clis_and_replay_import_no_jax_cv2_or_pil():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_parallel_imports_no_jax_cv2_or_pil():
+    """Importing the data parallelism (the mesh, the dry run and its
+    spawn) and the test ranks' bodies, which run in fresh processes, in a
+    fresh interpreter loads no jax*, no premvos_tpu(.*), no cv2 and no PIL."""
+    code = (
+        "import sys\n"
+        "import premvos_tpu_torch.parallel\n"
+        "import premvos_tpu_torch.parallel.mesh\n"
+        "import premvos_tpu_torch.parallel.dryrun\n"
+        "import premvos_tpu_torch.train.trainer\n"
+        "import tests._parallel_ranks\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'premvos_tpu', 'cv2', 'PIL'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_jpeg_tree_and_converters_load_no_jax_cv2_or_pil(tmp_path):
     """Reading a DAVIS tree of JPEG frames (the JAX fixture's, written here
     by Pillow) and COCO crops, and converting a checkpoint in each source

@@ -71,6 +71,7 @@ from premvos_tpu_torch.finetune import finetune as tft
 from premvos_tpu_torch.finetune import fused as tfused
 from premvos_tpu_torch.finetune import multi_video as tmv
 from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
+from premvos_tpu_torch.models.layers import init_module
 from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 from premvos_tpu_torch.pipeline import runner as trunner
 from premvos_tpu_torch.train.trainer import PoolDraws
@@ -484,10 +485,14 @@ def test_pool_proposal_step_matches_jax(jax_pool_run, jax_nets):
 def test_pool_seeds_are_salted_mod_2_32():
     """The proposal batch's per-item seeds: the pool item's seed (drawn
     after the pool from default_rng(seed)) plus the step's salt, wrapping
-    mod 2³², as the JAX package's uint32 add."""
+    mod 2³², as the JAX package's uint32 add. The net's weights are drawn
+    from a seed: left as torch.empty gives them, they held whatever an
+    earlier test had left in that memory, and NaN boxes then failed the
+    RoIAlign's gather."""
     seen = []
     ft = tc.FinetuneConfig(steps=2, batch_size=2, chunk=1)
     model = MaskRCNN(TCFG.proposal)
+    init_module(model, torch.Generator().manual_seed(0))
     img, lab = _frame_and_labels()
     pool = (np.stack([img] * 3), np.stack([lab] * 3))
 
