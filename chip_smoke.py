@@ -156,7 +156,12 @@ Phases (any failure raises and exits non-zero):
      their committed Pillow decodes, ms a frame beside the PNG codec's, and
      `run_davis` through main(argv) with --checkpoint (the converted
      weights saved by utils/checkpoint.py) on a 32-frame tree of those
-     frames in a cycle: 480×854 PNGs, frame 0 the annotation, frames/s; (e) the C++
+     frames in a cycle: 480×854 PNGs, frame 0 the annotation, frames/s;
+     then frame 0 in the codings of tests/data/jpeg/codings (arithmetic
+     sequential and progressive, lossless, a progressive file cut before
+     its sixth scan, block-smoothed) decoded equal to their Pillow decodes,
+     ms a frame each, and `run_davis` likewise on a 9-frame tree cycling
+     through them, every inference kernel launched; (e) the C++
      RLE codec equal to the numpy one on 480×854 masks, both timed, and
      `mask_iou` on the card equal to the CPU's;
   7e. data parallelism (premvos_tpu_torch.parallel): (a) a world-size-1
@@ -2188,6 +2193,10 @@ def synthetic_protocol_cut(np, torch, wrappers):
 # 480×854 frames at quality 96, frame 0's annotation, and each frame's
 # Pillow decode as PNG.
 JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+# Frame 0 in the codings Pillow reads and cannot write
+# (scripts/make_jpeg_codings_fixtures.py), with Pillow's decodes.
+JPEG_CODINGS = os.path.join(JPEG_FIXTURES, "codings")
+CODINGS = ("arith_seq", "arith_prog", "lossless", "smoothed")
 NETS = ("maskrcnn", "refine", "flow", "reid")
 
 
@@ -2364,30 +2373,16 @@ def track_converted(np, torch, wrappers, cfg, src, dst, n_frames: int = 9, cpu_f
                 cpu_frames=cpu_frames, cpu_s=cpu_s, cuda_vs_cpu=vs)
 
 
-def jpeg_full_width(np, torch, wrappers, cfg, dst, repeats: int = 5, seq_frames: int = 32):
-    """Phase 7d (d): the committed JPEG fixtures decoded by the port (no
-    Pillow) equal their committed Pillow decodes exactly; the decode's ms
-    per 480×854 frame beside the PNG codec's on the same pixels (the median
-    of `repeats`); then `run_davis` through main(argv) with the converted
-    weights saved by utils/checkpoint.py and passed by --checkpoint, on a
-    DAVIS tree of `seq_frames` JPEG frames (the three fixtures copied in a
-    cycle, frame 0 annotated): 480×854 PNGs out, frame 0 the annotation,
-    the summary's frames/s over the tracked frames, the launch counters
-    zeroed just before and read just after. Returns a report dict."""
-    import shutil
-    import tempfile
-
-    from premvos_tpu_torch.data.palette import load_indexed_png
+def _decode_fixtures(np, paths, decoded, repeats):
+    """Each JPEG in `paths` decoded by the port (no Pillow), equal to its
+    Pillow decode in `decoded` (a PNG of the same stem, read by the port's
+    codec); the decode's and the PNG read's ms (the median of `repeats`)."""
     from premvos_tpu_torch.io_compat.jpeg import read_jpeg
     from premvos_tpu_torch.io_compat.png import read_png
-    from premvos_tpu_torch.pipeline import run_davis
-    from premvos_tpu_torch.utils.checkpoint import save_params
 
-    names = sorted(os.listdir(os.path.join(JPEG_FIXTURES, "frames")))
     jpeg_ms, png_ms = [], []
-    for name in names:
-        path = os.path.join(JPEG_FIXTURES, "frames", name)
-        want_path = os.path.join(JPEG_FIXTURES, "decoded", name[:-4] + ".png")
+    for path in paths:
+        want_path = os.path.join(decoded, os.path.basename(path)[:-4] + ".png")
         times = []
         for _ in range(repeats):
             t0 = time.perf_counter()
@@ -2402,54 +2397,103 @@ def jpeg_full_width(np, torch, wrappers, cfg, dst, repeats: int = 5, seq_frames:
         png_ms.append(1e3 * statistics.median(times))
         if got.shape != (480, 854, 3) or not np.array_equal(got, want):
             fail(f"{path}: the port's decode differs from Pillow's")
-    report = dict(frames=names, jpeg_decode_ms=jpeg_ms, png_decode_ms=png_ms)
+    return jpeg_ms, png_ms
+
+
+def _run_davis_on_jpeg_tree(np, torch, wrappers, tmp, seq, sources, ckpt):
+    """`run_davis` through main(argv) with --checkpoint on a one-sequence
+    DAVIS tree of the JPEG files `sources` in order (frame 0 annotated with
+    the fixtures' annotation): 480×854 PNGs out, frame 0 the annotation,
+    every frame tracked, the launch counters zeroed just before and read
+    just after, every inference kernel launched."""
+    import shutil
+
+    from premvos_tpu_torch.data.palette import load_indexed_png
+    from premvos_tpu_torch.pipeline import run_davis
 
     preset = os.path.join(REPO, "configs", "davis2017_val.json")
+    root = os.path.join(tmp, seq)
+    fd = os.path.join(root, "JPEGImages", "480p", seq)
+    ad = os.path.join(root, "Annotations", "480p", seq)
+    os.makedirs(fd)
+    os.makedirs(ad)
+    os.makedirs(os.path.join(root, "ImageSets", "2017"))
+    with open(os.path.join(root, "ImageSets", "2017", "val.txt"), "w") as f:
+        f.write(seq)
+    seq_names = [f"{i:05d}.jpg" for i in range(len(sources))]
+    for name, src in zip(seq_names, sources):
+        shutil.copy(src, os.path.join(fd, name))
+    shutil.copy(os.path.join(JPEG_FIXTURES, "annotation.png"), os.path.join(ad, "00000.png"))
+    out = os.path.join(tmp, seq + "_out")
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    summary = run_davis.main(["--davis_root", root, "--output", out, "--config", preset,
+                              "--checkpoint", ckpt])
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    files = sorted(os.listdir(os.path.join(out, seq)))
+    if files != [n[:-4] + ".png" for n in seq_names]:
+        fail(f"run_davis on {seq} wrote {files}")
+    labs = np.stack([load_indexed_png(os.path.join(out, seq, f)) for f in files])
+    if labs.shape != (len(sources), 480, 854):
+        fail(f"run_davis on {seq}: labels {labs.shape}")
+    if not np.array_equal(labs[0], load_indexed_png(os.path.join(ad, "00000.png"))):
+        fail(f"run_davis on {seq}: frame 0 differs from the annotation")
+    if summary["frames"] != len(sources) - 1:
+        fail(f"run_davis on {seq} tracked {summary['frames']} frames")
+    missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched by run_davis on {seq}: {missing}")
+    return dict(summary=summary, frames_per_s=summary["fps"], wall_s=wall_s, launches=launches,
+                labelled_pixels=[int((lab > 0).sum()) for lab in labs])
+
+
+def jpeg_full_width(np, torch, wrappers, cfg, dst, repeats: int = 5, seq_frames: int = 32,
+                    codings_frames: int = 9):
+    """Phase 7d (d): the committed JPEG fixtures decoded by the port (no
+    Pillow) equal their committed Pillow decodes exactly, with the decode's
+    ms per 480×854 frame beside the PNG codec's on the same pixels (the
+    median of `repeats`): the three Huffman frames, and frame 0 in each
+    coding of tests/data/jpeg/codings (arithmetic-coded sequential and
+    progressive, lossless, a progressive file cut before its sixth scan,
+    which libjpeg block-smooths). Then `run_davis` through main(argv) with
+    the converted weights saved by utils/checkpoint.py and passed by
+    --checkpoint, on two DAVIS trees: `seq_frames` Huffman frames (the three
+    fixtures in a cycle) and `codings_frames` frames cycling through the
+    four codings, frame 0 annotated in each: 480×854 PNGs out, frame 0 the
+    annotation, the summary's frames/s over the tracked frames, the launch
+    counters zeroed just before and read just after each run. Returns a
+    report dict."""
+    import tempfile
+
+    from premvos_tpu_torch.utils.checkpoint import save_params
+
+    names = sorted(os.listdir(os.path.join(JPEG_FIXTURES, "frames")))
+    frames = [os.path.join(JPEG_FIXTURES, "frames", n) for n in names]
+    jpeg_ms, png_ms = _decode_fixtures(np, frames, os.path.join(JPEG_FIXTURES, "decoded"),
+                                       repeats)
+    codings = [os.path.join(JPEG_CODINGS, f"frame_{c}.jpg") for c in CODINGS]
+    codings_ms, codings_png_ms = _decode_fixtures(
+        np, codings, os.path.join(JPEG_CODINGS, "decoded"), repeats)
+    report = dict(frames=names, jpeg_decode_ms=jpeg_ms, png_decode_ms=png_ms,
+                  codings=list(CODINGS), codings_decode_ms=codings_ms,
+                  codings_png_decode_ms=codings_png_ms)
     with tempfile.TemporaryDirectory() as tmp:
-        root, seq = os.path.join(tmp, "davis"), "jpeg_seq"
-        fd = os.path.join(root, "JPEGImages", "480p", seq)
-        ad = os.path.join(root, "Annotations", "480p", seq)
-        os.makedirs(fd)
-        os.makedirs(ad)
-        os.makedirs(os.path.join(root, "ImageSets", "2017"))
-        with open(os.path.join(root, "ImageSets", "2017", "val.txt"), "w") as f:
-            f.write(seq)
-        seq_names = [f"{i:05d}.jpg" for i in range(seq_frames)]
-        for i, name in enumerate(seq_names):
-            shutil.copy(os.path.join(JPEG_FIXTURES, "frames", names[i % len(names)]),
-                        os.path.join(fd, name))
-        shutil.copy(os.path.join(JPEG_FIXTURES, "annotation.png"), os.path.join(ad, "00000.png"))
         ckpt = os.path.join(tmp, "converted.pt")
         t0 = time.perf_counter()
         save_params(ckpt, dst)
         report["checkpoint_save_s"] = time.perf_counter() - t0
-        out = os.path.join(tmp, "out")
-        torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        summary = run_davis.main(["--davis_root", root, "--output", out, "--config", preset,
-                                  "--checkpoint", ckpt])
-        report["wall_s"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        report["launches"] = {k: fn.launches for k, fn in wrappers.items()}
-        files = sorted(os.listdir(os.path.join(out, seq)))
-        if files != [n[:-4] + ".png" for n in seq_names]:
-            fail(f"run_davis on JPEG frames wrote {files}")
-        labs = np.stack([load_indexed_png(os.path.join(out, seq, f)) for f in files])
-        if labs.shape != (seq_frames, 480, 854):
-            fail(f"run_davis on JPEG frames: labels {labs.shape}")
-        if not np.array_equal(labs[0], load_indexed_png(os.path.join(ad, "00000.png"))):
-            fail("run_davis on JPEG frames: frame 0 differs from the annotation")
-        if summary["frames"] != seq_frames - 1:
-            fail(f"run_davis on JPEG frames tracked {summary['frames']} frames")
-    missing = [k for k in INFERENCE_KERNELS if report["launches"][k] <= 0]
-    if missing:
-        fail(f"kernels not launched by run_davis on JPEG frames: {missing}")
+        run = _run_davis_on_jpeg_tree(np, torch, wrappers, tmp, "jpeg_seq",
+                                      [frames[i % len(frames)] for i in range(seq_frames)], ckpt)
+        report.update(run)
+        report["codings_run"] = _run_davis_on_jpeg_tree(
+            np, torch, wrappers, tmp, "codings_seq",
+            [codings[i % len(codings)] for i in range(codings_frames)], ckpt)
     if "PIL" in sys.modules:
         fail("the JPEG path loaded PIL")
-    report.update(summary=summary, frames_per_s=summary["fps"],
-                  labelled_pixels=[int((lab > 0).sum()) for lab in labs])
     return report
 
 
@@ -3578,6 +3622,12 @@ def main() -> int:
         f"of the same pixels {jpg['png_decode_ms']} ms; run_davis --checkpoint on the JPEG tree: "
         f"{jpg['frames_per_s']:.2f} tracked frames/s, wall {jpg['wall_s']:.2f} s, checkpoint "
         f"saved in {jpg['checkpoint_save_s']:.2f} s, launches {jpg['launches']}")
+    cr = jpg["codings_run"]
+    log("JPEG 480x854 decode by coding, ms a frame (Huffman above): " + ", ".join(
+        f"{c} {ms:.3f}" for c, ms in zip(jpg["codings"], jpg["codings_decode_ms"]))
+        + f"; run_davis --checkpoint on {len(cr['labelled_pixels'])} frames cycling through "
+        f"them: {cr['frames_per_s']:.2f} tracked frames/s, wall {cr['wall_s']:.2f} s, "
+        f"launches {cr['launches']}")
     del dst
     torch.cuda.empty_cache()
     codecs = codecs_full_width(np, torch)
@@ -3660,6 +3710,7 @@ def main() -> int:
         ("synthetic", syn["launches"], tuple(KERNELS)),
         ("converted_inference", track["launches"], INFERENCE_KERNELS),
         ("davis_cli_jpeg", jpg["launches"], INFERENCE_KERNELS),
+        ("davis_cli_jpeg_codings", jpg["codings_run"]["launches"], INFERENCE_KERNELS),
         ("dp", dp2["launches"], DP_KERNELS)) if name in names}
         for name in KERNELS}
     kernels_line = []

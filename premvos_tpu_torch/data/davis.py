@@ -27,16 +27,19 @@ from premvos_tpu_torch.io_compat.png import read_png, to_rgb, write_png
 
 
 def read_frame(path) -> np.ndarray:
-    """One frame → [H, W, 3] uint8 RGB, as Pillow's `convert("RGB")`: PNG
-    by the port's codec, JPEG by its decoder; any other suffix raises
-    naming the file."""
+    """One frame → [H, W, 3] uint8 RGB, as Pillow's `convert("RGB")`. The
+    file's first bytes choose the format, as `Image.open` chooses it, not its
+    suffix: PNG (89 50 4E 47) by the port's codec, JPEG (FF D8) by its
+    decoder; anything else raises naming the file."""
     path = Path(path)
-    suffix = path.suffix.lower()
-    if suffix == ".png":
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"\x89PNG":
         return to_rgb(*read_png(path))
-    if suffix in (".jpg", ".jpeg"):
+    if head[:2] == b"\xff\xd8":
         return read_jpeg(path)
-    raise ValueError(f"{path}: reads PNG and JPEG frames, not {path.suffix!r}")
+    raise ValueError(f"{path}: reads PNG and JPEG frames, and this file is neither "
+                     f"(it starts {head.hex()})")
 
 
 class DavisDataset:

@@ -1,16 +1,22 @@
 """JPEG frames without Pillow.
 
 `read_jpeg(path)` returns what `np.asarray(Image.open(path).convert("RGB"))`
-returns, bit for bit: baseline and progressive Huffman JPEG, 8-bit, gray,
-three or four components (CMYK, YCCK), any integral sampling factors,
-restart intervals. The decoder is host C++ (kernels/jpeg_decode.cc), built
-with the host C++ compiler at first use into kernels/build/ and bound by
-ctypes; it follows libjpeg-turbo's defaults, which Pillow runs: the ISLOW
-integer IDCT, fancy upsampling, jdcolor.c's fixed-point YCbCr → RGB and
-YCCK → CMYK, then Pillow's inverted CMYK and its CMYK → RGB. A file it
-cannot read (arithmetic coding, 12-bit samples, lossless or hierarchical
-JPEG) raises ValueError naming the file and the feature; a failed build
-raises, and nothing falls back to Pillow.
+returns, bit for bit, for what Pillow's libjpeg-turbo reads: baseline and
+progressive JPEG, Huffman- or arithmetic-coded; lossless JPEG (8-bit,
+predictors 1-7, any point transform); gray, three components or four
+(CMYK, YCCK); any integral sampling factors; restart intervals; a
+progressive file whose later scans are missing (libjpeg's block
+smoothing); a file cut before its EOI marker where libjpeg still reads it.
+The decoder is host C++ (kernels/jpeg_decode.cc), built with the host C++
+compiler at first use into kernels/build/ and bound by ctypes; it follows
+libjpeg-turbo's defaults, which Pillow runs: the ISLOW integer IDCT, fancy
+upsampling (box in a lossless file), jdcolor.c's fixed-point YCbCr → RGB
+and YCCK → CMYK, then Pillow's inverted CMYK and its CMYK → RGB. A file
+Pillow refuses too (12-bit samples, arithmetic-coded lossless or
+hierarchical JPEG, a lossless file needing a color conversion, an
+arithmetic-coded scan across one of the 64 KiB blocks Pillow reads, a
+truncated file) raises ValueError naming the file and the feature; a
+failed build raises, and nothing falls back to Pillow.
 
 The JAX package decodes on the host with Pillow; this is its counterpart
 on the card's machine, which has no Pillow. The call releases the GIL, so

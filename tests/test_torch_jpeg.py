@@ -12,18 +12,42 @@ RGB-coded files (component ids 'R', 'G', 'B'; Adobe transform 0) and the
 four-component files Pillow cannot write (YCCK, Adobe transform 2; CMYK
 without the Adobe marker; CMYK with subsampled components): a plain
 baseline encoder whose output Pillow then decodes as the reference.
+
+The codings Pillow reads but cannot write (arithmetic-coded sequential and
+progressive JPEG, lossless JPEG, a progressive frame cut before its later
+scans) are committed in tests/data/jpeg/codings, written by
+scripts/make_jpeg_codings_fixtures.py over libjpeg; the tests also cut
+progressive files before each scan (libjpeg block-smooths what is left) and
+cut files before their end (the truncation sweep), and Pillow decodes every
+one of them as the reference.
 """
 
 import io
+import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image, ImageFile
 
 from premvos_tpu.data import davis as jdavis
 from premvos_tpu_torch import kernels
 from premvos_tpu_torch.data import davis as tdavis
 from premvos_tpu_torch.io_compat import jpeg
+from premvos_tpu_torch.io_compat.png import read_png, write_png
+
+CODINGS = os.path.join(os.path.dirname(__file__), "data", "jpeg", "codings")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads for this module: the suite runs several pytest
+    workers on the machine's cores, and at these tiny shapes more threads
+    only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _image(h, w, seed=0):
@@ -301,11 +325,233 @@ def test_decoder_equals_pillow_on_cmyk(name, hw, kw, tmp_path):
         np.testing.assert_array_equal(got, _pillow_rgb(body), err_msg=tag)
 
 
+# ------------------------------------ arithmetic, lossless, smoothing
+
+CODING_FILES = sorted(f[:-4] for f in os.listdir(CODINGS) if f.endswith(".jpg"))
+# The frame header each fixture's name promises.
+SOF = {"arith_seq": 0xC9, "arith_prog": 0xCA, "lossless": 0xC3, "frame_arith_seq": 0xC9,
+       "frame_arith_prog": 0xCA, "frame_lossless": 0xC3, "frame_smoothed": 0xC2}
+
+
+def _sof_marker(data):
+    for marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+        if bytes([0xFF, marker]) in data:
+            return marker
+    return None
+
+
+@pytest.mark.parametrize("name", CODING_FILES)
+def test_decoder_equals_pillow_on_codings(name, monkeypatch):
+    """Every committed fixture (scripts/make_jpeg_codings_fixtures.py):
+    arithmetic-coded sequential and progressive files, lossless files at
+    predictors 1-7 and point transforms 0 and 2, and the 480×854 frames,
+    equal to Pillow's decode of the file and to the committed decode the
+    card checks against."""
+    path = os.path.join(CODINGS, name + ".jpg")
+    data = _coding(name)
+    prefix = next(p for p in sorted(SOF, key=len, reverse=True) if name.startswith(p))
+    assert _sof_marker(data) == SOF[prefix]
+    got = jpeg.read_jpeg(path)
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 65536)  # Pillow's default read block
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, read_png(os.path.join(CODINGS, "decoded", name + ".png"))[0])
+
+
+def test_arithmetic_file_past_pillows_read_block(monkeypatch):
+    """Pillow hands libjpeg 64 KiB at a time (ImageFile.MAXBLOCK), and
+    libjpeg's arithmetic decoder cannot wait for the next block (jdarith.c
+    get_byte: JERR_CANT_SUSPEND): Pillow refuses an arithmetic-coded file
+    whose scan data crosses its first block ("broken data stream"), and so
+    does the port. The limit of that rule: at a larger block Pillow reads
+    the file; the port follows the default block, which the JAX package
+    leaves as it is."""
+    path = os.path.join(CODINGS, "large", "arith_seq_444_240x320.jpg")
+    data = _coding("large/arith_seq_444_240x320")
+    assert len(data) > 65536 and _sof_marker(data) == 0xC9
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 65536)
+    assert _pillow_reads(path) is None
+    with pytest.raises(ValueError, match="arithmetic-coded scan across a 64 KiB block"):
+        jpeg.read_jpeg(path)
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 1 << 20)
+    assert _pillow_reads(path) is not None
+
+
+def _scan_offsets(data):
+    """The byte offset of each SOS marker."""
+    out, i = [], 2
+    while i < len(data) - 1:
+        if data[i] == 0xFF and data[i + 1] not in (0x00, 0xFF) and not 0xD0 <= data[i + 1] <= 0xD7:
+            if data[i + 1] in (0xD8, 0xD9):
+                i += 2
+                continue
+            if data[i + 1] == 0xDA:
+                out.append(i)
+            i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+        else:
+            i += 1
+    return out
+
+
+# Progressive files to cut before each scan: (name, maker). Pillow writes
+# jpeg_simple_progression's ten scans (six for gray), successive
+# approximation included; the arithmetic-coded ones are committed.
+_PROGRESSIVE = {
+    "huffman_gray_57x91": lambda: _pillow(_image(57, 91, seed=1)[..., 0].copy(), quality=85,
+                                          progressive=True),
+    "huffman_444_61x83": lambda: _pillow(_image(61, 83, seed=2), quality=90, subsampling=0,
+                                         progressive=True),
+    "huffman_422_37x53": lambda: _pillow(_image(37, 53, seed=3), quality=80, subsampling=1,
+                                         progressive=True),
+    "huffman_420_64x96": lambda: _pillow(_image(64, 96, seed=4), quality=75, progressive=True),
+    "huffman_420_97x131_restart": lambda: _pillow(_image(97, 131, seed=5), quality=60,
+                                                  progressive=True, restart_marker_blocks=2),
+    "huffman_420_17x23": lambda: _pillow(_image(17, 23, seed=6), quality=95, progressive=True),
+    "huffman_444_9x9": lambda: _pillow(_image(9, 9, seed=7), quality=90, subsampling=0,
+                                       progressive=True),
+    "huffman_420_33x200": lambda: _pillow(_image(33, 200, seed=8), quality=85,
+                                          progressive=True),
+}
+_PROGRESSIVE.update({name: (lambda name=name: _coding(name))
+                     for name in CODING_FILES if name.startswith("arith_prog_")})
+
+
+@pytest.mark.parametrize("name", list(_PROGRESSIVE))
+def test_decoder_equals_pillow_on_progressive_cut_before_each_scan(name, tmp_path):
+    """A progressive file cut before scan k (EOI appended), for every k:
+    libjpeg block-smooths each component whose coefficients 1-9 are not all
+    refined (jdcoefct.c, libjpeg-turbo >= 2.1), from the 5×5 neighbourhood
+    of DC values, and estimates the DC too while no coefficient 1-9 is
+    known. Gray, 4:4:4, 4:2:2 and 4:2:0, sizes that are not whole MCUs,
+    restart intervals, Huffman and arithmetic coding."""
+    data = _PROGRESSIVE[name]()
+    offsets = _scan_offsets(data)
+    assert len(offsets) >= 6
+    for k in range(1, len(offsets)):
+        path = tmp_path / f"{name}_{k}.jpg"
+        path.write_bytes(data[:offsets[k]] + b"\xff\xd9")
+        got = jpeg.read_jpeg(path)
+        np.testing.assert_array_equal(got, _pillow_rgb(path.read_bytes()),
+                                      err_msg=f"cut before scan {k} of {len(offsets)}")
+
+
+# ------------------------------------------------- the truncation sweep
+
+def _gray(h, w, seed):
+    return _image(h, w, seed=seed)[..., 0].copy()
+
+
+# (name, maker, whether Pillow reads some of its cuts). Each file is cut by
+# 1-16 bytes: gray, 4:2:0 and 4:4:4; baseline, progressive, restart
+# intervals; arithmetic-coded and lossless too; small files (libjpeg's slow
+# path throughout), files of 7-23 kB (its fast path first) and files past
+# Pillow's 64 KiB read block.
+SWEEP = [
+    ("gray_64x96_q85", lambda: _pillow(_gray(64, 96, 3), quality=85), True),
+    ("gray_37x53_q85", lambda: _pillow(_gray(37, 53, 6), quality=85), True),
+    ("gray_57x91_q85", lambda: _pillow(_gray(57, 91, 1), quality=85), False),
+    ("420_37x53_q75", lambda: _pillow(_image(37, 53, seed=0), quality=75), True),
+    ("420_37x53_q75_b", lambda: _pillow(_image(37, 53, seed=7), quality=75), True),
+    ("420_64x96_q75", lambda: _pillow(_image(64, 96, seed=2), quality=75), False),
+    ("444_64x96_q90", lambda: _pillow(_image(64, 96, seed=34), quality=90, subsampling=0), True),
+    ("444_64x96_q90_b", lambda: _pillow(_image(64, 96, seed=48), quality=90, subsampling=0),
+     True),
+    ("444_61x83_q90", lambda: _pillow(_image(61, 83, seed=5), quality=90, subsampling=0), False),
+    ("restart_blocks_64x96", lambda: _pillow(_image(64, 96, seed=17), quality=80,
+                                             restart_marker_blocks=3), True),
+    ("restart_blocks_37x53", lambda: _pillow(_image(37, 53, seed=42), quality=80,
+                                             restart_marker_blocks=3), True),
+    ("restart_rows_97x131", lambda: _pillow(_image(97, 131, seed=9), quality=80,
+                                            restart_marker_rows=1), False),
+    ("progressive_420_64x96", lambda: _pillow(_image(64, 96, seed=4), quality=75,
+                                              progressive=True), False),
+    ("progressive_gray_57x91", lambda: _pillow(_gray(57, 91, 1), quality=85, progressive=True),
+     False),
+    ("progressive_444_restart", lambda: _pillow(_image(61, 83, seed=2), quality=90,
+                                                subsampling=0, progressive=True,
+                                                restart_marker_rows=1), False),
+    ("fast_gray_120x160_q75", lambda: _pillow(_gray(120, 160, 40), quality=75), True),
+    ("fast_gray_240x320_q60", lambda: _pillow(_gray(240, 320, 95), quality=60), True),
+    ("fast_gray_120x160_q75_b", lambda: _pillow(_gray(120, 160, 80), quality=75), False),
+    ("fast_444_96x200_q90", lambda: _pillow(_image(96, 200, seed=237), quality=90,
+                                            subsampling=0), False),
+    ("block_gray_480x854_q85", lambda: _pillow(_gray(480, 854, 0), quality=85), True),
+    ("block_444_300x500_q97", lambda: _pillow(_image(300, 500, seed=78), quality=97,
+                                              subsampling=0), True),
+    ("arith_seq_gray_45x67", lambda: _coding("arith_seq_gray_45x67"), False),
+    ("arith_seq_420_61x83_restart3", lambda: _coding("arith_seq_420_61x83_restart3"), False),
+    ("arith_seq_444_33x5_dac", lambda: _coding("arith_seq_444_33x5_dac"), False),
+    ("arith_prog_420_45x67", lambda: _coding("arith_prog_420_45x67"), False),
+    ("lossless_p2_pt2_420", lambda: _coding("lossless_p2_pt2_420"), True),
+    ("lossless_p7_pt2_gray_restart1", lambda: _coding("lossless_p7_pt2_gray_restart1"), True),
+    ("lossless_p1_pt0_444_restart1", lambda: _coding("lossless_p1_pt0_444_restart1"), False),
+]
+
+
+def _pillow_reads(path):
+    """Pillow's decode of the file at `path`, or None where it raises."""
+    try:
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
+    except OSError:
+        return None
+
+
+@pytest.mark.parametrize("name,make,pillow_reads_some", SWEEP, ids=[c[0] for c in SWEEP])
+def test_truncation_sweep_matches_pillow(name, make, pillow_reads_some, tmp_path, monkeypatch):
+    """A file cut by 1-16 bytes, opened by path at Pillow's default read
+    block (ImageFile.MAXBLOCK, 64 KiB, which the JAX package leaves as it
+    is), as the readers open frames. Pillow reads it where libjpeg asks for
+    no byte past the end: a single-scan file (sequential, every component
+    in its first scan) whose Huffman bit buffer is not refilled past the
+    end (jdhuff.c: on its slow path to 57 bits when the next code or value
+    needs more than is left; on its fast path, taken with 512 bytes a block
+    of Pillow's block in hand, six bytes at 16 bits or fewer), or whose
+    arithmetic decoder needs no byte past it. A multi-scan file is read to
+    its EOI marker first and never. The port reads the same files, equal
+    bit for bit, and refuses the rest as truncated; `pillow_reads_some`
+    keeps both outcomes in the sweep."""
+    data = make()
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 65536)
+    read = 0
+    for cut in range(1, 17):
+        path = tmp_path / f"{name}_{cut}.jpg"
+        path.write_bytes(data[:-cut])
+        want = _pillow_reads(path)
+        if want is None:
+            with pytest.raises(ValueError, match=f"{name}_{cut}.jpg: truncated file"):
+                jpeg.read_jpeg(path)
+            continue
+        read += 1
+        np.testing.assert_array_equal(jpeg.read_jpeg(path), want, err_msg=f"cut by {cut}")
+    assert (read > 0) == pillow_reads_some
+
+
+def test_truncation_depends_on_pillows_read_block(tmp_path, monkeypatch):
+    """What is known of the rule's limits: for a file past 64 KiB it
+    depends on Pillow's read block, because libjpeg decides its Huffman
+    path by the bytes it has been handed. This 123 kB file cut by one byte
+    is read at the default block (and the port reads it, bit for bit), and
+    refused when Pillow hands over the whole file at once."""
+    data = _pillow(_gray(300, 500, 70), quality=97, subsampling=1)
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(data[:-1])
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 65536)
+    want = _pillow_reads(path)
+    assert want is not None
+    np.testing.assert_array_equal(jpeg.read_jpeg(path), want)
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 1 << 22)
+    assert _pillow_reads(path) is None
+
+
 # ------------------------------------------------------------- refusals
 
-def _patched_sof(marker=None, precision=None):
-    data = bytearray(_pillow(_image(16, 16)))
-    at = data.index(b"\xff\xc0")
+def _patched_sof(marker=None, precision=None, data=None, sof=b"\xff\xc0"):
+    """A file (by default a Pillow-written baseline one) with its frame
+    header's marker or sample precision changed."""
+    data = bytearray(_pillow(_image(16, 16)) if data is None else data)
+    at = data.index(sof)
     if marker is not None:
         data[at + 1] = marker
     if precision is not None:
@@ -313,12 +559,32 @@ def _patched_sof(marker=None, precision=None):
     return bytes(data)
 
 
+def _coding(name):
+    with open(os.path.join(CODINGS, name + ".jpg"), "rb") as f:
+        return f.read()
+
+
+def _lossless_patched(adobe_transform=None, **kw):
+    """The RGB-coded lossless fixture (Adobe transform 0), its frame header
+    or its Adobe transform changed."""
+    data = bytearray(_coding("lossless_p1_pt0_444_restart1"))
+    if adobe_transform is not None:
+        at = data.index(b"\xff\xeeAdobe"[:2])
+        assert data[at + 4:at + 9] == b"Adobe"
+        data[at + 15] = adobe_transform
+    return _patched_sof(data=bytes(data), sof=b"\xff\xc3", **kw)
+
+
 REFUSALS = {
-    "arithmetic": (lambda: _patched_sof(marker=0xC9), "arithmetic coding"),
-    "progressive_arithmetic": (lambda: _patched_sof(marker=0xCA), "arithmetic coding"),
     "12_bit": (lambda: _patched_sof(marker=0xC1, precision=12), "12-bit samples"),
-    "lossless": (lambda: _patched_sof(marker=0xC3), "lossless JPEG"),
+    "lossless_12_bit": (lambda: _lossless_patched(precision=12), "12-bit samples"),
+    "lossless_arithmetic": (lambda: _lossless_patched(marker=0xCB),
+                            "arithmetic-coded lossless"),
+    "lossless_ycbcr": (lambda: _lossless_patched(adobe_transform=1), "lossless YCbCr"),
     "hierarchical": (lambda: _patched_sof(marker=0xC5), "hierarchical"),
+    "hierarchical_arithmetic": (
+        lambda: _patched_sof(marker=0xCD, data=_coding("arith_seq_444_45x67"), sof=b"\xff\xc9"),
+        "hierarchical"),
     "not_a_jpeg": (lambda: b"\x89PNG\r\n\x1a\n" + bytes(32), "not a JPEG"),
     "truncated_header": (lambda: _pillow(_image(16, 16))[:40], "truncated"),
 }
@@ -326,9 +592,15 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_decoder_refusals_name_file_and_feature(case, tmp_path):
+    """Files that Pillow (libjpeg-turbo 3.1) refuses too: 12-bit samples
+    (its 8-bit reader), arithmetic-coded lossless JPEG (libjpeg-turbo has no
+    decoder for it), hierarchical JPEG (nor for this), a lossless file
+    coded in YCbCr (libjpeg converts no color in lossless mode)."""
     make, feature = REFUSALS[case]
     path = tmp_path / f"{case}.jpg"
     path.write_bytes(make())
+    with pytest.raises(OSError):
+        _pillow_rgb(path.read_bytes())
     with pytest.raises(ValueError, match=f"{case}.jpg: .*{feature}"):
         jpeg.read_jpeg(path)
 
@@ -337,9 +609,9 @@ def test_truncated_scan_data_does_not_crash(tmp_path):
     """A file cut inside its scan data, or just before its EOI marker, is
     refused as Pillow refuses it ("image file is truncated"): the port
     raises a ValueError naming the file, and reads nothing past the
-    buffer. (Pillow decodes some files that lack only their EOI, where
-    libjpeg's read-ahead happens not to pass the end; the port refuses
-    every file that ends before EOI.)"""
+    buffer. (Pillow reads a few single-scan files that lack only their last
+    bytes, where libjpeg asks for no byte past the end; the port reads the
+    same ones: test_truncation_sweep_matches_pillow.)"""
     for kw in (dict(quality=90), dict(quality=90, progressive=True),
                dict(quality=80, restart_marker_blocks=3)):
         data = _pillow(_image(64, 96), **kw)
@@ -390,3 +662,38 @@ def test_read_frame_refuses_other_formats(tmp_path):
     path.write_bytes(b"BM" + bytes(64))
     with pytest.raises(ValueError, match="00000.bmp"):
         tdavis.read_frame(path)
+
+
+def _one_frame_tree(root, frame_bytes, suffix, annotation):
+    fd = root / "JPEGImages" / "480p" / "s"
+    ad = root / "Annotations" / "480p" / "s"
+    fd.mkdir(parents=True)
+    ad.mkdir(parents=True)
+    (fd / f"00000{suffix}").write_bytes(frame_bytes)
+    jdavis.save_indexed_png(ad / "00000.png", annotation)
+    return root
+
+
+@pytest.mark.parametrize("holds,suffix", [("png", ".jpg"), ("jpeg", ".png")])
+def test_read_frame_goes_by_content_as_the_jax_reader(holds, suffix, tmp_path):
+    """A `.jpg` that holds PNG data and a `.png` that holds JPEG data read as
+    `Image.open` reads them, which goes by the file's first bytes: the
+    port's DavisDataset against the JAX package's."""
+    rgb = _image(37, 53, seed=11)
+    if holds == "png":
+        write_png(tmp_path / "f.png", rgb)
+        frame = (tmp_path / "f.png").read_bytes()
+    else:
+        frame = _pillow(rgb, quality=90)
+    lab = np.zeros((37, 53), np.uint8)
+    lab[5:20, 10:30] = 1
+    root = _one_frame_tree(tmp_path / "davis", frame, suffix, lab)
+    jds, tds = jdavis.DavisDataset(root), tdavis.DavisDataset(root)
+    assert [p.suffix for p in tds.frame_paths("s")] == [suffix]
+    want = jds.load_sequence("s", 40, 56, max_objects=2)
+    got = tds.load_sequence("s", 40, 56, max_objects=2)
+    for key, value in want.items():
+        if isinstance(value, np.ndarray):
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+        else:
+            assert got[key] == value, key
