@@ -6,8 +6,9 @@
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from premvos_tpu_torch/kernels/*.cu with nvcc
-     for sm_90a, and beside them the two host libraries (the JPEG decoder
-     and the RLE codec, kernels/*.cc) with g++, all started together;
+     for sm_90a, and beside them the three host libraries (the JPEG
+     decoder, the RLE codec and the zstd decoder, kernels/*.cc) with g++,
+     all started together;
   3. hold each kernel against its plain PyTorch version (and the RoIAlign
      backward against the plain version's autograd) on the card at the
      shapes of its path (inference: configs/davis2017_val.json; training:
@@ -164,6 +165,19 @@ Phases (any failure raises and exits non-zero):
      through them, every inference kernel launched; (e) the C++
      RLE codec equal to the numpy one on 480×854 masks, both timed, and
      `mask_iou` on the card equal to the CPU's;
+  7f. the JAX package's own orbax checkpoint (tests/data/orbax/
+     davis2017_val_tiled, written by scripts/make_orbax_fixtures.py with
+     its save_params: OCDBT, zarr v2, zstd), read without JAX: (a)
+     `read_orbax` of its 1359 leaves (1.14 GB), host seconds and MB/s, every
+     array's sha256 equal to its record's; (b) `run_davis --checkpoint
+     <that directory>` through main(argv), no --device, on phase 7b's first
+     sequence (9 PNG frames of 480×854): frame 0 the annotation, a pixel
+     labelled after it, NMS 2, multilevel RoIAlign 2, correlation 1 and
+     resample2d 12 launches in its zeroed window; (c) in float32, its
+     labels equal to those of the same nets saved by utils/checkpoint.py
+     and read back through --checkpoint model.pt, over the pixels either
+     labels; (d) a checksummed zstd frame decoded, and refused with a
+     flipped checksum byte and cut short;
   7e. data parallelism (premvos_tpu_torch.parallel): (a) a world-size-1
      NCCL group in this process on cuda:0, Mask R-CNN at full width
      (ProposalConfig(), 480×864, batch 2, float32 without TF32):
@@ -207,7 +221,7 @@ Phases (any failure raises and exits non-zero):
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 5, 7, 7b, 7c, 7d or 7e, and `launches_by_path` gives each path's
+zeroed window of phase 5, 7, 7b, 7c, 7d, 7f or 7e, and `launches_by_path` gives each path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
 stderr, and with --json the whole report to PATH. Imports nothing of JAX.
@@ -268,8 +282,8 @@ KERNELS = {
 }
 
 # The host libraries phase 2 builds beside the kernels (g++): the JPEG
-# decoder and the RLE codec.
-HOST_SOURCES = ("jpeg_decode.cc", "rle.cc")
+# decoder, the RLE codec and the checkpoint reader's zstd decoder.
+HOST_SOURCES = ("jpeg_decode.cc", "rle.cc", "zstd_decode.cc")
 
 # The kernels each main path must launch: inference (phase 5) and training
 # (phase 7).
@@ -2820,6 +2834,154 @@ def davis_cli_full_width(np, torch, wrappers, cfg, n_frames: int = 9, stage_fram
     return report
 
 
+# ------------------------------------------------------------- phase 7f
+
+# The JAX package's orbax checkpoint of davis2017_val's nets, written by
+# scripts/make_orbax_fixtures.py with premvos_tpu.utils.checkpoint.save_params
+# (OCDBT, zarr v2, zstd), and its record: each leaf's path, dtype, shape and
+# the sha256 of its array as orbax restores it.
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "orbax", "davis2017_val_tiled")
+# The launches of one run_davis window on one 9-frame sequence: NMS and the
+# multilevel RoIAlign twice (RPN and detections; box and mask head), the
+# cost volume once, resample2d 12 times (4 FlowNet2 warps, 8 merge warps).
+ORBAX_RUN_LAUNCHES = {"nms": 2, "multilevel_roi_align": 2, "correlation": 1, "resample2d": 12}
+# A zstd frame (level 3, content size and XXH64 checksum) of ZSTD_TEXT.
+ZSTD_TEXT = b"PReMVOS checkpoint reader: a zstd frame with an XXH64 content checksum. " * 3
+ZSTD_FRAME = bytes.fromhex(
+    "28b52ffd24d86d020024045052654d564f5320636865636b706f696e74207265616465723a2061207a"
+    "737464206672616d65207769746820616e20585848363420636f6e74656e7473756d2e2002008d2550"
+    "dd7950506cf55742")
+
+
+def zstd_refusals():
+    """Phase 7f (d): the decoder decodes ZSTD_FRAME and refuses it with a
+    flipped checksum byte and cut short, each by name."""
+    from premvos_tpu_torch.io_compat import zstd
+
+    if zstd.decompress(ZSTD_FRAME) != ZSTD_TEXT:
+        fail("zstd: the checksummed frame decodes wrong")
+    refused = {}
+    for kind, frame, error in (
+            ("checksum", ZSTD_FRAME[:-1] + bytes([ZSTD_FRAME[-1] ^ 1]), zstd.ZstdChecksum),
+            ("truncated", ZSTD_FRAME[:-9], zstd.ZstdTruncated)):
+        try:
+            zstd.decompress(frame, size=len(ZSTD_TEXT))
+        except error as e:
+            refused[kind] = str(e)
+            continue
+        fail(f"zstd: a {kind} frame was not refused")
+    return refused
+
+
+def orbax_full_width(np, torch, wrappers, cfg, n_frames: int = 9, hw=(480, 854)):
+    """Phase 7f: the JAX package's own orbax checkpoint at davis2017_val,
+    read without JAX. (a) `read_orbax` of ORBAX_FIXTURE (1359 float32
+    leaves, 1.14 GB): host seconds and MB/s of the decoded bytes, then
+    every array's sha256 equal to the record's; (b) `run_davis` through
+    main(argv) with --checkpoint ORBAX_FIXTURE and no --device on phase 7b's
+    first sequence (9 PNG frames of 480×854, the same seed): frame 0 the
+    annotation, a pixel labelled after it, the launch counters zeroed just
+    before and read just after equal to ORBAX_RUN_LAUNCHES; (c) in float32
+    (the preset with pipeline.dtype float32), the same run against the same
+    nets saved by utils/checkpoint.py::save_params and read back through
+    --checkpoint model.pt: every object's pixels equal over the pixels
+    either side labels; (d) zstd_refusals. Returns a report dict."""
+    import tempfile
+
+    from premvos_tpu_torch.config import save_config
+    from premvos_tpu_torch.data.palette import load_indexed_png
+    from premvos_tpu_torch.io_compat.orbax_ckpt import read_orbax
+    from premvos_tpu_torch.pipeline import run_davis
+    from premvos_tpu_torch.pipeline.runner import build_models
+    from premvos_tpu_torch.utils.checkpoint import load_params, save_params
+
+    report = {}
+    with open(ORBAX_FIXTURE + ".json") as f:
+        record = {leaf["path"]: leaf for leaf in json.load(f)["leaves"]}
+    t0 = time.perf_counter()
+    tree = read_orbax(ORBAX_FIXTURE)
+    read_s = time.perf_counter() - t0
+    arrays = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                arrays[".".join(prefix + (k,))] = v
+
+    walk(tree, ())
+    if set(arrays) != set(record):
+        fail(f"orbax: leaves differ from the record: {sorted(set(arrays) ^ set(record))[:5]}")
+    t0 = time.perf_counter()
+    for path, a in arrays.items():
+        leaf = record[path]
+        if (str(a.dtype), list(a.shape)) != (leaf["dtype"], leaf["shape"]):
+            fail(f"orbax: {path} is {a.dtype} {list(a.shape)}, the record says "
+                 f"{leaf['dtype']} {leaf['shape']}")
+        if hashlib.sha256(a.tobytes()).hexdigest() != leaf["sha256"]:
+            fail(f"orbax: {path}'s sha256 differs from the record's")
+    nbytes = sum(a.nbytes for a in arrays.values())
+    report["read"] = dict(arrays=len(arrays), bytes=nbytes, read_s=read_s,
+                          mb_per_s=nbytes / 1e6 / read_s, sha256_s=time.perf_counter() - t0)
+    del tree, arrays
+
+    preset = os.path.join(REPO, "configs", "davis2017_val.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        root, name = os.path.join(tmp, "davis"), "seq_a"
+        write_davis_tree(np, root, (name,), n_frames, hw)
+        ann0 = load_indexed_png(os.path.join(root, "Annotations", "480p", name, "00000.png"))
+
+        def run(tag, config, ckpt):
+            out = os.path.join(tmp, tag)
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            summary = run_davis.main(["--davis_root", root, "--output", out, "--config", config,
+                                      "--checkpoint", ckpt])
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            d = os.path.join(out, name)
+            files = sorted(os.listdir(d))
+            if files != [f"{i:05d}.png" for i in range(n_frames)]:
+                fail(f"run_davis {tag}: PNGs {files}")
+            labs = np.stack([load_indexed_png(os.path.join(d, f)) for f in files])
+            if labs.shape != (n_frames, *hw) or not np.array_equal(labs[0], ann0):
+                fail(f"run_davis {tag}: labels {labs.shape}, or frame 0 is not the annotation")
+            if not (labs[1:] > 0).any():
+                fail(f"run_davis {tag}: no pixel labelled after frame 0")
+            return labs, dict(summary=summary, wall_s=wall, launches=launches,
+                              frames_per_s=summary["fps"],
+                              labelled_pixels=[int((lab > 0).sum()) for lab in labs])
+
+        # (b) the production preset, as the JAX CLI takes the directory.
+        _, report["run"] = run("orbax", preset, ORBAX_FIXTURE)
+        got = {k: report["run"]["launches"][k] for k in ORBAX_RUN_LAUNCHES}
+        if got != ORBAX_RUN_LAUNCHES:
+            fail(f"run_davis --checkpoint (orbax): launches {got}, not {ORBAX_RUN_LAUNCHES}")
+
+        # (c) float32: the orbax route against the torch.save route.
+        f32 = os.path.join(tmp, "davis2017_val_f32.json")
+        save_config(f32, dataclasses.replace(
+            cfg, pipeline=dataclasses.replace(cfg.pipeline, dtype="float32")))
+        t0 = time.perf_counter()
+        pt = os.path.join(tmp, "model.pt")
+        save_params(pt, load_params(ORBAX_FIXTURE, build_models(cfg)))
+        report["model_pt_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        labs_orbax, report["run_f32_orbax"] = run("orbax_f32", f32, ORBAX_FIXTURE)
+        labs_pt, report["run_f32_pt"] = run("pt_f32", f32, pt)
+        rows = object_ious(np, labs_orbax, labs_pt, cfg.pipeline.max_objects)
+        report["f32_object_ious"] = [row["iou"] for row in rows]
+        if any(row["union_agreement"] != 1.0 for row in rows):
+            fail(f"run_davis in float32: the orbax checkpoint's labels differ from model.pt's: "
+                 f"{rows}")
+    report["zstd_refusals"] = zstd_refusals()
+    return report
+
+
 # ------------------------------------------------------------- phase 7e
 
 # The kernels phase 7e (b)'s data-parallel paths launch on each rank: the
@@ -3348,10 +3510,10 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # Phase 2 — build: the kernels (one nvcc a source) and, beside them, the
-    # two host libraries (g++), all started together.
+    # three host libraries (g++), all started together.
     from concurrent.futures import ThreadPoolExecutor
 
-    from premvos_tpu_torch.io_compat import jpeg, rle_native
+    from premvos_tpu_torch.io_compat import jpeg, rle_native, zstd
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(HOST_SOURCES)) as pool:
@@ -3360,6 +3522,7 @@ def main() -> int:
         host_libs = [f.result() for f in host]
     kernels.load()
     jpeg.load()
+    zstd.load()
     if not rle_native.available():
         fail("rle_native did not load")
     report["build_s"] = time.perf_counter() - t0
@@ -3638,6 +3801,24 @@ def main() -> int:
                                phase_s=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
+    # Phase 7f — the JAX package's own orbax checkpoint, read without JAX.
+    t0 = time.perf_counter()
+    orb = orbax_full_width(np, torch, wrappers, cfg)
+    orb["phase_s"] = time.perf_counter() - t0
+    report["orbax"] = orb
+    ob, orun = orb["read"], orb["run"]
+    log(f"orbax checkpoint at davis2017_val: read {ob['arrays']} arrays, {ob['bytes']} bytes in "
+        f"{ob['read_s']:.3f} s of host time ({ob['mb_per_s']:.1f} MB/s), every sha256 equal "
+        f"(hashed in {ob['sha256_s']:.3f} s); run_davis --checkpoint <orbax dir>, "
+        f"{len(orun['labelled_pixels'])} frames: {orun['frames_per_s']:.2f} tracked frames/s "
+        f"({orun['summary']['seconds']:.3f} s), wall {orun['wall_s']:.2f} s, labelled pixels "
+        f"{orun['labelled_pixels']}, launches {orun['launches']}; float32: orbax wall "
+        f"{orb['run_f32_orbax']['wall_s']:.2f} s, model.pt wall {orb['run_f32_pt']['wall_s']:.2f} "
+        f"s (written in {orb['model_pt_s']:.2f} s), labels equal, object IoUs "
+        f"{orb['f32_object_ious']}; zstd refusals {orb['zstd_refusals']}; phase "
+        f"{orb['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # Phase 7e — data parallelism: one rank on NCCL, two ranks sharing the
     # card on gloo.
     t0 = time.perf_counter()
@@ -3711,6 +3892,7 @@ def main() -> int:
         ("converted_inference", track["launches"], INFERENCE_KERNELS),
         ("davis_cli_jpeg", jpg["launches"], INFERENCE_KERNELS),
         ("davis_cli_jpeg_codings", jpg["codings_run"]["launches"], INFERENCE_KERNELS),
+        ("davis_cli_orbax", orun["launches"], INFERENCE_KERNELS),
         ("dp", dp2["launches"], DP_KERNELS)) if name in names}
         for name in KERNELS}
     kernels_line = []

@@ -35,11 +35,13 @@ their inputs contiguous themselves). At the merge warp's shape the kernel
 runs for a few microseconds, so this host path is what a call costs
 (PERF.md, section 6).
 
-Two host libraries sit here too, C++ with a plain C interface and no CUDA:
-`jpeg_decode.cc` (the frame readers' JPEG decoder, io_compat/jpeg.py) and
-`rle.cc` (the COCO RLE codec, io_compat/rle_native.py). `build_host()`
-compiles one with the host C++ compiler (`g++`, which nvcc also uses) at
-first use, into the same `build/`, and raises if that fails.
+Three host libraries sit here too, C++ with a plain C interface and no
+CUDA: `jpeg_decode.cc` (the frame readers' JPEG decoder, io_compat/jpeg.py),
+`rle.cc` (the COCO RLE codec, io_compat/rle_native.py) and `zstd_decode.cc`
+(the checkpoint reader's zstd decoder, io_compat/zstd.py, declared in the
+header's host section). `build_host()` compiles one with the host C++
+compiler (`g++`, which nvcc also uses) at first use, into the same
+`build/`, and raises if that fails.
 
 Nothing here runs at import time: this module is imported on machines with
 no CUDA toolkit, where only the plain PyTorch versions of the ops run.
@@ -179,12 +181,15 @@ def _cxx() -> str:
 
 def build_host(source: str) -> str:
     """Compile the host source `source` (a file beside this one) into a
-    shared library in build/, named by a hash of the source and the flags;
-    a library already built from it is reused. Raises with the compiler's
-    output if it fails."""
+    shared library in build/, named by a hash of the source, the header and
+    the flags; a library already built from it is reused. Raises with the
+    compiler's output if it fails."""
     path = os.path.join(_HERE, source)
-    with open(path, "rb") as f:
-        tag = hashlib.sha256(" ".join(HOST_FLAGS).encode() + f.read()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for name in (source, HEADER):  # a source may include the header
+        with open(os.path.join(_HERE, name), "rb") as f:
+            h.update(f.read())
+    tag = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}_{tag}.so")
     if os.path.exists(lib_path):

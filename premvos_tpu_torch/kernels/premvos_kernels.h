@@ -7,10 +7,42 @@
 // argument types from these declarations, so the Python side cannot drift
 // either. Keep to one declaration per function, each parameter a pointer,
 // `int`, `float` or `cudaStream_t`.
+//
+// The first section declares the host library zstd_decode.cc (no CUDA,
+// built with g++ by kernels.build_host, which defines PREMVOS_HOST_ONLY
+// there and bound in io_compat/zstd.py). Its functions return int64_t or
+// uint32_t, so load() and signatures(), which take the `int premvos_*`
+// declarations, never see them.
 #pragma once
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// The sum of the content sizes that the zstd frames in src[0, n) state
+// (skippable frames count 0); -2 if a frame states none; -1 on an error,
+// with *kind (1 corrupt, 2 truncated, 3 dictionary) and a message in err.
+int64_t premvos_zstd_content_size(const uint8_t* src, int64_t n, int* kind,
+                                  char* err, int errlen);
+
+// Decodes every frame of src[0, n) into dst, at most cap bytes; returns the
+// bytes written, or -1 on an error (*kind as above, 4 for output past cap,
+// 5 for a content checksum mismatch), and then dst holds nothing usable.
+int64_t premvos_zstd_decode(const uint8_t* src, int64_t n, uint8_t* dst,
+                            int64_t cap, int* kind, char* err, int errlen);
+
+// CRC-32C (Castagnoli) of src[0, n), as OCDBT's manifest and node footers.
+uint32_t premvos_crc32c(const uint8_t* src, int64_t n);
+
+#ifdef __cplusplus
+}
+#endif
+
+#ifndef PREMVOS_HOST_ONLY
+
+#include <cuda_runtime.h>
 
 #ifdef __cplusplus
 extern "C" {
@@ -75,3 +107,5 @@ int premvos_resample2d(const void* src, int is_bf16, const float* flow, int b,
 #ifdef __cplusplus
 }
 #endif
+
+#endif  // PREMVOS_HOST_ONLY

@@ -19,7 +19,9 @@ or gloo with `--device cpu`), and rank 0 alone tracks, writes the PNGs and
 reports J&F; the sequences are not sharded. PNG and JPEG frames are read
 without Pillow (data/davis.py::read_frame). `--checkpoint` takes a
 `utils/checkpoint.py::save_params` file, e.g. of nets loaded from the
-reference's checkpoints through io_compat's converters.
+reference's checkpoints through io_compat's converters, or the JAX
+package's own orbax directory, as its `--checkpoint` takes it
+(io_compat/orbax_ckpt.py; no JAX or orbax needed).
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ def main(argv=None):
     ap.add_argument("--output", required=True)
     ap.add_argument("--split", default="val")
     ap.add_argument("--sequences", nargs="*", default=None)
-    ap.add_argument("--checkpoint", default=None, help="utils/checkpoint.py save_params file")
+    ap.add_argument("--checkpoint", default=None,
+                    help="utils/checkpoint.py save_params file, or the JAX package's orbax directory")
     ap.add_argument("--finetune", action="store_true")
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--config", default=None, help="JSON config preset")

@@ -15,8 +15,10 @@
       --seq NAME --work WORKDIR [--config cfg.json] [--checkpoint params.pt] \
       [--device cpu]
 
-The fused runner (pipeline/runner.py) is the production path; the stages
-binarise masks into RLE between them, so their labels differ from it.
+`--checkpoint` takes a utils/checkpoint.py save_params file or the JAX
+package's orbax directory. The fused runner (pipeline/runner.py) is the
+production path; the stages binarise masks into RLE between them, so their
+labels differ from it.
 """
 
 from __future__ import annotations
@@ -239,7 +241,8 @@ def main(argv=None):
     ap.add_argument("--seq", required=True)
     ap.add_argument("--work", required=True)
     ap.add_argument("--config", default=None)
-    ap.add_argument("--checkpoint", default=None, help="utils/checkpoint.py save_params file")
+    ap.add_argument("--checkpoint", default=None,
+                    help="utils/checkpoint.py save_params file, or the JAX package's orbax directory")
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument(
         "--device", default=None,
