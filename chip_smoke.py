@@ -178,6 +178,26 @@ Phases (any failure raises and exits non-zero):
      and read back through --checkpoint model.pt, over the pixels either
      labels; (d) a checksummed zstd frame decoded, and refused with a
      flipped checksum byte and cut short;
+  7g. checkpoints the port writes, zarr3 bundles, ResNet remat and the
+     repaired readers: (a) phase 7f's fixture loaded into the port's nets
+     and written back by utils/checkpoint.py::save_params as an orbax
+     directory (io_compat/orbax_write.py: zarr v2, one chunk an array, no
+     compression), host seconds and MB/s, read back with every sha256
+     equal to the record's; (b) `run_davis --checkpoint <that directory>`
+     in float32 on phase 7f's sequence: labels equal to phase 7f (c)'s,
+     launches as ORBAX_RUN_LAUNCHES; (c) the same tree saved with use_zarr3
+     (tests/data/orbax/davis2017_val_tiled_zarr3) read, every sha256 equal,
+     and `run_davis --checkpoint` on it: labels equal to (b)'s; (d) two Mask
+     R-CNN steps at 480×864 through train_maskrcnn.main with --out <orbax
+     directory>: NMS 2 and RoIAlign forward and backward 16 launches each,
+     the directory read back through the bridge equal to the model's
+     state_dict bit for bit; (e) ResNet-101 at output stride 16, 8 crops
+     of 4 × 385², float32, remat off and on: peak bytes and s/step of each,
+     gradients within 1e-4 by norm, remat's peak lower; (f) the damaged
+     JPEG files (tests/data/jpeg/damaged) and the PNM family
+     (tests/data/pnm) decoded without Pillow equal to Pillow's committed
+     decodes (`launches_by_path` "davis_cli_orbax_written",
+     "davis_cli_orbax_zarr3", "train_maskrcnn_out");
   7e. data parallelism (premvos_tpu_torch.parallel): (a) a world-size-1
      NCCL group in this process on cuda:0, Mask R-CNN at full width
      (ProposalConfig(), 480×864, batch 2, float32 without TF32):
@@ -221,7 +241,8 @@ Phases (any failure raises and exits non-zero):
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 5, 7, 7b, 7c, 7d, 7f or 7e, and `launches_by_path` gives each path's
+zeroed window of phase 5, 7, 7b, 7c, 7d, 7f, 7g or 7e, and `launches_by_path` gives each
+path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
 stderr, and with --json the whole report to PATH. Imports nothing of JAX.
@@ -233,7 +254,9 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2873,6 +2896,67 @@ def zstd_refusals():
     return refused
 
 
+def tree_arrays(tree, prefix=()):
+    """{dotted path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_arrays(v, prefix + (k,)))
+        else:
+            out[".".join(prefix + (k,))] = v
+    return out
+
+
+def check_record(np, arrays: dict, record: dict, what: str) -> float:
+    """Fail unless `arrays` are the record's leaves, each dtype, shape and
+    sha256 equal; returns the seconds the hashing took."""
+    if set(arrays) != set(record):
+        fail(f"{what}: leaves differ from the record: {sorted(set(arrays) ^ set(record))[:5]}")
+    t0 = time.perf_counter()
+    for path, a in arrays.items():
+        leaf = record[path]
+        if (str(a.dtype), list(a.shape)) != (leaf["dtype"], leaf["shape"]):
+            fail(f"{what}: {path} is {a.dtype} {list(a.shape)}, the record says "
+                 f"{leaf['dtype']} {leaf['shape']}")
+        if hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != leaf["sha256"]:
+            fail(f"{what}: {path}'s sha256 differs from the record's")
+    return time.perf_counter() - t0
+
+
+def checkpoint_run(np, torch, wrappers, tmp, root, name, ann0, n_frames, hw, tag, config,
+                   ckpt):
+    """`run_davis` through main(argv) with --checkpoint `ckpt` on sequence
+    `name` of the tree at `root`, the launch counters zeroed just before
+    and read just after; fails unless it writes every frame's PNG, frame 0
+    is `ann0` and a pixel is labelled after it. Returns the labels and a
+    report dict."""
+    from premvos_tpu_torch.data.palette import load_indexed_png
+    from premvos_tpu_torch.pipeline import run_davis
+
+    out = os.path.join(tmp, tag)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    summary = run_davis.main(["--davis_root", root, "--output", out, "--config", config,
+                              "--checkpoint", ckpt])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    d = os.path.join(out, name)
+    files = sorted(os.listdir(d))
+    if files != [f"{i:05d}.png" for i in range(n_frames)]:
+        fail(f"run_davis {tag}: PNGs {files}")
+    labs = np.stack([load_indexed_png(os.path.join(d, f)) for f in files])
+    if labs.shape != (n_frames, *hw) or not np.array_equal(labs[0], ann0):
+        fail(f"run_davis {tag}: labels {labs.shape}, or frame 0 is not the annotation")
+    if not (labs[1:] > 0).any():
+        fail(f"run_davis {tag}: no pixel labelled after frame 0")
+    return labs, dict(summary=summary, wall_s=wall, launches=launches,
+                      frames_per_s=summary["fps"],
+                      labelled_pixels=[int((lab > 0).sum()) for lab in labs])
+
+
 def orbax_full_width(np, torch, wrappers, cfg, n_frames: int = 9, hw=(480, 854)):
     """Phase 7f: the JAX package's own orbax checkpoint at davis2017_val,
     read without JAX. (a) `read_orbax` of ORBAX_FIXTURE (1359 float32
@@ -2885,13 +2969,13 @@ def orbax_full_width(np, torch, wrappers, cfg, n_frames: int = 9, hw=(480, 854))
     (the preset with pipeline.dtype float32), the same run against the same
     nets saved by utils/checkpoint.py::save_params and read back through
     --checkpoint model.pt: every object's pixels equal over the pixels
-    either side labels; (d) zstd_refusals. Returns a report dict."""
+    either side labels; (d) zstd_refusals. Returns a report dict and (c)'s
+    float32 labels of the orbax route, which phase 7g holds its runs to."""
     import tempfile
 
     from premvos_tpu_torch.config import save_config
     from premvos_tpu_torch.data.palette import load_indexed_png
     from premvos_tpu_torch.io_compat.orbax_ckpt import read_orbax
-    from premvos_tpu_torch.pipeline import run_davis
     from premvos_tpu_torch.pipeline.runner import build_models
     from premvos_tpu_torch.utils.checkpoint import load_params, save_params
 
@@ -2901,29 +2985,11 @@ def orbax_full_width(np, torch, wrappers, cfg, n_frames: int = 9, hw=(480, 854))
     t0 = time.perf_counter()
     tree = read_orbax(ORBAX_FIXTURE)
     read_s = time.perf_counter() - t0
-    arrays = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            if isinstance(v, dict):
-                walk(v, prefix + (k,))
-            else:
-                arrays[".".join(prefix + (k,))] = v
-
-    walk(tree, ())
-    if set(arrays) != set(record):
-        fail(f"orbax: leaves differ from the record: {sorted(set(arrays) ^ set(record))[:5]}")
-    t0 = time.perf_counter()
-    for path, a in arrays.items():
-        leaf = record[path]
-        if (str(a.dtype), list(a.shape)) != (leaf["dtype"], leaf["shape"]):
-            fail(f"orbax: {path} is {a.dtype} {list(a.shape)}, the record says "
-                 f"{leaf['dtype']} {leaf['shape']}")
-        if hashlib.sha256(a.tobytes()).hexdigest() != leaf["sha256"]:
-            fail(f"orbax: {path}'s sha256 differs from the record's")
+    arrays = tree_arrays(tree)
+    hash_s = check_record(np, arrays, record, "orbax")
     nbytes = sum(a.nbytes for a in arrays.values())
     report["read"] = dict(arrays=len(arrays), bytes=nbytes, read_s=read_s,
-                          mb_per_s=nbytes / 1e6 / read_s, sha256_s=time.perf_counter() - t0)
+                          mb_per_s=nbytes / 1e6 / read_s, sha256_s=hash_s)
     del tree, arrays
 
     preset = os.path.join(REPO, "configs", "davis2017_val.json")
@@ -2933,28 +2999,8 @@ def orbax_full_width(np, torch, wrappers, cfg, n_frames: int = 9, hw=(480, 854))
         ann0 = load_indexed_png(os.path.join(root, "Annotations", "480p", name, "00000.png"))
 
         def run(tag, config, ckpt):
-            out = os.path.join(tmp, tag)
-            torch.cuda.synchronize()
-            for fn in wrappers.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            summary = run_davis.main(["--davis_root", root, "--output", out, "--config", config,
-                                      "--checkpoint", ckpt])
-            wall = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in wrappers.items()}
-            d = os.path.join(out, name)
-            files = sorted(os.listdir(d))
-            if files != [f"{i:05d}.png" for i in range(n_frames)]:
-                fail(f"run_davis {tag}: PNGs {files}")
-            labs = np.stack([load_indexed_png(os.path.join(d, f)) for f in files])
-            if labs.shape != (n_frames, *hw) or not np.array_equal(labs[0], ann0):
-                fail(f"run_davis {tag}: labels {labs.shape}, or frame 0 is not the annotation")
-            if not (labs[1:] > 0).any():
-                fail(f"run_davis {tag}: no pixel labelled after frame 0")
-            return labs, dict(summary=summary, wall_s=wall, launches=launches,
-                              frames_per_s=summary["fps"],
-                              labelled_pixels=[int((lab > 0).sum()) for lab in labs])
+            return checkpoint_run(np, torch, wrappers, tmp, root, name, ann0, n_frames, hw,
+                                  tag, config, ckpt)
 
         # (b) the production preset, as the JAX CLI takes the directory.
         _, report["run"] = run("orbax", preset, ORBAX_FIXTURE)
@@ -2979,6 +3025,234 @@ def orbax_full_width(np, torch, wrappers, cfg, n_frames: int = 9, hw=(480, 854))
             fail(f"run_davis in float32: the orbax checkpoint's labels differ from model.pt's: "
                  f"{rows}")
     report["zstd_refusals"] = zstd_refusals()
+    return report, labs_orbax
+
+
+# ------------------------------------------------------------- phase 7g
+
+# The same tree saved with use_zarr3 (scripts/make_orbax_fixtures.py): one
+# shard an array, inner bytes + zstd, index bytes + crc32c, in OCDBT.
+ORBAX_ZARR3 = ORBAX_FIXTURE + "_zarr3"
+# The training kernels' launches of two Mask R-CNN steps at full width:
+# per step the RPN's NMS once and the training RoIAlign forward and
+# backward four times a head (box and mask head, one launch a level).
+OUT_STEPS = 2
+OUT_LAUNCHES = {"nms": 2, "roi_align": 16, "roi_align_backward": 16}
+# The damaged JPEG files and the PNM family, with Pillow's decodes
+# (scripts/make_jpeg_codings_fixtures.py, scripts/make_pnm_fixtures.py).
+DAMAGED_JPEG = os.path.join(REPO, "tests", "data", "jpeg", "damaged")
+PNM_FIXTURES = os.path.join(REPO, "tests", "data", "pnm")
+
+
+def remat_case(np, torch, remat: bool, batch: int = 8, crop: int = 385, iters: int = 3):
+    """ResNet-101 at the refine net's output stride (16) and input (RGB +
+    mask, 4 channels), train_refine's batch of 385² crops, float32 without
+    TF32: `iters` forward and backward passes of the mean square of C5 after
+    one warm-up, from one seeded draw of the weights and the input. Returns
+    the peak device bytes, the median step seconds (CUDA events) and the
+    last pass's gradients."""
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.models.resnet import ResNet
+    from premvos_tpu_torch.pipeline.runner import float32_precision
+
+    dev = torch.device("cuda")
+    net = ResNet(depth=101, output_stride=16, in_ch=4, remat=remat)
+    init_module(net, torch.Generator().manual_seed(7))
+    net = net.to(dev)
+    x = torch.randn((batch, 4, crop, crop), generator=torch.Generator().manual_seed(8)).to(dev)
+    times = []
+    with float32_precision():
+        for i in range(iters + 1):
+            net.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = net(x)["C5"].square().mean()
+            loss.backward()
+            b.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(a.elapsed_time(b) / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    grads = {k: v.grad.detach().clone() for k, v in net.named_parameters()}
+    del net, x
+    torch.cuda.empty_cache()
+    return dict(peak_bytes=peak, median_s=statistics.median(times), step_s=times,
+                loss=loss.item()), grads
+
+
+def repaired_files(np) -> dict:
+    """Phase 7g (f): every damaged JPEG (restart markers dropped, renumbered,
+    swapped or after garbage; scan data ending early) and every PNM-family
+    file (and a PNG and a JPEG named .ppm) decoded on this host without
+    Pillow, equal to Pillow's committed decode; ms a file."""
+    from premvos_tpu_torch.io_compat.jpeg import read_jpeg
+    from premvos_tpu_torch.io_compat.png import read_png
+    from premvos_tpu_torch.io_compat.ppm import read_ppm
+
+    out = {}
+    for kind, root, ext, read in (("jpeg", DAMAGED_JPEG, ".jpg", read_jpeg),
+                                  ("pnm", PNM_FIXTURES, ".ppm", read_ppm)):
+        names = sorted(f[:-len(ext)] for f in os.listdir(root) if f.endswith(ext))
+        if not names:
+            fail(f"{root}: no {ext} fixtures")
+        t0 = time.perf_counter()
+        for name in names:
+            got = read(os.path.join(root, name + ext))
+            want = read_png(os.path.join(root, "decoded", name + ".png"))[0]
+            if got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"{kind} {name}{ext}: the decode differs from Pillow's")
+        out[kind] = dict(files=len(names),
+                         ms_per_file=(time.perf_counter() - t0) * 1e3 / len(names))
+    return out
+
+
+def orbax_write_full_width(np, torch, wrappers, cfg, labs_f32, n_frames: int = 9,
+                           hw=(480, 854)):
+    """Phase 7g: checkpoints the port writes, zarr3 bundles, ResNet remat
+    and the repaired readers, at davis2017_val. (a) the davis2017_val
+    orbax fixture loaded into the port's nets and written back by
+    utils/checkpoint.py::save_params to an orbax directory (1.14 GB, no
+    compression): host seconds and MB/s, then read back with read_orbax,
+    every leaf's sha256 equal to the record's; (b) `run_davis --checkpoint
+    <that directory>` in float32 on phase 7f's sequence: labels equal to
+    phase 7f (c)'s orbax run, launches ORBAX_RUN_LAUNCHES; (c) ORBAX_ZARR3
+    read (seconds, MB/s, the record's sha256s), and `run_davis
+    --checkpoint` on it: labels equal to (b)'s; (d) OUT_STEPS Mask R-CNN
+    training steps at full width through train_maskrcnn.main(argv) with
+    --out <directory> (the trainer's own save): launches OUT_LAUNCHES, the
+    directory read back through the bridge equal to the trained model's
+    state_dict bit for bit; (e) remat_case without and with remat: the
+    peaks, the step times, every gradient within 1e-4 by norm, and remat's
+    peak below the plain one; (f) repaired_files. Returns a report dict."""
+    import tempfile
+
+    from premvos_tpu_torch.config import save_config
+    from premvos_tpu_torch.data.palette import load_indexed_png
+    from premvos_tpu_torch.io_compat.orbax_ckpt import orbax_state_dict, read_orbax
+    from premvos_tpu_torch.pipeline.runner import build_models
+    from premvos_tpu_torch.train import train_maskrcnn
+    from premvos_tpu_torch.utils.checkpoint import load_params, save_params
+
+    report = {}
+    with open(ORBAX_FIXTURE + ".json") as f:
+        record = {leaf["path"]: leaf for leaf in json.load(f)["leaves"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the port writes the bundle.
+        models = load_params(ORBAX_FIXTURE, build_models(cfg))
+        written = os.path.join(tmp, "written")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_params(written, models)
+        save_s = time.perf_counter() - t0
+        del models
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        arrays = tree_arrays(read_orbax(written))
+        read_s = time.perf_counter() - t0
+        nbytes = sum(a.nbytes for a in arrays.values())
+        hash_s = check_record(np, arrays, record, "port-written orbax")
+        del arrays
+        on_disk = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(written) for f in fs)
+        report["write"] = dict(bytes=nbytes, bytes_on_disk=on_disk, save_s=save_s,
+                               mb_per_s=nbytes / 1e6 / save_s, read_back_s=read_s,
+                               sha256_s=hash_s)
+
+        # (b) and (c): run_davis in float32 on the written and the zarr3 bundles.
+        root, name = os.path.join(tmp, "davis"), "seq_a"
+        write_davis_tree(np, root, (name,), n_frames, hw)
+        ann0 = load_indexed_png(os.path.join(root, "Annotations", "480p", name, "00000.png"))
+        f32 = os.path.join(tmp, "davis2017_val_f32.json")
+        save_config(f32, dataclasses.replace(
+            cfg, pipeline=dataclasses.replace(cfg.pipeline, dtype="float32")))
+
+        def run(tag, ckpt):
+            labs, rep = checkpoint_run(np, torch, wrappers, tmp, root, name, ann0, n_frames, hw,
+                                       tag, f32, ckpt)
+            got = {k: rep["launches"][k] for k in ORBAX_RUN_LAUNCHES}
+            if got != ORBAX_RUN_LAUNCHES:
+                fail(f"run_davis --checkpoint ({tag}): launches {got}, not {ORBAX_RUN_LAUNCHES}")
+            return labs, rep
+
+        labs_written, report["run_written"] = run("written", written)
+        rows = object_ious(np, labs_written, labs_f32, cfg.pipeline.max_objects)
+        if any(row["union_agreement"] != 1.0 for row in rows):
+            fail(f"run_davis on the port-written bundle: labels differ from phase 7f's: {rows}")
+        shutil.rmtree(written)
+
+        t0 = time.perf_counter()
+        arrays = tree_arrays(read_orbax(ORBAX_ZARR3))
+        zread_s = time.perf_counter() - t0
+        zbytes = sum(a.nbytes for a in arrays.values())
+        report["zarr3_read"] = dict(arrays=len(arrays), bytes=zbytes, read_s=zread_s,
+                                    mb_per_s=zbytes / 1e6 / zread_s,
+                                    sha256_s=check_record(np, arrays, record, "zarr3"))
+        del arrays
+        labs_zarr3, report["run_zarr3"] = run("zarr3", ORBAX_ZARR3)
+        rows = object_ious(np, labs_zarr3, labs_written, cfg.pipeline.max_objects)
+        if any(row["union_agreement"] != 1.0 for row in rows):
+            fail(f"run_davis on the zarr3 bundle: labels differ from the written bundle's: {rows}")
+        torch.cuda.empty_cache()
+
+        # (d) the Mask R-CNN trainer's --out, an orbax directory.
+        troot = os.path.join(tmp, "train")
+        write_davis_tree(np, troot, ("seq_a", "seq_b"), 2, hw)
+        out = os.path.join(tmp, "maskrcnn_out")
+        trained = []
+        real_save = train_maskrcnn.save_net
+
+        def keep(path, model):
+            trained.append(model)
+            real_save(path, model)
+
+        train_maskrcnn.save_net = keep
+        level = logging.getLogger().level  # main() sets INFO for its own log
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            train_maskrcnn.main(["--davis_root", troot, "--split", "val",
+                                 "--steps", str(OUT_STEPS), "--out", out])
+        finally:
+            train_maskrcnn.save_net = real_save
+            logging.getLogger().setLevel(level)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        got = {k: launches[k] for k in OUT_LAUNCHES}
+        if got != OUT_LAUNCHES:
+            fail(f"train_maskrcnn --out: launches {got}, not {OUT_LAUNCHES}")
+        model = trained[0]
+        back = orbax_state_dict(out, model)
+        state = model.state_dict()
+        if back.keys() != state.keys() or not all(
+                torch.equal(back[k], state[k].cpu()) for k in state):
+            fail("train_maskrcnn --out: the orbax directory read back through the bridge "
+                 "differs from the model's state_dict")
+        report["train_out"] = dict(steps=OUT_STEPS, wall_s=wall, launches=launches,
+                                   tensors=len(state))
+        del model, trained, back, state
+        torch.cuda.empty_cache()
+
+    # (e) ResNet remat: memory against compute.
+    plain, g_plain = remat_case(np, torch, remat=False)
+    remat, g_remat = remat_case(np, torch, remat=True)
+    worst = max(float((g_remat[k] - g).norm() / g.norm().clamp_min(1e-30))
+                for k, g in g_plain.items())
+    del g_plain, g_remat
+    report["remat"] = dict(plain=plain, remat=remat, worst_grad_by_norm=worst)
+    if worst > 1e-4:
+        fail(f"ResNet remat: a gradient {worst:.3g} from the plain net's by norm (> 1e-4)")
+    if not remat["peak_bytes"] < plain["peak_bytes"]:
+        fail(f"ResNet remat: peak {remat['peak_bytes']} bytes, not below the plain net's "
+             f"{plain['peak_bytes']}")
+
+    # (f) the repaired readers on this host.
+    report["repaired_files"] = repaired_files(np)
     return report
 
 
@@ -3803,7 +4077,7 @@ def main() -> int:
 
     # Phase 7f — the JAX package's own orbax checkpoint, read without JAX.
     t0 = time.perf_counter()
-    orb = orbax_full_width(np, torch, wrappers, cfg)
+    orb, labs_orbax_f32 = orbax_full_width(np, torch, wrappers, cfg)
     orb["phase_s"] = time.perf_counter() - t0
     report["orbax"] = orb
     ob, orun = orb["read"], orb["run"]
@@ -3817,6 +4091,34 @@ def main() -> int:
         f"s (written in {orb['model_pt_s']:.2f} s), labels equal, object IoUs "
         f"{orb['f32_object_ious']}; zstd refusals {orb['zstd_refusals']}; phase "
         f"{orb['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # Phase 7g — checkpoints the port writes, zarr3, remat, repaired readers.
+    t0 = time.perf_counter()
+    ow = orbax_write_full_width(np, torch, wrappers, cfg, labs_orbax_f32)
+    ow["phase_s"] = time.perf_counter() - t0
+    del labs_orbax_f32
+    report["orbax_write"] = ow
+    w, rm = ow["write"], ow["remat"]
+    log(f"save_params to an orbax directory at davis2017_val: {w['bytes']} bytes "
+        f"({w['bytes_on_disk']} on disk) in {w['save_s']:.3f} s of host time "
+        f"({w['mb_per_s']:.1f} MB/s), read back in {w['read_back_s']:.3f} s, every sha256 equal; "
+        f"run_davis --checkpoint <written dir>, float32: {ow['run_written']['frames_per_s']:.2f} "
+        f"tracked frames/s, wall {ow['run_written']['wall_s']:.2f} s, labels equal to phase 7f's, "
+        f"launches {ow['run_written']['launches']}")
+    z = ow["zarr3_read"]
+    log(f"zarr3 bundle: read {z['arrays']} arrays, {z['bytes']} bytes in {z['read_s']:.3f} s "
+        f"({z['mb_per_s']:.1f} MB/s), every sha256 equal; run_davis --checkpoint <zarr3 dir>, "
+        f"float32: {ow['run_zarr3']['frames_per_s']:.2f} tracked frames/s, wall "
+        f"{ow['run_zarr3']['wall_s']:.2f} s, labels equal, launches {ow['run_zarr3']['launches']}")
+    log(f"train_maskrcnn --out <orbax dir>, {ow['train_out']['steps']} steps at 480x864: wall "
+        f"{ow['train_out']['wall_s']:.2f} s, launches {ow['train_out']['launches']}, "
+        f"{ow['train_out']['tensors']} tensors read back bit for bit")
+    log(f"ResNet-101 OS16, 8 x 4 x 385 x 385, float32: plain peak {rm['plain']['peak_bytes']} "
+        f"bytes, {rm['plain']['median_s']:.4f} s/step; remat peak {rm['remat']['peak_bytes']} "
+        f"bytes, {rm['remat']['median_s']:.4f} s/step; gradients within "
+        f"{rm['worst_grad_by_norm']:.3g} by norm")
+    log(f"repaired readers without Pillow: {ow['repaired_files']}; phase {ow['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     # Phase 7e — data parallelism: one rank on NCCL, two ranks sharing the
@@ -3893,6 +4195,9 @@ def main() -> int:
         ("davis_cli_jpeg", jpg["launches"], INFERENCE_KERNELS),
         ("davis_cli_jpeg_codings", jpg["codings_run"]["launches"], INFERENCE_KERNELS),
         ("davis_cli_orbax", orun["launches"], INFERENCE_KERNELS),
+        ("davis_cli_orbax_written", ow["run_written"]["launches"], INFERENCE_KERNELS),
+        ("davis_cli_orbax_zarr3", ow["run_zarr3"]["launches"], INFERENCE_KERNELS),
+        ("train_maskrcnn_out", ow["train_out"]["launches"], TRAINING_KERNELS),
         ("dp", dp2["launches"], DP_KERNELS)) if name in names}
         for name in KERNELS}
     kernels_line = []

@@ -10,11 +10,12 @@ reference. Layout mirrors the JAX package module for module:
                        sequence prefetch, lucid-dream augmentation, and
                        numpy versions of the OpenCV calls the JAX package
                        makes (cv_compat.py)
-  io_compat/           PNG (numpy + zlib) and JPEG (host C++) readers, no
-                       Pillow; PPM, .flo, RLE (numpy and C++), the
-                       proposals JSON, and the checkpoint converters (TF
-                       Mask R-CNN, refine and ReID nets, torchvision
-                       ResNet, flownet2-pytorch)
+  io_compat/           PNG (numpy + zlib), JPEG (host C++) and PNM
+                       readers, no Pillow; .flo, RLE (numpy and C++), the
+                       proposals JSON, orbax checkpoints read (zarr v2
+                       and v3, OCDBT, zstd) and written, and the
+                       checkpoint converters (TF Mask R-CNN, refine and
+                       ReID nets, torchvision ResNet, flownet2-pytorch)
   ops/                 boxes, masks, crop/paste, NMS, RoIAlign, correlation,
                        resample2d, channelnorm, resize (each kernel-backed op
                        keeps its plain PyTorch version beside the kernel)
@@ -33,7 +34,8 @@ reference. Layout mirrors the JAX package module for module:
   train/               the Mask R-CNN, FlowNetC, ReID and refine trainers
   eval/                DAVIS J&F (davis_eval.py), the merge-tuning harness
                        and train-time metrics
-  utils/               logging and torch.save checkpoints of the four nets
+  utils/               logging, and checkpoints of the four nets: torch.save
+                       files or orbax directories the JAX package reads
 
 Entry points run on CUDA unless the caller passes device="cpu"; without a
 card and without that argument they raise.

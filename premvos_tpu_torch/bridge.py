@@ -135,6 +135,24 @@ def flax_tensors(module: torch.nn.Module, tree: dict) -> dict:
     return out
 
 
+def flax_tree(module: torch.nn.Module) -> dict:
+    """Inverse of `flax_tensors`: {"params": nested dicts} of `module`'s
+    parameters and buffers in flax's paths and layouts, on the CPU, each in
+    its tensor's dtype (numpy arrays; a bfloat16 tensor stays a
+    `torch.bfloat16` tensor, as io_compat/orbax_ckpt.py reads one)."""
+    out: dict = {}
+    for path, (mod, leaf, _) in flax_targets(module).items():
+        t = getattr(mod, port_name(mod, leaf)).detach().cpu()
+        bf16 = t.dtype == torch.bfloat16
+        bits = (t.view(torch.int16) if bf16 else t).numpy()
+        value = np.ascontiguousarray(flax_layout(mod, leaf, bits))
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = torch.from_numpy(value).view(torch.bfloat16) if bf16 else value
+    return {"params": out}
+
+
 def load_flax_tree(module: torch.nn.Module, tree: dict) -> None:
     """Copy one network's flax tree into `module` (in place), with the
     checks of `flax_tensors`."""

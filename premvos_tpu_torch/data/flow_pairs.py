@@ -2,9 +2,11 @@
 premvos_tpu/data/flow_pairs.py).
 
 Flat directories of `xxxxx_img1.ppm`, `xxxxx_img2.ppm` and
-`xxxxx_flow.flo` (flownet2's `datasets.py`). Images are read and written
-with the numpy PPM codec (io_compat/ppm.py) and ground-truth flow with the
-`.flo` codec, so neither Pillow nor OpenCV is needed. `batch` draws from
+`xxxxx_flow.flo` (flownet2's `datasets.py`). Images are read as Pillow's
+`Image.open(p).convert("RGB")` reads them (io_compat/ppm.py::read_ppm:
+every PNM header, and a PNG or JPEG by its content) and written as binary
+PPM, and ground-truth flow goes through the `.flo` codec, so neither
+Pillow nor OpenCV is needed. `batch` draws from
 the numpy generator in the JAX package's order (the sample indices, then
 each sample's crop corner), so one seed gives the same crops in both.
 """

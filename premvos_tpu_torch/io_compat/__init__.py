@@ -1,7 +1,8 @@
 """File codecs at the I/O edge and the checkpoint converters (port of
 premvos_tpu/io_compat): COCO RLE (numpy and the C++ codec), proposals JSON,
-.flo, PNG, PPM, JPEG, and the TF, torchvision-ResNet and flownet2-pytorch
-converters into the port's modules."""
+.flo, PNG, the PNM family, JPEG, orbax checkpoints (read and written), and
+the TF, torchvision-ResNet and flownet2-pytorch converters into the port's
+modules."""
 
 from premvos_tpu_torch.io_compat import rle, rle_native
 from premvos_tpu_torch.io_compat.convert_tf import convert_tf_dict, load_tf_checkpoint_vars

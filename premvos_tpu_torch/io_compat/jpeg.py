@@ -6,10 +6,13 @@ progressive JPEG, Huffman- or arithmetic-coded; lossless JPEG (8-bit,
 predictors 1-7, any point transform); gray, three components or four
 (CMYK, YCCK); any integral sampling factors; restart intervals; a
 progressive file whose later scans are missing (libjpeg's block
-smoothing); a file cut before its EOI marker where libjpeg still reads it.
+smoothing); a file cut before its EOI marker where libjpeg still reads it;
+damaged restart markers, which libjpeg resyncs; scan data that ends early
+at a marker.
 The decoder is host C++ (kernels/jpeg_decode.cc), built with the host C++
 compiler at first use into kernels/build/ and bound by ctypes; it follows
-libjpeg-turbo's defaults, which Pillow runs: the ISLOW integer IDCT, fancy
+libjpeg-turbo's defaults, which Pillow runs: the ISLOW integer IDCT (as its
+x86 SIMD code computes it), fancy
 upsampling (box in a lossless file), jdcolor.c's fixed-point YCbCr → RGB
 and YCCK → CMYK, then Pillow's inverted CMYK and its CMYK → RGB. A file
 Pillow refuses too (12-bit samples, arithmetic-coded lossless or

@@ -10,8 +10,9 @@
 //     8-bit samples, 1 (gray), 3 or 4 components, any integral sampling
 //     factors, restart intervals;
 //   * dequantisation and the ISLOW integer IDCT of jidctint.c (CONST_BITS
-//     13, PASS1_BITS 2), its output clamped to 0..255 as the SIMD version
-//     does;
+//     13, PASS1_BITS 2) as libjpeg-turbo's x86 SIMD version computes it:
+//     16-bit dequantisation and sums, saturated passes, its output clamped
+//     to 0..255;
 //   * jdcoefct.c's block smoothing (libjpeg-turbo >= 2.1) of a progressive
 //     file whose scans leave one of coefficients 1-9 unrefined: estimates
 //     from the 5x5 neighbourhood of DC values, the DC itself too when no
@@ -40,7 +41,16 @@
 //     512 bytes a block in hand of what Pillow has handed libjpeg, six
 //     bytes at 16 bits or fewer; on its slow path to 57 bits when the next
 //     request needs more. The arithmetic decoder reads a byte when it needs
-//     one. Any other such file is refused as truncated, as Pillow refuses it.
+//     one. Any other such file is refused as truncated, as Pillow refuses it;
+//   * damaged restart markers as jdmarker.c's read_restart_marker and
+//     jpeg_resync_to_restart (Pillow keeps libjpeg's default) resync: a
+//     marker dropped, doubled, renumbered or preceded by garbage;
+//   * scan data that ends early at a marker: the MCU in which the bits run
+//     out decoded with zero bits, the rest of the restart interval left
+//     undecoded (insufficient_data in jdhuff.c, jdphuff.c, jdlhuff.c; the
+//     arithmetic decoder reads zeros instead), and a progressive file's
+//     smoothing past the last good iMCU row done with the coefficient bits
+//     from before the cut scan (jdcoefct.c).
 // 12-bit samples, arithmetic-coded lossless JPEG (libjpeg-turbo does not
 // decode it), hierarchical JPEG (nor this) and an arithmetic-coded scan
 // that crosses one of Pillow's 64 KiB blocks (libjpeg cannot wait for the
@@ -171,6 +181,7 @@ struct Component {
   std::vector<int32_t> diff;   // lossless: bw * bh differences
   std::vector<uint16_t> undiff;  // lossless: dw * dh reconstructed samples
   int coef_bits[64];
+  int prev_bits[64];           // jdphuff.c: coef_bits before its latest scan
   int dc_pred = 0;
   int dc_context = 0;          // arithmetic DC conditioning (F.1.4.4.1.2)
   bool first_row = true;       // lossless: the row predictor is the 1-D one
@@ -214,7 +225,11 @@ class Decoder {
   // Bit reader.
   uint64_t acc_ = 0;
   int nbits_ = 0;
-  bool marker_hit_ = false;
+  bool marker_hit_ = false;    // libjpeg's unread_marker: pos_ is at its 0xFF
+  bool insufficient_ = false;  // jdhuff.c's insufficient_data: the MCUs are skipped
+  int next_restart_ = 0;       // the n of the RSTn the next restart expects
+  int scans_ = 0;              // scans started (libjpeg's input_scan_number)
+  int last_good_ = 0;          // the last iMCU row begun with data in hand
   bool fast_ = false;          // jdhuff.c's fast path decodes this MCU
   bool fast_marker_ = false;   // and met a marker: libjpeg redoes the MCU
 
@@ -245,6 +260,7 @@ class Decoder {
     return (hi << 8) | byte();
   }
   int next_marker();
+  bool seek_marker();
   size_t segment_end();
   void read_sof(int marker);
   void read_dqt();
@@ -255,7 +271,7 @@ class Decoder {
   void skip_segment();
   bool table_marker(int m);
 
-  void fill();
+  void fill(int n);
   void fill_fast();
   // Fast: jdhuff.c's fast path (the refills of FILL_BIT_BUFFER_FAST).
   template <bool Fast = false>
@@ -264,7 +280,7 @@ class Decoder {
     if (Fast) {
       if (nbits_ <= 16) fill_fast();
     } else if (nbits_ < n) {
-      fill();
+      fill(n);
     }
     nbits_ -= n;
     return (int)((acc_ >> nbits_) & ((1u << n) - 1));
@@ -298,25 +314,34 @@ class Decoder {
   void finish(uint8_t* out);
 };
 
-int Decoder::next_marker() {
-  // Skip to the next 0xFF xx with xx neither 0x00 (stuffing) nor 0xFF (fill);
-  // -1 at the end of the data.
+// jdmarker.c next_marker from pos_: skips what is not a marker (FF 00
+// pairs too) and leaves pos_ at the last 0xFF before the marker's code, the
+// marker unread; false at the end of the data.
+bool Decoder::seek_marker() {
   while (true) {
-    if (pos_ + 1 >= n_) return -1;
+    if (pos_ + 1 >= n_) return false;
     if (d_[pos_] == 0xFF) {
       size_t p = pos_ + 1;
       while (p < n_ && d_[p] == 0xFF) ++p;
-      if (p >= n_) return -1;
+      if (p >= n_) return false;
       if (d_[p] != 0x00) {
-        pos_ = p + 1;
-        need(pos_);
-        return d_[p];
+        pos_ = p - 1;
+        return true;
       }
       pos_ = p + 1;
     } else {
       ++pos_;
     }
   }
+}
+
+// The next marker's code, read (-1 at the end of the data).
+int Decoder::next_marker() {
+  if (!seek_marker()) return -1;
+  const int m = d_[pos_ + 1];
+  pos_ += 2;
+  need(pos_);
+  return m;
 }
 
 // The end of the marker segment whose length field is at pos_.
@@ -540,33 +565,39 @@ void Decoder::more() {
   need(chunk_end_ + 1);
 }
 
-// jdhuff.c jpeg_fill_bit_buffer: whole bytes until 57 bits are buffered. At
-// a marker the scan's data has ended and zeros follow.
-void Decoder::fill() {
-  while (nbits_ <= 56) {
-    int b = 0;
-    if (!marker_hit_) {
-      if (pos_ >= chunk_end_) more();
-      if (d_[pos_] == 0xFF) {
-        size_t p = pos_ + 1;
-        while (true) {  // fill bytes before a marker
-          if (p >= chunk_end_) more();
-          if (d_[p] != 0xFF) break;
-          ++p;
-        }
-        if (d_[p] == 0x00) {
-          b = 0xFF;
-          pos_ = p + 1;
-        } else {
-          marker_hit_ = true;  // leave the marker unread; feed zeros
-          pos_ = p - 1;
-        }
-      } else {
-        b = d_[pos_++];
+// jdhuff.c jpeg_fill_bit_buffer for a request of n bits: whole bytes until
+// 57 bits are buffered, or up to a marker, which is left unread. Past a
+// marker, a request for more bits than are left sets insufficient_data and
+// fills the buffer with zeros (libjpeg's "premature end of data segment");
+// jdhuff.c, jdphuff.c and jdlhuff.c then decode no later MCU of the
+// restart interval.
+void Decoder::fill(int n) {
+  while (!marker_hit_ && nbits_ <= 56) {
+    if (pos_ >= chunk_end_) more();
+    int b = d_[pos_];
+    if (b == 0xFF) {
+      size_t p = pos_ + 1;
+      while (true) {  // fill bytes before a marker
+        if (p >= chunk_end_) more();
+        if (d_[p] != 0xFF) break;
+        ++p;
       }
+      if (d_[p] != 0x00) {
+        marker_hit_ = true;
+        pos_ = p - 1;
+        break;
+      }
+      pos_ = p + 1;
+    } else {
+      ++pos_;
     }
     acc_ = (acc_ << 8) | (uint64_t)b;
     nbits_ += 8;
+  }
+  if (marker_hit_ && n > nbits_) {
+    insufficient_ = true;
+    acc_ <<= 57 - nbits_;
+    nbits_ = 57;
   }
 }
 
@@ -604,9 +635,17 @@ int Decoder::huff(const Huffman& t) {
   if (Fast) {
     if (nbits_ <= 16) fill_fast();
   } else if (nbits_ < 16) {
+    if (nbits_ < 8) fill(0);  // 57 bits or more, unless it met a marker
     if (nbits_ < 8) {
-      fill();  // leaves 57 bits or more
-    } else {
+      // Fewer than 8 bits before a marker: jpeg_huff_decode bit by bit.
+      int l = 1, code = bit();
+      while (code > t.maxcode[l]) {
+        code = (code << 1) | bit();
+        if (++l > 16) return 0;  // a bad code: libjpeg warns and takes 0
+      }
+      return t.vals[(code + t.valoffset[l]) & 0xFF];
+    }
+    if (nbits_ < 16) {
       int look = nbits_ >= k ? (int)((acc_ >> (nbits_ - k)) & ((1 << k) - 1))
                              : (int)((acc_ << (k - nbits_)) & ((1 << k) - 1));
       int e = t.look[look];
@@ -617,9 +656,9 @@ int Decoder::huff(const Huffman& t) {
       int l = k, code = bits(k);
       while (code > t.maxcode[l]) {
         code = (code << 1) | bit();
-        if (++l > 16) fail("corrupt Huffman code");
+        if (++l > 16) return 0;
       }
-      return t.vals[code + t.valoffset[l]];
+      return t.vals[(code + t.valoffset[l]) & 0xFF];
     }
   }
   int e = t.look[(acc_ >> (nbits_ - k)) & ((1 << k) - 1)];
@@ -630,11 +669,15 @@ int Decoder::huff(const Huffman& t) {
   int l = k + 1;
   int code = (int)((acc_ >> (nbits_ - l)) & ((1 << l) - 1));
   while (code > t.maxcode[l]) {
-    if (++l > 16) fail("corrupt Huffman code");
+    if (++l > 16) {  // 17 bits read, as jpeg_huff_decode reads them
+      nbits_ -= 16;
+      bits<Fast>(1);
+      return 0;
+    }
     code = (int)((acc_ >> (nbits_ - l)) & ((1 << l) - 1));
   }
   nbits_ -= l;
-  return t.vals[code + t.valoffset[l]];
+  return t.vals[(code + t.valoffset[l]) & 0xFF];
 }
 
 // jdarith.c arith_decode: one binary decision with the statistics bin *st.
@@ -697,24 +740,46 @@ int Decoder::arith_decode(uint8_t* st) {
   return sv >> 7;
 }
 
+// jdmarker.c read_restart_marker and jpeg_resync_to_restart, which Pillow
+// keeps as libjpeg's default: the expected RSTn is read; any other marker
+// is discarded (an RSTn too far from the expected one), passed over to the
+// next marker and judged again (a marker below SOF0, or RST(n-1), RST(n-2)),
+// or left unread (any other marker, or RST(n+1), RST(n+2)): the coming
+// interval then reads as a segment without data. Then the scan's
+// predictions, statistics and insufficient_data start again (the flag only
+// with no marker left unread).
 void Decoder::restart() {
   reset_bits();
   if (!marker_hit_) {
-    // Skip what is left of the interval's entropy bytes up to the marker.
-    while (true) {
-      if (pos_ + 1 >= n_) fail("truncated file: missing restart marker");
-      if (d_[pos_] == 0xFF && d_[pos_ + 1] != 0x00 && d_[pos_ + 1] != 0xFF) break;
-      ++pos_;
-    }
+    if (!seek_marker()) fail("truncated file: missing restart marker");
+    marker_hit_ = true;
   }
-  if (pos_ + 1 < n_ && d_[pos_] == 0xFF && d_[pos_ + 1] >= 0xD0 && d_[pos_ + 1] <= 0xD7) {
+  const int desired = next_restart_;
+  while (true) {
+    const int m = d_[pos_ + 1];
+    int action;
+    if (m < 0xC0)
+      action = 2;
+    else if (m < 0xD0 || m > 0xD7)
+      action = 3;
+    else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7))
+      action = 3;
+    else if (m == 0xD0 + ((desired + 7) & 7) || m == 0xD0 + ((desired + 6) & 7))
+      action = 2;
+    else
+      action = 1;
+    if (action == 3) break;
     pos_ += 2;
-    if (arithmetic_) arith_need(pos_);
-    need(pos_);
-  } else {
-    fail("corrupt data: restart marker expected");
+    marker_hit_ = false;
+    if (action == 1) break;
+    if (!seek_marker()) fail("truncated file: missing restart marker");
+    marker_hit_ = true;
   }
-  marker_hit_ = false;
+  const size_t read_to = marker_hit_ ? pos_ + 2 : pos_;
+  if (arithmetic_) arith_need(read_to);
+  need(read_to);
+  next_restart_ = (next_restart_ + 1) & 7;
+  if (!marker_hit_) insufficient_ = false;
   for (int i = 0; i < ncomp; ++i) comp_[i].dc_pred = 0;
   eobrun_ = 0;
   if (arithmetic_) {
@@ -814,7 +879,7 @@ void Decoder::decode_block(Component& c, int16_t* blk) {
       int rs = huff(ac);
       int r = rs >> 4, s = rs & 15;
       if (s) {
-        if (s != 1) fail("corrupt AC refinement");
+        // A size other than 1 is corrupt: libjpeg warns and reads on.
         s = bit() ? p1 : m1;
       } else if (r != 15) {
         eobrun_ = 1 << r;
@@ -959,6 +1024,7 @@ void Decoder::arith_block(Component& c, int16_t* blk) {
 // predictions and statistics reset (jdinput.c, jdphuff.c and jdarith.c
 // start_pass).
 void Decoder::start_scan() {
+  ++scans_;
   for (int i = 0; i < ns_; ++i) {
     Component& c = comp_[sidx_[i]];
     if (!lossless_ && c.qlatched < 0) {
@@ -967,6 +1033,8 @@ void Decoder::start_scan() {
       c.qlatched = c.tq;
     }
     if (progressive_) {
+      for (int k = ss_ < 1 ? ss_ : 1; k <= (se_ > 9 ? se_ : 9); ++k)
+        c.prev_bits[k] = scans_ > 1 ? c.coef_bits[k] : 0;
       for (int k = ss_; k <= se_; ++k) {
         if (ah_ != 0 && c.coef_bits[k] != ah_) fail("corrupt progressive scan sequence");
         c.coef_bits[k] = al_;
@@ -984,7 +1052,8 @@ void Decoder::start_scan() {
   }
   reset_bits();
   reset_arith();
-  marker_hit_ = false;
+  marker_hit_ = insufficient_ = false;
+  next_restart_ = 0;
   eobrun_ = 0;
 }
 
@@ -1025,8 +1094,8 @@ void Decoder::decode_scan() {
       for (int mx = 0; mx < mcus_x; ++mx) {
         const size_t pos = pos_;
         const uint64_t acc = acc_;
-        const int nbits = nbits_, saved_togo = togo;
-        const bool hit = marker_hit_;
+        const int nbits = nbits_, saved_togo = togo, next_restart = next_restart_;
+        const bool hit = marker_hit_, insufficient = insufficient_;
         int preds[4];
         for (int i = 0; i < ns_; ++i) preds[i] = comp_[sidx_[i]].dc_pred;
         auto retry = [&]() {
@@ -1035,9 +1104,14 @@ void Decoder::decode_scan() {
           nbits_ = nbits;
           togo = saved_togo;
           marker_hit_ = hit;
+          insufficient_ = insufficient;
+          next_restart_ = next_restart;
           fast_marker_ = false;
           for (int i = 0; i < ns_; ++i) comp_[sidx_[i]].dc_pred = preds[i];
         };
+        // jdcoefct.c consume_data: the smoothing of a later iMCU row takes
+        // the coefficient bits from before this scan.
+        if (!insufficient_) last_good_ = ns_ == 1 ? my / c0.v : my;
         suspendable_ = huffman_sequential;
         while (true) {
           try {
@@ -1048,6 +1122,9 @@ void Decoder::decode_scan() {
               }
               --togo;
             }
+            // Out of data: the MCU keeps its coefficients, the predictions
+            // do not move (arithmetic coding reads zeros instead).
+            if (insufficient_) break;
             fast_ = huffman_sequential && !restart_interval_ && !marker_hit_ &&
                     chunk_end_ >= pos_ + 512 * blocks;
             decode_mcu(mx, my);
@@ -1097,6 +1174,13 @@ void Decoder::decode_lossless_scan() {
           restart();
           rows_to_go = restart_rows;
         }
+      }
+      if (insufficient_) {
+        // jdlhuff.c decode_mcus out of data: the row's differences are
+        // zeros and the predictors start again, as after a restart.
+        for (int i = 0; i < ns_; ++i) comp_[sidx_[i]].first_row = true;
+        if (restart_interval_) --rows_to_go;
+        continue;
       }
       for (int mx = 0; mx < mcus_per_row; ++mx) {
         for (int i = 0; i < ns_; ++i) {
@@ -1159,138 +1243,79 @@ void Decoder::undifference_row(Component& c, int row) {
   }
 }
 
-// jidctint.c's jpeg_idct_islow on one block of dequantised coefficients.
+// jidctint.c's jpeg_idct_islow on one block, as libjpeg-turbo's x86 SIMD
+// version (jidctint-avx2.asm, jidctint-sse2.asm), which Pillow runs,
+// computes it: coefficients dequantised in 16 bits (vpmullw keeps the low
+// half), the sums the SIMD code forms in 16 bits (in0 ± in4, in1 + in5,
+// in3 + in7 in its reordering) wrapped there, the products exact in 32
+// bits, the first pass's results saturated to 16 bits and the second's to
+// -128..127 before the +128. A block whose rows 1-7 are all zero takes the
+// SIMD code's shortcut: row 0 dequantised and shifted left by PASS1_BITS in
+// 16 bits. On coefficients of ordinary data no step overflows and this is
+// the C version's arithmetic; a corrupt scan's coefficients reach the
+// wraps and the saturations.
 #define CONST_BITS 13
 #define PASS1_BITS 2
-#define FIX_0_298631336 ((int64_t)2446)
-#define FIX_0_390180644 ((int64_t)3196)
-#define FIX_0_541196100 ((int64_t)4433)
-#define FIX_0_765366865 ((int64_t)6270)
-#define FIX_0_899976223 ((int64_t)7373)
-#define FIX_1_175875602 ((int64_t)9633)
-#define FIX_1_501321110 ((int64_t)12299)
-#define FIX_1_847759065 ((int64_t)15137)
-#define FIX_1_961570560 ((int64_t)16069)
-#define FIX_2_053119869 ((int64_t)16819)
-#define FIX_2_562915447 ((int64_t)20995)
-#define FIX_3_072711026 ((int64_t)25172)
-#define DESCALE(x, n) (((x) + ((int64_t)1 << ((n)-1))) >> (n))
-inline uint8_t clamp_sample(int64_t v) {
-  v += 128;
-  return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+const int64_t F_0_298 = 2446, F_0_390 = 3196, F_0_541 = 4433, F_0_765 = 6270,
+              F_0_899 = 7373, F_1_175 = 9633, F_1_501 = 12299, F_1_847 = 15137,
+              F_1_961 = 16069, F_2_053 = 16819, F_2_562 = 20995, F_3_072 = 25172;
+
+inline int16_t wrap16(int64_t v) { return (int16_t)(uint16_t)(uint64_t)v; }
+inline int16_t sat16(int64_t v) { return (int16_t)(v < -32768 ? -32768 : v > 32767 ? 32767 : v); }
+
+// One 1-D pass over x[0..7] (stride `step`): the eight sums before the
+// descale, each wrapped to 32 bits as the SIMD code's paddd/psubd leave it.
+inline void idct_pass(const int16_t* x, int step, int32_t* o) {
+  const int64_t z2 = x[2 * step], z3 = x[6 * step];
+  const int64_t tmp3 = z2 * (F_0_541 + F_0_765) + z3 * F_0_541;
+  const int64_t tmp2 = z2 * F_0_541 + z3 * (F_0_541 - F_1_847);
+  const int64_t tmp0 = (int64_t)wrap16(x[0] + x[4 * step]) * (1 << CONST_BITS);
+  const int64_t tmp1 = (int64_t)wrap16(x[0] - x[4 * step]) * (1 << CONST_BITS);
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2,
+                tmp12 = tmp1 - tmp2;
+  const int64_t t0 = x[7 * step], t1 = x[5 * step], t2 = x[3 * step], t3 = x[step];
+  const int64_t s3 = wrap16(t0 + t2), s4 = wrap16(t1 + t3);
+  const int64_t z3o = s3 * (F_1_175 - F_1_961) + s4 * F_1_175;
+  const int64_t z4o = s3 * F_1_175 + s4 * (F_1_175 - F_0_390);
+  const int64_t o0 = t0 * (F_0_298 - F_0_899) + t3 * -F_0_899 + z3o;
+  const int64_t o3 = t0 * -F_0_899 + t3 * (F_1_501 - F_0_899) + z4o;
+  const int64_t o1 = t1 * (F_2_053 - F_2_562) + t2 * -F_2_562 + z4o;
+  const int64_t o2 = t1 * -F_2_562 + t2 * (F_3_072 - F_2_562) + z3o;
+  const int64_t r[8] = {tmp10 + o3, tmp11 + o2, tmp12 + o1, tmp13 + o0,
+                        tmp13 - o0, tmp12 - o1, tmp11 - o2, tmp10 - o3};
+  for (int i = 0; i < 8; ++i) o[i] = (int32_t)(uint32_t)(uint64_t)r[i];
+}
+
+inline int32_t descale32(int32_t v, int n) {
+  return (int32_t)((uint32_t)v + (1u << (n - 1))) >> n;
 }
 
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-      // AC terms all zero: the column is its DC term (the same value the
-      // full pass gives).
-      int dc = (int)((int64_t)ip[0] * qp[0] * (1 << PASS1_BITS));
-      for (int k = 0; k < 64; k += 8) wp[k] = dc;
-      continue;
+  int16_t ws[64];
+  bool rows_zero = true;
+  for (int k = 8; k < 64 && rows_zero; ++k) rows_zero = in[k] == 0;
+  if (rows_zero) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t v = wrap16((int64_t)wrap16((int64_t)in[c] * q[c]) << PASS1_BITS);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
     }
-    int64_t z1, z2, z3, z4, z5, tmp0, tmp1, tmp2, tmp3, tmp10, tmp11, tmp12, tmp13;
-    z2 = (int64_t)ip[16] * qp[16];
-    z3 = (int64_t)ip[48] * qp[48];
-    z1 = (z2 + z3) * FIX_0_541196100;
-    tmp2 = z1 + z3 * (-FIX_1_847759065);
-    tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = (int64_t)ip[0] * qp[0];
-    z3 = (int64_t)ip[32] * qp[32];
-    tmp0 = (z2 + z3) * (1 << CONST_BITS);
-    tmp1 = (z2 - z3) * (1 << CONST_BITS);
-    tmp10 = tmp0 + tmp3;
-    tmp13 = tmp0 - tmp3;
-    tmp11 = tmp1 + tmp2;
-    tmp12 = tmp1 - tmp2;
-    tmp0 = (int64_t)ip[56] * qp[56];
-    tmp1 = (int64_t)ip[40] * qp[40];
-    tmp2 = (int64_t)ip[24] * qp[24];
-    tmp3 = (int64_t)ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    z4 = tmp1 + tmp3;
-    z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 = tmp0 * FIX_0_298631336;
-    tmp1 = tmp1 * FIX_2_053119869;
-    tmp2 = tmp2 * FIX_3_072711026;
-    tmp3 = tmp3 * FIX_1_501321110;
-    z1 = z1 * (-FIX_0_899976223);
-    z2 = z2 * (-FIX_2_562915447);
-    z3 = z3 * (-FIX_1_961570560);
-    z4 = z4 * (-FIX_0_390180644);
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    wp[0] = (int)DESCALE(tmp10 + tmp3, CONST_BITS - PASS1_BITS);
-    wp[56] = (int)DESCALE(tmp10 - tmp3, CONST_BITS - PASS1_BITS);
-    wp[8] = (int)DESCALE(tmp11 + tmp2, CONST_BITS - PASS1_BITS);
-    wp[48] = (int)DESCALE(tmp11 - tmp2, CONST_BITS - PASS1_BITS);
-    wp[16] = (int)DESCALE(tmp12 + tmp1, CONST_BITS - PASS1_BITS);
-    wp[40] = (int)DESCALE(tmp12 - tmp1, CONST_BITS - PASS1_BITS);
-    wp[24] = (int)DESCALE(tmp13 + tmp0, CONST_BITS - PASS1_BITS);
-    wp[32] = (int)DESCALE(tmp13 - tmp0, CONST_BITS - PASS1_BITS);
+  } else {
+    int16_t deq[64];
+    for (int k = 0; k < 64; ++k) deq[k] = wrap16((int64_t)in[k] * q[k]);
+    int32_t o[8];
+    for (int c = 0; c < 8; ++c) {
+      idct_pass(deq + c, 8, o);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16(descale32(o[r], CONST_BITS - PASS1_BITS));
+    }
   }
+  int32_t o[8];
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
+    idct_pass(ws + 8 * r, 1, o);
     uint8_t* op = out + (size_t)r * stride;
-    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t v = clamp_sample(DESCALE((int64_t)wp[0], PASS1_BITS + 3));
-      memset(op, v, 8);
-      continue;
+    for (int c = 0; c < 8; ++c) {
+      const int32_t v = descale32(o[c], CONST_BITS + PASS1_BITS + 3);
+      op[c] = (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
     }
-    int64_t z1, z2, z3, z4, z5, tmp0, tmp1, tmp2, tmp3, tmp10, tmp11, tmp12, tmp13;
-    z2 = wp[2];
-    z3 = wp[6];
-    z1 = (z2 + z3) * FIX_0_541196100;
-    tmp2 = z1 + z3 * (-FIX_1_847759065);
-    tmp3 = z1 + z2 * FIX_0_765366865;
-    tmp0 = ((int64_t)wp[0] + wp[4]) * (1 << CONST_BITS);
-    tmp1 = ((int64_t)wp[0] - wp[4]) * (1 << CONST_BITS);
-    tmp10 = tmp0 + tmp3;
-    tmp13 = tmp0 - tmp3;
-    tmp11 = tmp1 + tmp2;
-    tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    z4 = tmp1 + tmp3;
-    z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 = tmp0 * FIX_0_298631336;
-    tmp1 = tmp1 * FIX_2_053119869;
-    tmp2 = tmp2 * FIX_3_072711026;
-    tmp3 = tmp3 * FIX_1_501321110;
-    z1 = z1 * (-FIX_0_899976223);
-    z2 = z2 * (-FIX_2_562915447);
-    z3 = z3 * (-FIX_1_961570560);
-    z4 = z4 * (-FIX_0_390180644);
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int n = CONST_BITS + PASS1_BITS + 3;
-    op[0] = clamp_sample(DESCALE(tmp10 + tmp3, n));
-    op[7] = clamp_sample(DESCALE(tmp10 - tmp3, n));
-    op[1] = clamp_sample(DESCALE(tmp11 + tmp2, n));
-    op[6] = clamp_sample(DESCALE(tmp11 - tmp2, n));
-    op[2] = clamp_sample(DESCALE(tmp12 + tmp1, n));
-    op[5] = clamp_sample(DESCALE(tmp12 - tmp1, n));
-    op[3] = clamp_sample(DESCALE(tmp13 + tmp0, n));
-    op[4] = clamp_sample(DESCALE(tmp13 - tmp0, n));
   }
 }
 
@@ -1456,7 +1481,11 @@ void Decoder::smooth_block(const Component& c, int bx, int by, int16_t* ws) cons
       x = x < 0 ? 0 : x > wib - 1 ? wib - 1 : x;
       dc[1 + 5 * r + d] = c.coef[((size_t)rows[r] * c.bw + x) * 64];
     }
-  const int* cb = c.coef_bits;
+  // A row past the last one read with data in hand: the bits from before
+  // the component's latest scan (jdcoefct.c, last_good_iMCU_row).
+  int prev[10];
+  for (int k = 1; k < 10; ++k) prev[k] = scans_ > 1 ? c.prev_bits[k] : -1;
+  const int* cb = imcu > last_good_ ? prev : c.coef_bits;
   const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 && cb[4] == -1 &&
                          cb[5] == -1 && cb[6] == -1 && cb[7] == -1 && cb[8] == -1 &&
                          cb[9] == -1;

@@ -2,7 +2,11 @@
 
 `norm` is "frozen_bn" (pretrained weights, fine-tuning) or "group_norm"
 (training from scratch). `output_stride=32` exposes C2..C5 for the FPN;
-`output_stride=16` dilates the C5 stage (DeepLabv3+). Submodules carry the
+`output_stride=16` dilates the C5 stage (DeepLabv3+). `remat=True`
+recomputes each bottleneck on the backward pass instead of keeping its
+activations (`torch.utils.checkpoint`, as the JAX ResNet's `nn.remat`):
+it trades compute for device memory and leaves values and gradients as
+they are. Submodules carry the
 flax tree's names (stem_conv, stage{n}_block{b}, Conv_i, proj, and
 FrozenBatchNorm_i or GroupNorm32_i) so that bridge.py is a path map.
 """
@@ -12,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from premvos_tpu_torch.models.layers import Conv, add_norm
 
@@ -59,9 +64,10 @@ class ResNet(nn.Module):
     """[N, in_ch, H, W] → {"C2": /4, "C3": /8, "C4": /16, "C5": /32 or /16}."""
 
     def __init__(self, depth=101, output_stride=32, in_ch=3, norm="frozen_bn",
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat=False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.stem_conv = Conv(in_ch, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
         self.stem_norm = add_norm(self, norm, 0, 64, dtype)
         self.stages = []
@@ -87,8 +93,10 @@ class ResNet(nn.Module):
         x = F.relu(getattr(self, self.stem_norm)(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
+        remat = self.remat and torch.is_grad_enabled()
         for stage, names in enumerate(self.stages):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             feats[f"C{stage + 2}"] = x
         return feats

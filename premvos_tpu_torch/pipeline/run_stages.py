@@ -15,8 +15,8 @@
       --seq NAME --work WORKDIR [--config cfg.json] [--checkpoint params.pt] \
       [--device cpu]
 
-`--checkpoint` takes a utils/checkpoint.py save_params file or the JAX
-package's orbax directory. The fused runner (pipeline/runner.py) is the
+`--checkpoint` takes a utils/checkpoint.py save_params file or an orbax
+directory (the port's or the JAX package's). The fused runner (pipeline/runner.py) is the
 production path; the stages binarise masks into RLE between them, so their
 labels differ from it.
 """
@@ -242,7 +242,8 @@ def main(argv=None):
     ap.add_argument("--work", required=True)
     ap.add_argument("--config", default=None)
     ap.add_argument("--checkpoint", default=None,
-                    help="utils/checkpoint.py save_params file, or the JAX package's orbax directory")
+                    help="a utils/checkpoint.py save_params file, or an orbax directory "
+                         "(the port's or the JAX package's)")
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument(
         "--device", default=None,

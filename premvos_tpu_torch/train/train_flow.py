@@ -12,7 +12,7 @@ card (ops/correlation.py). Runs on CUDA unless the caller passes
 device="cpu".
 
   python -m premvos_tpu_torch.train.train_flow --data <chairs_dir> \\
-      --steps 1000 [--batch_size 8 --crop 64 64] [--out model.pt]
+      --steps 1000 [--batch_size 8 --crop 64 64] [--out model.pt | DIR]
   torchrun --nproc_per_node N -m premvos_tpu_torch.train.train_flow ...
 """
 
@@ -31,6 +31,7 @@ from premvos_tpu_torch.parallel.mesh import as_mesh, init_from_env, shard_batch
 from premvos_tpu_torch.pipeline.runner import place
 from premvos_tpu_torch.train.losses import multiscale_epe
 from premvos_tpu_torch.train.trainer import dp_batch_size, run_steps
+from premvos_tpu_torch.utils.checkpoint import save_net
 
 DIV_FLOW = 20.0
 
@@ -95,7 +96,9 @@ def main(argv=None):
     ap.add_argument("--crop", type=int, nargs=2, default=(64, 64), metavar=("H", "W"))
     ap.add_argument("--max_displacement", type=int, default=20)
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
-    ap.add_argument("--out", default=None, help="save the trained state_dict here")
+    ap.add_argument("--out", default=None,
+                    help="save the trained net here: its state_dict to a path ending in .pt, "
+                         "else an orbax directory the JAX package restores")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -108,7 +111,7 @@ def main(argv=None):
     if mesh.rank != 0:
         return
     if args.out:
-        torch.save(model.state_dict(), args.out)
+        save_net(args.out, model)
     print({"final_loss": loss})
 
 

@@ -9,7 +9,7 @@ by image; under torchrun the CLI builds the mesh and rank 0 alone logs and
 saves). Runs on CUDA unless the caller passes device="cpu".
 
   python -m premvos_tpu_torch.train.train_maskrcnn --davis_root D --split train \\
-      --steps 5000 [--height 480 --width 864] [--out model.pt]
+      --steps 5000 [--height 480 --width 864] [--out model.pt | DIR]
   torchrun --nproc_per_node N -m premvos_tpu_torch.train.train_maskrcnn ...
 """
 
@@ -32,6 +32,7 @@ from premvos_tpu_torch.parallel.mesh import as_mesh, init_from_env, shard_batch
 from premvos_tpu_torch.pipeline.runner import place
 from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
 from premvos_tpu_torch.train.trainer import dp_batch_size, run_steps
+from premvos_tpu_torch.utils.checkpoint import save_net
 
 
 def sample_batch(ds, rng: np.random.Generator, image_hw, max_objects: int,
@@ -118,7 +119,9 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=864)
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
-    ap.add_argument("--out", default=None, help="save the trained state_dict here")
+    ap.add_argument("--out", default=None,
+                    help="save the trained net here: its state_dict to a path ending in .pt, "
+                         "else an orbax directory the JAX package restores")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -131,7 +134,7 @@ def main(argv=None):
     if mesh.rank != 0:
         return
     if args.out:
-        torch.save(model.state_dict(), args.out)
+        save_net(args.out, model)
     print({"final_loss": loss})
 
 

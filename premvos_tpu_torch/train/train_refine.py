@@ -11,7 +11,7 @@ CLI builds the mesh and rank 0 alone logs and saves). Runs on CUDA unless
 the caller passes device="cpu".
 
   python -m premvos_tpu_torch.train.train_refine --davis_root D --split train \\
-      --steps 5000 [--batch_size 8] [--out model.pt]
+      --steps 5000 [--batch_size 8] [--out model.pt | DIR]
   torchrun --nproc_per_node N -m premvos_tpu_torch.train.train_refine ...
 """
 
@@ -31,6 +31,7 @@ from premvos_tpu_torch.models.layers import init_module
 from premvos_tpu_torch.parallel.mesh import as_mesh, init_from_env, shard_batch
 from premvos_tpu_torch.pipeline.runner import place
 from premvos_tpu_torch.train.trainer import dp_batch_size, run_steps
+from premvos_tpu_torch.utils.checkpoint import save_net
 
 
 def example_stream(ds, cfg: RefineConfig, rng, max_objects=8, pool_frames=64,
@@ -114,7 +115,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
-    ap.add_argument("--out", default=None, help="save the trained state_dict here")
+    ap.add_argument("--out", default=None,
+                    help="save the trained net here: its state_dict to a path ending in .pt, "
+                         "else an orbax directory the JAX package restores")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -125,7 +128,7 @@ def main(argv=None):
     if mesh.rank != 0:
         return
     if args.out:
-        torch.save(model.state_dict(), args.out)
+        save_net(args.out, model)
     print({"final_loss": loss})
 
 

@@ -13,7 +13,7 @@ torchrun the CLI builds the mesh and rank 0 alone logs and saves. Runs on
 CUDA unless the caller passes device="cpu".
 
   python -m premvos_tpu_torch.train.train_reid --images <dir> \\
-      --annotations instances.json --steps 1000 [--out model.pt]
+      --annotations instances.json --steps 1000 [--out model.pt | DIR]
   torchrun --nproc_per_node N -m premvos_tpu_torch.train.train_reid ...
 """
 
@@ -34,6 +34,7 @@ from premvos_tpu_torch.parallel.mesh import as_mesh, init_from_env
 from premvos_tpu_torch.pipeline.runner import place
 from premvos_tpu_torch.train.losses import batch_hard_triplet
 from premvos_tpu_torch.train.trainer import run_steps
+from premvos_tpu_torch.utils.checkpoint import save_net
 
 
 def pk_device_batch(dataset, rng: np.random.Generator, p: int, k: int, device, mesh=None):
@@ -99,7 +100,9 @@ def main(argv=None):
     ap.add_argument("--annotations", required=True)
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
-    ap.add_argument("--out", default=None, help="save the trained state_dict here")
+    ap.add_argument("--out", default=None,
+                    help="save the trained net here: its state_dict to a path ending in .pt, "
+                         "else an orbax directory the JAX package restores")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -109,7 +112,7 @@ def main(argv=None):
     if mesh.rank != 0:
         return
     if args.out:
-        torch.save(model.state_dict(), args.out)
+        save_net(args.out, model)
     print({"final_loss": loss})
 
 

@@ -25,6 +25,17 @@ libjpeg block-smooths:
                         arithmetic decoder cannot wait for the next block,
                         so Pillow refuses it at its default block size and
                         reads it at a larger one (no decode committed)
+  ../damaged/<name>.jpg  damaged files (tests/_jpeg_damage.py) that Pillow
+                        reads: scripts/make_jpeg_fixtures.py's frame 0
+                        written by Pillow with restart intervals and a
+                        restart marker dropped, renumbered (+1, -2) or
+                        preceded by garbage, or swapped in a progressive
+                        file; frames whose scan data ends early at an EOI
+                        marker (baseline, progressive, the arithmetic-coded
+                        frame above); the small lossless file with a marker
+                        dropped and cut early
+  ../damaged/decoded/<name>.png
+                        Pillow's decode of each, as decoded/ above
 
 The files are written by scripts/jpeg_codings_encoder.c, a small C program
 over libjpeg, which this script compiles with gcc against the system's
@@ -33,13 +44,15 @@ built with arithmetic coding) for SOF9 and SOF10, and with the libjpeg-turbo
 3.1 that Pillow bundles (pillow.libs/libjpeg-*.so.62.4.0: libjpeg-turbo 3
 has jpeg_enable_lossless, which the 2.1 header does not declare) for SOF3.
 Run it on a machine with gcc, libjpeg's headers and Pillow, not on the
-card's. The outputs are committed, so rerun only to change them.
+card's. The outputs are committed, so rerun only to change them;
+`--only damaged` rewrites the damaged files alone (Pillow only, no gcc).
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import io
 import os
 import shutil
 import subprocess
@@ -138,12 +151,67 @@ def scan_offsets(data: bytes) -> list[int]:
     return out
 
 
+def write_damaged(out: str, codings: str) -> None:
+    """The damaged files and Pillow's decodes (docstring above)."""
+    from PIL import Image, ImageFile
+
+    from make_jpeg_fixtures import scene
+    from premvos_tpu_torch.io_compat.png import write_png
+    from tests import _jpeg_damage as damage
+
+    def pillow(**kw) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(scene(0)[0]).save(buf, "JPEG", **kw)
+        return buf.getvalue()
+
+    def coding(name: str) -> bytes:
+        with open(os.path.join(codings, name + ".jpg"), "rb") as f:
+            return f.read()
+
+    rows = pillow(quality=96, restart_marker_rows=1)
+    blocks = pillow(quality=90, restart_marker_blocks=6)
+    progressive = pillow(quality=90, progressive=True, restart_marker_rows=2)
+    middle = lambda data: len(damage.restart_markers(data)) // 2  # noqa: E731
+    files = {
+        "frame_restart_drop": damage.drop(rows, middle(rows)),
+        "frame_restart_rst+1": damage.renumber(rows, middle(rows), 1),
+        "frame_restart_rst-2": damage.renumber(blocks, middle(blocks), -2),
+        "frame_restart_garbage": damage.garbage_before(blocks, middle(blocks)),
+        "frame_progressive_restart_swap": damage.swap(progressive, middle(progressive)),
+        "frame_early_end_30": damage.early_end(pillow(quality=96), 0.3),
+        "frame_progressive_early_end_50": damage.early_end(pillow(quality=90, progressive=True),
+                                                           0.5),
+        "frame_arith_seq_early_end_50": damage.early_end(coding("frame_arith_seq"), 0.5),
+        "lossless_restart_drop_early_end_70": damage.early_end(
+            damage.drop(coding("lossless_p1_pt0_444_restart1"), 10), 0.7),
+    }
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    os.makedirs(os.path.join(out, "decoded"))
+    ImageFile.MAXBLOCK = 65536  # Pillow's default read block, as the readers read
+    for name, data in files.items():
+        path = os.path.join(out, name + ".jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        with Image.open(path) as im:
+            write_png(os.path.join(out, "decoded", name + ".png"), np.asarray(im.convert("RGB")))
+    total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+    print(f"wrote {len(files)} damaged files and their decodes to {out}: {total} bytes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "tests", "data", "jpeg", "codings"))
+    ap.add_argument("--damaged-out", default=os.path.join(REPO, "tests", "data", "jpeg",
+                                                          "damaged"))
+    ap.add_argument("--only", choices=("all", "codings", "damaged"), default="all")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "scripts"))
+    if args.only != "codings":
+        write_damaged(args.damaged_out, args.out)
+    if args.only == "damaged":
+        return 0
     from PIL import Image
 
     from make_jpeg_fixtures import scene

@@ -35,8 +35,26 @@ StandardCheckpointer) and orbax's other handlers:
                             OCDBT store, as a later version: Fortran order,
                             dimension_separator "/", several chunks per
                             array (edge chunks partly outside the array)
-  zarr3/                    PyTreeCheckpointHandler(use_zarr3=True), which
-                            the reader refuses
+  zarr3/                    PyTreeCheckpointHandler(use_zarr3=True): zarr v3
+                            arrays, each one shard (sharding_indexed: inner
+                            bytes + zstd, index bytes + crc32c)
+  tiny_f32_zarr3/           tiny_f32's tree so, a bundle load_params takes
+  zarr3_no_ocdbt/           the same with use_ocdbt=False (plain files)
+  zarr3_no_compression/     the same with use_compression=False
+  zarr3_inner_chunks/       the same with SaveArgs(chunk_byte_size=64):
+                            several inner chunks a shard
+  zarr3_layouts/            zarr3/ with four arrays rewritten through
+                            tensorstore's zarr3 driver, as a later OCDBT
+                            version: the "v2" chunk key encoding over plain
+                            bytes + zstd chunks (edge chunks partly outside
+                            the array), the shard index at the start, an
+                            inner chunk and chunks equal to fill_value
+                            ("NaN" for one; stored, as orbax's restore
+                            refuses a chunk that is not)
+  davis2017_val_tiled_zarr3/
+                            davis2017_val_tiled's tree saved with
+                            PyTreeCheckpointHandler(use_zarr3=True); its
+                            record is davis2017_val_tiled.json
 
 `tiled_values` keeps the checkpoints small: every array of 4096 elements
 or more is a block of 1021 values from
@@ -46,7 +64,8 @@ BN bias and mean and layer biases within 5 % of 0 (chip_smoke.py phase
 7d's rule: further from them, davis2017_val tracks nothing after frame 0),
 these on a grid of 2^-8 so that their many small arrays compress too.
 Run it on a machine with JAX, orbax and tensorstore, not on the card's;
-the outputs are committed, so rerun only to change them. JAX's init at
+the outputs are committed, so rerun only to change them (`--only zarr3`
+writes the zarr3 fixtures alone). JAX's init at
 davis2017_val is not run: the tree's shapes come from `jax.eval_shape`.
 """
 
@@ -150,11 +169,16 @@ def write_full(out: str) -> None:
     print(f"davis2017_val_tiled: {len(leaves)} leaves, {record['parameters']} parameters")
 
 
-def write_tiny(out: str) -> None:
+def tiny_tree() -> dict:
     tree = tiled_bundle(TINY)
     heads = tree["maskrcnn"]["params"]
     for head, layer in (("rpn", "Conv_2"), ("box_head", "Dense_3")):
         heads[head][layer] = jax.tree.map(jnp.zeros_like, heads[head][layer])
+    return tree
+
+
+def write_tiny(out: str) -> None:
+    tree = tiny_tree()
     save_params(fresh(os.path.join(out, "tiny_f32")), tree)
     save_params(fresh(os.path.join(out, "tiny_bf16")),
                 jax.tree.map(lambda x: x.astype(jnp.bfloat16), tree))
@@ -187,8 +211,6 @@ def write_options(out: str) -> None:
         fresh(os.path.join(out, "no_ocdbt")), args=ocp.args.StandardSave(tree))
     ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_compression=False)).save(
         fresh(os.path.join(out, "no_compression")), args=ocp.args.PyTreeSave(tree))
-    ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_zarr3=True)).save(
-        fresh(os.path.join(out, "zarr3")), args=ocp.args.PyTreeSave(tree))
 
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("d",))
     x = jax.device_put(jnp.arange(48, dtype=jnp.float32).reshape(8, 6),
@@ -215,14 +237,85 @@ def write_options(out: str) -> None:
         ts.open(spec).result().write(value).result()
 
 
+def zarr3_save(path: str, tree, **handler) -> None:
+    ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_zarr3=True, **handler)).save(
+        fresh(path), args=ocp.args.PyTreeSave(tree))
+
+
+def write_zarr3(out: str) -> None:
+    tree = dtypes_tree()
+    zarr3_save(os.path.join(out, "zarr3"), tree)
+    zarr3_save(os.path.join(out, "zarr3_no_ocdbt"), tree, use_ocdbt=False)
+    zarr3_save(os.path.join(out, "zarr3_no_compression"), tree, use_compression=False)
+    zarr3_save(os.path.join(out, "tiny_f32_zarr3"), tiny_tree())
+    small = jax.tree.map(lambda _: ocp.SaveArgs(chunk_byte_size=64), tree)
+    ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_zarr3=True)).save(
+        fresh(os.path.join(out, "zarr3_inner_chunks")),
+        args=ocp.args.PyTreeSave(tree, save_args=small))
+
+    # zarr3_layouts/: zarr3/ with four arrays rewritten as a later version.
+    path = os.path.join(out, "zarr3_layouts")
+    zarr3_save(path, tree)
+    f8 = np.asarray(tree["f8"]).copy()
+    f8[0] = np.nan  # a whole inner chunk equal to fill_value "NaN"
+    i8 = np.asarray(tree["i8"]).copy()
+    i8[[0, 2]] = 0  # chunks equal to fill_value 0
+    zstd_codec = {"name": "zstd", "configuration": {"level": 1, "checksum": False}}
+    layouts = (
+        ("f4", np.asarray(tree["f4"]), [2, 2], "v2", [{"name": "bytes",
+                                                       "configuration": {"endian": "little"}},
+                                                      zstd_codec], None),
+        ("u1", np.asarray(tree["u1"]), [2, 2, 3], "default",
+         [{"name": "sharding_indexed", "configuration": {
+             "chunk_shape": [1, 1, 3], "index_location": "start",
+             "codecs": [{"name": "bytes"}, zstd_codec],
+             "index_codecs": [{"name": "bytes", "configuration": {"endian": "little"}},
+                              {"name": "crc32c"}]}}], None),
+        ("f8", f8, [2, 3, 2], "default",
+         [{"name": "sharding_indexed", "configuration": {
+             "chunk_shape": [1, 3, 2], "codecs": [{"name": "bytes"}, zstd_codec],
+             "index_codecs": [{"name": "bytes", "configuration": {"endian": "little"}},
+                              {"name": "crc32c"}]}}], "NaN"),
+        ("i8", i8, [1], "default", [{"name": "bytes", "configuration": {"endian": "little"}}],
+         0),
+    )
+    for name, value, chunks, encoding, codecs, fill in layouts:
+        spec = {
+            "driver": "zarr3",
+            "kvstore": {"driver": "ocdbt", "base": f"file://{os.path.abspath(path)}/",
+                        "path": f"{name}/"},
+            "metadata": {"shape": list(value.shape), "data_type": value.dtype.name,
+                         "chunk_grid": {"name": "regular",
+                                        "configuration": {"chunk_shape": chunks}},
+                         "chunk_key_encoding": {"name": encoding},
+                         "codecs": codecs,
+                         "fill_value": fill if fill is not None else 0},
+            "store_data_equal_to_fill_value": True,
+            "create": True, "delete_existing": True,
+        }
+        ts.open(spec).result().write(value).result()
+
+
+def write_full_zarr3(out: str) -> None:
+    cfg = load_config(os.path.join(REPO, "configs", "davis2017_val.json"))
+    path = os.path.join(out, "davis2017_val_tiled_zarr3")
+    zarr3_save(path, tiled_bundle(cfg))
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    print(f"davis2017_val_tiled_zarr3: {size} bytes")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(REPO, "tests", "data", "orbax"))
+    ap.add_argument("--only", choices=("all", "zarr3"), default="all")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
-    write_options(args.out)
-    write_tiny(args.out)
-    write_full(args.out)
+    if args.only == "all":
+        write_options(args.out)
+        write_tiny(args.out)
+        write_full(args.out)
+    write_zarr3(args.out)
+    write_full_zarr3(args.out)
 
 
 if __name__ == "__main__":

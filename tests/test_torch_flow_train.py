@@ -289,8 +289,10 @@ def test_synthetic_chairs_and_batches_equal_jax(chairs, tmp_path):
 
 
 def test_ppm_codec_matches_pillow(tmp_path):
-    """write_ppm's bytes are Pillow's; read_ppm reads Pillow's files, and a
-    header with a comment and other whitespace."""
+    """write_ppm's bytes are Pillow's; read_ppm reads Pillow's files, a
+    header with a comment and other whitespace, and a P5 (gray) file as
+    Pillow's convert("RGB") reads it; a header Pillow refuses is refused
+    naming the file (tests/test_torch_pnm.py holds every other header)."""
     from PIL import Image
 
     img = np.random.default_rng(6).integers(0, 256, (7, 11, 3)).astype(np.uint8)
@@ -303,8 +305,13 @@ def test_ppm_codec_matches_pillow(tmp_path):
     np.testing.assert_array_equal(
         np.asarray(Image.open(tmp_path / "c.ppm").convert("RGB")), img)
     (tmp_path / "g.ppm").write_bytes(b"P5\n11 7\n255\n" + img[..., 0].tobytes())
-    with pytest.raises(ValueError, match="P6"):
-        read_ppm(tmp_path / "g.ppm")
+    np.testing.assert_array_equal(read_ppm(tmp_path / "g.ppm"),
+                                  np.repeat(img[..., :1], 3, axis=2))
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(tmp_path / "g.ppm").convert("RGB")), read_ppm(tmp_path / "g.ppm"))
+    (tmp_path / "z.ppm").write_bytes(b"P6\n11 7\n0\n" + img.tobytes())
+    with pytest.raises(ValueError, match="z.ppm: P6 maxval 0"):
+        read_ppm(tmp_path / "z.ppm")
 
 
 def test_flo_codec_matches_jax(tmp_path):

@@ -22,6 +22,7 @@ cut files before their end (the truncation sweep), and Pillow decodes every
 one of them as the reference.
 """
 
+import functools
 import io
 import os
 
@@ -35,6 +36,7 @@ from premvos_tpu_torch import kernels
 from premvos_tpu_torch.data import davis as tdavis
 from premvos_tpu_torch.io_compat import jpeg
 from premvos_tpu_torch.io_compat.png import read_png, write_png
+from tests import _jpeg_damage
 
 CODINGS = os.path.join(os.path.dirname(__file__), "data", "jpeg", "codings")
 
@@ -543,6 +545,118 @@ def test_truncation_depends_on_pillows_read_block(tmp_path, monkeypatch):
     np.testing.assert_array_equal(jpeg.read_jpeg(path), want)
     monkeypatch.setattr(ImageFile, "MAXBLOCK", 1 << 22)
     assert _pillow_reads(path) is None
+
+
+# ------------------------------------- restart damage and early ends
+
+# Files with restart intervals to damage (tests/_jpeg_damage.py): Pillow-
+# written baseline and progressive files, small and at 480×854 (larger
+# than one of Pillow's 64 KiB read blocks), and the committed arithmetic
+# and lossless codings.
+RESTART_FILES = {
+    "blocks_97x131": lambda: _pillow(_image(97, 131, 1), quality=80, restart_marker_blocks=3),
+    "rows_422_97x131": lambda: _pillow(_image(97, 131, 2), quality=80, subsampling=1,
+                                       restart_marker_rows=1),
+    "progressive_rows_97x131": lambda: _pillow(_image(97, 131, 3), quality=80,
+                                               progressive=True, restart_marker_rows=1),
+    "frame_blocks": lambda: _pillow(_image(480, 854, 4), quality=95, restart_marker_blocks=4),
+    "frame_rows": lambda: _pillow(_image(480, 854, 5), quality=95, restart_marker_rows=1),
+    "frame_progressive": lambda: _pillow(_image(480, 854, 6), quality=90, progressive=True,
+                                         restart_marker_rows=1),
+    "arith_seq": lambda: _coding("arith_seq_420_61x83_restart3"),
+    "arith_prog": lambda: _coding("arith_prog_420_61x83_restart3"),
+    "lossless_444": lambda: _coding("lossless_p1_pt0_444_restart1"),
+    "lossless_420": lambda: _coding("lossless_p6_pt0_420_restart2"),
+}
+RESTART_DAMAGE = ("drop", "drop_first", "drop_last", "swap", "duplicate", "garbage",
+                  "rst+1", "rst-1", "rst+2", "rst-2", "rst+3", "rst-3")
+
+
+@functools.lru_cache(maxsize=None)
+def _file(table, name):
+    return {"restart": RESTART_FILES, "early": EARLY_END_FILES}[table][name]()
+
+
+def _equal_to_pillow(path):
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(jpeg.read_jpeg(path), want)
+
+
+@pytest.mark.parametrize("damage", RESTART_DAMAGE)
+@pytest.mark.parametrize("name", list(RESTART_FILES))
+def test_restart_damage_reads_as_pillow(name, damage, tmp_path, monkeypatch):
+    """A restart marker dropped, swapped with the next, doubled, preceded by
+    bytes that are no marker, or renumbered by ±1, ±2, ±3: libjpeg's
+    read_restart_marker and jpeg_resync_to_restart (Pillow keeps libjpeg's
+    default) read the expected marker, discard one too far away, pass over
+    RST(n-1) and RST(n-2) to the next marker, or leave RST(n+1), RST(n+2)
+    and any other marker unread, so that the coming interval reads as empty;
+    Huffman sequential and progressive, arithmetic and lossless scans. Equal
+    to Pillow's decode bit for bit."""
+    path = tmp_path / f"{name}_{damage}.jpg"
+    path.write_bytes(_jpeg_damage.restart_cases(_file("restart", name))[damage])
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 65536)
+    _equal_to_pillow(path)
+
+
+# Files whose scan data is cut and closed with EOI: every coding, small and
+# at 480×854, with and without restart intervals.
+EARLY_END_FILES = {
+    "baseline_97x131": lambda: _pillow(_image(97, 131, 7), quality=80),
+    "frame_444": lambda: _pillow(_image(480, 854, 8), quality=95, subsampling=0),
+    "frame_420": lambda: _pillow(_image(480, 854, 9), quality=75),
+    "frame_restart_rows": lambda: _pillow(_image(480, 854, 5), quality=95,
+                                          restart_marker_rows=1),
+    "progressive_97x131": lambda: _pillow(_image(97, 131, 10), quality=80, progressive=True),
+    "frame_progressive": lambda: _pillow(_image(480, 854, 11), quality=90, progressive=True),
+    "progressive_rows_97x131": lambda: _pillow(_image(97, 131, 3), quality=80,
+                                               progressive=True, restart_marker_rows=1),
+    "frame_smoothed": lambda: _coding("frame_smoothed"),
+    "frame_arith_seq": lambda: _coding("frame_arith_seq"),
+    "frame_arith_prog": lambda: _coding("frame_arith_prog"),
+    "arith_seq_restart": lambda: _coding("arith_seq_420_61x83_restart3"),
+    "frame_lossless": lambda: _coding("frame_lossless"),
+    "lossless_420": lambda: _coding("lossless_p2_pt2_420"),
+    "lossless_restart": lambda: _coding("lossless_p6_pt0_420_restart2"),
+}
+EARLY_END_AT = (0.1, 0.3, 0.5, 0.7, 0.95)
+
+
+@pytest.mark.parametrize("at", EARLY_END_AT)
+@pytest.mark.parametrize("name", list(EARLY_END_FILES))
+def test_early_end_reads_as_pillow(name, at, tmp_path, monkeypatch):
+    """Scan data that ends early at a marker (the file cut at `at` of its
+    length, EOI appended): libjpeg decodes the MCU in which the bits run
+    out with zero bits, then sets insufficient_data and leaves every later
+    MCU of the restart interval undecoded (jdhuff.c, jdphuff.c; jdlhuff.c
+    zeroes the rows and restarts the predictors); a restart clears the flag
+    only with no marker left unread. The arithmetic decoder reads zeros to
+    the end instead. A progressive file's block smoothing takes the
+    coefficient bits from before the cut scan for every iMCU row past the
+    last one begun with data (jdcoefct.c, last_good_iMCU_row). The
+    coefficients such scans leave go through the IDCT as libjpeg-turbo's
+    SIMD code computes it, 16-bit wraps and saturation included."""
+    path = tmp_path / f"{name}_{at}.jpg"
+    path.write_bytes(_jpeg_damage.early_end(_file("early", name), at))
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 65536)
+    _equal_to_pillow(path)
+
+
+DAMAGED = os.path.join(os.path.dirname(__file__), "data", "jpeg", "damaged")
+DAMAGED_FILES = sorted(f[:-4] for f in os.listdir(DAMAGED) if f.endswith(".jpg"))
+
+
+@pytest.mark.parametrize("name", DAMAGED_FILES)
+def test_committed_damaged_files_read_as_pillow(name, monkeypatch):
+    """The damaged files chip_smoke.py reads on the card
+    (scripts/make_jpeg_codings_fixtures.py writes them): equal to Pillow's
+    decode and to the committed one."""
+    path = os.path.join(DAMAGED, name + ".jpg")
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 65536)
+    _equal_to_pillow(path)
+    np.testing.assert_array_equal(jpeg.read_jpeg(path),
+                                  read_png(os.path.join(DAMAGED, "decoded", name + ".png"))[0])
 
 
 # ------------------------------------------------------------- refusals

@@ -21,6 +21,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -50,7 +51,9 @@ from tests.test_pipeline import TINY
 
 DATA = Path(__file__).parent / "data" / "orbax"
 SMALL = ("tiny_f32", "tiny_bf16", "tiny_maskrcnn", "tiny_refine", "tiny_flow", "tiny_reid",
-         "sharded", "dtypes", "no_ocdbt", "no_compression", "layouts")
+         "sharded", "dtypes", "no_ocdbt", "no_compression", "layouts",
+         "zarr3", "zarr3_no_ocdbt", "zarr3_no_compression", "zarr3_inner_chunks",
+         "zarr3_layouts", "tiny_f32_zarr3")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -130,6 +133,20 @@ def test_full_width_fixture_matches_its_record():
     assert params == record["parameters"] == 284_696_994
 
 
+def test_full_width_zarr3_fixture_matches_the_record():
+    """The same davis2017_val tree saved with use_zarr3 (one shard an
+    array): each leaf's sha256 as the zarr v2 fixture's record holds it."""
+    record = json.loads((DATA / "davis2017_val_tiled.json").read_text())
+    want = {leaf["path"]: leaf for leaf in record["leaves"]}
+    seen = set()
+    for keys, a in iter_arrays(DATA / "davis2017_val_tiled_zarr3"):
+        leaf = want[".".join(keys)]
+        assert (str(a.dtype), list(a.shape)) == (leaf["dtype"], leaf["shape"]), keys
+        assert hashlib.sha256(a.tobytes()).hexdigest() == leaf["sha256"], keys
+        seen.add(".".join(keys))
+    assert seen == set(want) and len(seen) == 1359
+
+
 @pytest.fixture(scope="module")
 def tiny_models():
     return tr.build_models(tiny_cfg(), device="cpu")
@@ -150,7 +167,7 @@ def test_one_nets_tree_loads_as_the_bridge_loads_orbaxs_restore(tiny_models, net
     module.load_state_dict(got, strict=True)
 
 
-@pytest.mark.parametrize("name", ("tiny_f32", "tiny_bf16"))
+@pytest.mark.parametrize("name", ("tiny_f32", "tiny_bf16", "tiny_f32_zarr3"))
 def test_load_params_takes_the_orbax_bundle(name):
     """utils/checkpoint.load_params on the orbax directory: every net's
     tensors equal params_from_jax of orbax's restore, cast to the modules'
@@ -168,8 +185,13 @@ def test_load_params_takes_the_orbax_bundle(name):
 
 
 def test_refusals_name_what_they_refuse(tmp_path, tiny_models):
-    with pytest.raises(OrbaxFormatError, match="use_zarr3"):
-        read_orbax(DATA / "zarr3")
+    zarr3 = tmp_path / "zarr3"
+    shutil.copytree(DATA / "zarr3_no_ocdbt", zarr3)
+    meta = json.loads((zarr3 / "f4" / "zarr.json").read_text())
+    meta["codecs"].insert(0, {"name": "transpose", "configuration": {"order": [1, 0]}})
+    (zarr3 / "f4" / "zarr.json").write_text(json.dumps(meta))
+    with pytest.raises(OrbaxFormatError, match="array f4: codec 'transpose'"):
+        read_orbax(zarr3)
     # A net's tree on another net's module: both lists given.
     with pytest.raises(ValueError, match=r"does not match the module: missing \[.*\]; extra \["):
         orbax_state_dict(DATA / "tiny_flow", tiny_models.refine)
@@ -222,6 +244,72 @@ def test_refusals_name_what_they_refuse(tmp_path, tiny_models):
     chunk.write_bytes(chunk.read_bytes()[:-5])
     with pytest.raises(zstd.ZstdTruncated, match="f8/0.0.0"):
         read_orbax(cut)
+
+
+def _zarr3_copy(tmp_path, edit):
+    d = tmp_path / f"z{len(list(tmp_path.iterdir()))}"
+    shutil.copytree(DATA / "zarr3_no_ocdbt", d)
+    edit(d)
+    return d
+
+
+def _zarr3_json(d, name, edit):
+    path = d / name / "zarr.json"
+    meta = json.loads(path.read_text())
+    edit(meta)
+    path.write_text(json.dumps(meta))
+
+
+def _shard_codec(meta):
+    return meta["codecs"][0]["configuration"]
+
+
+def _flip_index_byte(d):
+    shard = d / "f4" / "c" / "0" / "0"
+    raw = bytearray(shard.read_bytes())
+    raw[-10] ^= 1  # inside the index, before its CRC-32C
+    shard.write_bytes(bytes(raw))
+
+
+def _empty_inner_chunk(d):
+    """The index pair of f4's one inner chunk set to 2^64 - 1 (never
+    written), its CRC-32C recomputed."""
+    shard = d / "f4" / "c" / "0" / "0"
+    raw = shard.read_bytes()
+    index = b"\xff" * 16
+    shard.write_bytes(raw[:-20] + index + struct.pack("<I", zstd.crc32c(index)))
+
+
+ZARR3_REFUSALS = {
+    "crc_mismatch": (_flip_index_byte, r"shard f4/c/0/0 index: CRC-32C mismatch", True),
+    "gzip": (lambda d: _zarr3_json(d, "f4", lambda m: _shard_codec(m)["codecs"].__setitem__(
+        1, {"name": "gzip", "configuration": {"level": 5}})), "codec 'gzip'", False),
+    "blosc": (lambda d: _zarr3_json(d, "i4", lambda m: m["codecs"].append(
+        {"name": "blosc", "configuration": {}})), "codec 'blosc'", False),
+    "big_endian": (lambda d: _zarr3_json(d, "f8", lambda m: _shard_codec(m)["codecs"][0]
+                                         .__setitem__("configuration", {"endian": "big"})),
+                   "endian 'big'", False),
+    "missing_chunk": (lambda d: (d / "f4" / "c" / "0" / "0").unlink(),
+                      r"array f4: chunk f4/c/0/0 is missing", True),
+    "empty_inner_chunk": (_empty_inner_chunk, r"inner chunk \(0, 0\) is missing", True),
+}
+
+
+@pytest.mark.parametrize("case", list(ZARR3_REFUSALS))
+def test_zarr3_refusals_name_what_they_refuse(case, tmp_path):
+    """zarr v3 features the reader does not read, each refused by name: a
+    codec other than bytes, sharding_indexed, zstd and crc32c, a big-endian
+    bytes codec, a shard index whose CRC-32C does not match. A chunk never
+    written (a missing key, an inner chunk whose index pair is 2^64 - 1)
+    is refused too, as orbax's restore refuses it (`orbax_refuses`): it
+    reads with tensorstore's fill_missing_data_reads off."""
+    edit, message, orbax_refuses = ZARR3_REFUSALS[case]
+    d = _zarr3_copy(tmp_path, edit)
+    with pytest.raises(OrbaxFormatError, match=message):
+        read_orbax(d)
+    if orbax_refuses:
+        with pytest.raises(Exception):
+            orbax_load(d)
 
 
 def _ts_store(path, **config):
@@ -313,10 +401,12 @@ def test_run_davis_checkpoint_matches_the_jax_cli(tmp_path, monkeypatch):
 
 
 def test_the_reader_loads_no_jax_orbax_or_tensorstore(tmp_path):
-    """Reading every fixture and loading the bundle into the port's modules,
-    in a fresh interpreter, loads none of jax, orbax, tensorstore,
-    ml_dtypes, zstandard, premvos_tpu or PIL (the card's machine has none),
-    and no module of the port or chip_smoke.py imports them."""
+    """Reading every fixture (zarr v2 and v3), writing each back with the
+    port's writer, reading every PNM fixture and loading the bundle into
+    the port's modules, in a fresh interpreter, loads none of jax, orbax,
+    tensorstore, ml_dtypes, zstandard, premvos_tpu or PIL (the card's
+    machine has none), and no module of the port or chip_smoke.py imports
+    them."""
     repo = Path(__file__).parent.parent
     code = (
         "import sys, dataclasses\n"
@@ -324,8 +414,15 @@ def test_the_reader_loads_no_jax_orbax_or_tensorstore(tmp_path):
         "from premvos_tpu_torch.pipeline.runner import build_models\n"
         "from premvos_tpu_torch.utils.checkpoint import load_params\n"
         "from premvos_tpu_torch.config import load_config\n"
+        "from premvos_tpu_torch.io_compat.orbax_write import write_orbax\n"
+        "from premvos_tpu_torch.io_compat.ppm import read_ppm\n"
+        "import glob\n"
         f"for name in {SMALL!r}:\n"
-        f"    read_orbax({str(DATA)!r} + '/' + name)\n"
+        f"    tree = read_orbax({str(DATA)!r} + '/' + name)\n"
+        "    if not name.startswith('tiny'):  # the tiny bundles are 345 MB unpacked\n"
+        "        write_orbax(sys.argv[2] + '/' + name, tree)\n"
+        f"for p in glob.glob({str(DATA.parent / 'pnm')!r} + '/*.ppm'):\n"
+        "    read_ppm(p)\n"
         f"cfg = load_config(sys.argv[1])\n"
         f"load_params({str(DATA / 'tiny_f32')!r}, build_models(cfg, device='cpu'))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'orbax',\n"
@@ -337,7 +434,8 @@ def test_the_reader_loads_no_jax_orbax_or_tensorstore(tmp_path):
     tc.save_config(cfg, tiny_cfg())
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(repo)
-    proc = subprocess.run([sys.executable, "-c", code, str(cfg)], cwd=repo, env=env,
+    proc = subprocess.run([sys.executable, "-c", code, str(cfg), str(tmp_path)], cwd=repo,
+                          env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     pattern = re.compile(
