@@ -6,9 +6,9 @@
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from premvos_tpu_torch/kernels/*.cu with nvcc
-     for sm_90a, and beside them the three host libraries (the JPEG
-     decoder, the RLE codec and the zstd decoder, kernels/*.cc) with g++,
-     all started together;
+     for sm_90a, and beside them the four host libraries (the JPEG
+     decoder and encoder, the RLE codec and the zstd decoder, kernels/*.cc)
+     with g++, all started together;
   3. hold each kernel against its plain PyTorch version (and the RoIAlign
      backward against the plain version's autograd) on the card at the
      shapes of its path (inference: configs/davis2017_val.json; training:
@@ -138,8 +138,9 @@ Phases (any failure raises and exits non-zero):
      record's 128×192 configuration with 2 / 1 / 1 sequences, 20 / 10 / 20
      / 10 training steps, 4 + 2 search trials, one seed, an 8-step fused
      fine-tune), in a temporary directory, the launch counters zeroed just
-     before and read just after: every J&F finite and in [0, 1], the four
-     trained nets changed, every kernel launched;
+     before and read just after: the generated frames JPEG (the port's
+     encoder, read back by its decoder), every J&F finite and in [0, 1],
+     the four trained nets changed, every kernel launched;
   7d. checkpoints and JPEG frames at davis2017_val: (a) seeded random
      source nets (frozen-BN statistics and biases drawn away from 1 and 0)
      written as a TF dict (Mask R-CNN, refinement, ReID), a
@@ -198,6 +199,14 @@ Phases (any failure raises and exits non-zero):
      (tests/data/pnm) decoded without Pillow equal to Pillow's committed
      decodes (`launches_by_path` "davis_cli_orbax_written",
      "davis_cli_orbax_zarr3", "train_maskrcnn_out");
+  7h. the JPEG encoder on the card's host, without Pillow
+     (io_compat/jpeg.py::encode over kernels/jpeg_encode.cc): each source
+     of tests/data/jpeg/encoded (scripts/make_jpeg_encode_fixtures.py:
+     480×854 at quality 95 and 96, 128×192 at 96, 30×40 at 95, 17×33 at 1
+     and 100) encoded to its committed Pillow file byte for byte, the three
+     frames of tests/data/jpeg/frames re-encoded from their scene
+     (scripts/make_jpeg_fixtures.py) to their bytes, and the ms to encode
+     and to decode a 480×854 frame (the median of 9 calls each);
   7e. data parallelism (premvos_tpu_torch.parallel): (a) a world-size-1
      NCCL group in this process on cuda:0, Mask R-CNN at full width
      (ProposalConfig(), 480×864, batch 2, float32 without TF32):
@@ -305,8 +314,9 @@ KERNELS = {
 }
 
 # The host libraries phase 2 builds beside the kernels (g++): the JPEG
-# decoder, the RLE codec and the checkpoint reader's zstd decoder.
-HOST_SOURCES = ("jpeg_decode.cc", "rle.cc", "zstd_decode.cc")
+# decoder and encoder, the RLE codec and the checkpoint reader's zstd
+# decoder.
+HOST_SOURCES = ("jpeg_decode.cc", "jpeg_encode.cc", "rle.cc", "zstd_decode.cc")
 
 # The kernels each main path must launch: inference (phase 5) and training
 # (phase 7).
@@ -2177,13 +2187,16 @@ def synthetic_protocol_cut(np, torch, wrappers):
     """`python -m premvos_tpu_torch.eval.synthetic_benchmark` through its
     main(argv) with SYNTHETIC_CUT, on the card, in a temporary directory
     (nothing is written in the repo; its printing goes to stderr), the
-    launch counters zeroed just before and read just after: every J&F
-    finite and in [0, 1], all four trained nets changed from their seeded
-    draw, and every kernel of the port launched."""
+    launch counters zeroed just before and read just after: the generated
+    frames JPEG files of the canvas's size, every J&F finite and in [0, 1],
+    all four trained nets changed from their seeded draw, and every kernel
+    of the port launched."""
     import contextlib
+    import glob
     import tempfile
 
     from premvos_tpu_torch.eval import synthetic_benchmark as sb
+    from premvos_tpu_torch.io_compat.jpeg import read_jpeg
     from premvos_tpu_torch.pipeline.runner import build_models, init_params
     from premvos_tpu_torch.utils.checkpoint import load_params
 
@@ -2203,6 +2216,11 @@ def synthetic_protocol_cut(np, torch, wrappers):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in wrappers.items()}
+        frames = sorted(glob.glob(os.path.join(tmp, "data*", "JPEGImages", "480p", "*", "*")))
+        if not frames or any(not f.endswith(".jpg") for f in frames):
+            fail(f"synthetic protocol: frames not JPEG: {[os.path.basename(f) for f in frames[:4]]}")
+        if read_jpeg(frames[0]).shape != (128, 192, 3):
+            fail(f"synthetic protocol: {frames[0]} is not a 128x192 RGB JPEG")
         cfg = sb.bench_config(canvas=(128, 192), depth=26)
         fresh = init_params(build_models(cfg), cfg, seed=0)
         trained = load_params(params, init_params(build_models(cfg), cfg, seed=0))
@@ -2218,7 +2236,7 @@ def synthetic_protocol_cut(np, torch, wrappers):
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels not launched on the synthetic protocol's path: {missing}")
-    return dict(argv=SYNTHETIC_CUT, wall_s=wall, seconds=record["seconds"],
+    return dict(argv=SYNTHETIC_CUT, wall_s=wall, seconds=record["seconds"], jpeg_frames=len(frames),
                 held_out=record["held_out"], ablation=record["ablation"],
                 finetune=record["finetune"], peak_bytes=torch.cuda.max_memory_allocated(),
                 launches=launches)
@@ -3256,6 +3274,60 @@ def orbax_write_full_width(np, torch, wrappers, cfg, labs_f32, n_frames: int = 9
     return report
 
 
+# ------------------------------------------------------------- phase 7h
+
+# The encoder's fixtures (scripts/make_jpeg_encode_fixtures.py, written by
+# Pillow): <name>.png the source, <name>_q<q>.jpg Pillow's file at quality q.
+JPEG_ENCODED = os.path.join(JPEG_FIXTURES, "encoded")
+
+
+def jpeg_encode_host(np, repeats: int = 9):
+    """Phase 7h: the port's JPEG encoder on the card's host, without Pillow.
+    Each committed source of tests/data/jpeg/encoded encoded to its
+    committed Pillow file byte for byte; the three frames of
+    tests/data/jpeg/frames re-encoded from their scene
+    (scripts/make_jpeg_fixtures.py) to their bytes; then the ms to encode
+    the 480×854 frame 0 at its quality and to decode the result (the median
+    of `repeats` calls each). Returns a report dict."""
+    import importlib.util
+
+    from premvos_tpu_torch.io_compat.jpeg import decode, encode
+    from premvos_tpu_torch.io_compat.png import read_png
+
+    fixtures = sorted(f for f in os.listdir(JPEG_ENCODED) if f.endswith(".jpg"))
+    if len(fixtures) != 6:
+        fail(f"{JPEG_ENCODED}: expected 6 encoded fixtures, found {fixtures}")
+    for name in fixtures:
+        source, quality = name[:-4].rsplit("_q", 1)
+        rgb = read_png(os.path.join(JPEG_ENCODED, source + ".png"))[0]
+        with open(os.path.join(JPEG_ENCODED, name), "rb") as f:
+            want = f.read()
+        if encode(rgb, int(quality)) != want:
+            fail(f"{name}: the port's encoding of {source}.png differs from Pillow's")
+    spec = importlib.util.spec_from_file_location(
+        "make_jpeg_fixtures", os.path.join(REPO, "scripts", "make_jpeg_fixtures.py"))
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    frames = sorted(os.listdir(os.path.join(JPEG_FIXTURES, "frames")))
+    for t, name in enumerate(frames):
+        with open(os.path.join(JPEG_FIXTURES, "frames", name), "rb") as f:
+            want = f.read()
+        if encode(scenes.scene(t)[0], scenes.QUALITY) != want:
+            fail(f"frames/{name}: the port's re-encoding differs from Pillow's file")
+    rgb = scenes.scene(0)[0]
+    enc, dec = [], []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        data = encode(rgb, scenes.QUALITY)
+        enc.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        decode(data)
+        dec.append(time.perf_counter() - t0)
+    return dict(fixtures=fixtures, frames=frames, hw=list(rgb.shape[:2]),
+                quality=scenes.QUALITY, bytes=len(data),
+                encode_ms=1e3 * statistics.median(enc), decode_ms=1e3 * statistics.median(dec))
+
+
 # ------------------------------------------------------------- phase 7e
 
 # The kernels phase 7e (b)'s data-parallel paths launch on each rank: the
@@ -3784,7 +3856,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # Phase 2 — build: the kernels (one nvcc a source) and, beside them, the
-    # three host libraries (g++), all started together.
+    # four host libraries (g++), all started together.
     from concurrent.futures import ThreadPoolExecutor
 
     from premvos_tpu_torch.io_compat import jpeg, rle_native, zstd
@@ -3796,6 +3868,7 @@ def main() -> int:
         host_libs = [f.result() for f in host]
     kernels.load()
     jpeg.load()
+    jpeg.load_encoder()
     zstd.load()
     if not rle_native.available():
         fail("rle_native did not load")
@@ -4035,8 +4108,8 @@ def main() -> int:
     log(f"synthetic protocol (cut: {' '.join(SYNTHETIC_CUT)}): wall {syn['wall_s']:.1f} s, "
         f"held-out J&F {syn['held_out']['J&F']:.4f}, oracle "
         f"{syn['held_out']['oracle_selection_JF']:.4f}, with fine-tune "
-        f"{syn['finetune']['with_finetune_JF']:.4f}, seconds {syn['seconds']}, launches "
-        f"{syn['launches']}")
+        f"{syn['finetune']['with_finetune_JF']:.4f}, seconds {syn['seconds']}, "
+        f"{syn['jpeg_frames']} JPEG frames, launches {syn['launches']}")
     torch.cuda.empty_cache()
 
     # Phase 7d — converted checkpoints, JPEG frames, rle_native, mask_iou.
@@ -4120,6 +4193,17 @@ def main() -> int:
         f"{rm['worst_grad_by_norm']:.3g} by norm")
     log(f"repaired readers without Pillow: {ow['repaired_files']}; phase {ow['phase_s']:.1f} s")
     torch.cuda.empty_cache()
+
+    # Phase 7h — the JPEG encoder, byte for byte against Pillow's files.
+    t0 = time.perf_counter()
+    enc = jpeg_encode_host(np)
+    enc["phase_s"] = time.perf_counter() - t0
+    report["jpeg_encode"] = enc
+    log(f"JPEG encoder without Pillow: {len(enc['fixtures'])} fixtures and "
+        f"{len(enc['frames'])} frames equal to Pillow's bytes; a {enc['hw'][0]}x{enc['hw'][1]} "
+        f"frame at quality {enc['quality']} ({enc['bytes']} bytes): encode "
+        f"{enc['encode_ms']:.3f} ms, decode {enc['decode_ms']:.3f} ms (median of 9, host; "
+        f"{smi}); phase {enc['phase_s']:.1f} s")
 
     # Phase 7e — data parallelism: one rank on NCCL, two ranks sharing the
     # card on gloo.

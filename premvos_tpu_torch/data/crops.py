@@ -26,7 +26,7 @@ import numpy as np
 from premvos_tpu_torch.data.davis import read_frame
 from premvos_tpu_torch.data.preprocess import resize_bicubic_pil, resize_linear
 from premvos_tpu_torch.io_compat import rle as rle_codec
-from premvos_tpu_torch.io_compat.png import write_png
+from premvos_tpu_torch.io_compat.jpeg import write_jpeg
 
 
 class InstanceCropDataset:
@@ -135,10 +135,9 @@ class VocCropDataset(InstanceCropDataset):
 
 def make_synthetic_coco(root, num_images: int = 4, per_image: int = 2,
                         hw=(64, 64)):
-    """A COCO-format tree: coloured rectangles as instances. The JAX
-    package's fixture draws the same images and annotations and saves the
-    images as JPEG (quality 95) with Pillow; the port writes them as PNG
-    through its own codec (`{i:06d}.png`), so they hold the drawn pixels."""
+    """A COCO-format tree: coloured rectangles as instances, the images
+    JPEG at quality 95 (`{i:06d}.jpg`): the JAX package's fixture byte for
+    byte, `instances.json` too."""
     root = Path(root)
     (root / "images").mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
@@ -165,8 +164,8 @@ def make_synthetic_coco(root, num_images: int = 4, per_image: int = 2,
                 }
             )
             aid += 1
-        name = f"{i:06d}.png"
-        write_png(root / "images" / name, img)
+        name = f"{i:06d}.jpg"
+        write_jpeg(root / "images" / name, img, 95)
         images.append({"id": i, "file_name": name, "height": h, "width": w})
     with open(root / "instances.json", "w") as f:
         json.dump({"images": images, "annotations": annotations}, f)

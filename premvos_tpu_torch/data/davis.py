@@ -22,8 +22,8 @@ from pathlib import Path
 import numpy as np
 
 from premvos_tpu_torch.data.palette import load_indexed_png, save_indexed_png
-from premvos_tpu_torch.io_compat.jpeg import read_jpeg
-from premvos_tpu_torch.io_compat.png import read_png, to_rgb, write_png
+from premvos_tpu_torch.io_compat.jpeg import read_jpeg, write_jpeg
+from premvos_tpu_torch.io_compat.png import read_png, to_rgb
 
 
 def read_frame(path) -> np.ndarray:
@@ -180,8 +180,8 @@ def save_results(out_dir, seq: str, labels: np.ndarray, frame_names=None):
 def make_synthetic_davis(
     root, sequences=("seq_a",), t: int = 4, hw=(64, 96), num_objects: int = 2
 ):
-    """Build a tiny DAVIS-layout tree with moving squares, PNG frames
-    (the JAX package's fixture writes the same scene as JPEG)."""
+    """Build a tiny DAVIS-layout tree with moving squares: JPEG frames at
+    quality 95, the JAX package's fixture byte for byte."""
     root = Path(root)
     rng = np.random.default_rng(0)
     h, w = hw
@@ -201,6 +201,6 @@ def make_synthetic_davis(
                 x = 8 + 24 * (obj - 1) + 2 * fi
                 img[y : y + 10, x : x + 10] = [60 * obj, 160, 60]
                 lab[y : y + 10, x : x + 10] = obj
-            write_png(jd / f"{fi:05d}.png", img)
+            write_jpeg(jd / f"{fi:05d}.jpg", img, 95)
             save_indexed_png(ad / f"{fi:05d}.png", lab)
     return root

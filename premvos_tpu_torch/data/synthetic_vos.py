@@ -6,17 +6,16 @@ FlyingChairs-layout flow pairs with ground-truth backward flow.
 
 Every draw comes from the same `np.random.default_rng` streams in the same
 order as the JAX package's generator, so a seed gives the same world: the
-same entities, paths, labels, flows and rendered frames. Two things differ,
-because the card's machine has neither Pillow nor OpenCV:
-
-  * frames are written as PNG (`JPEGImages/480p/<seq>/00000.png`) through
-    io_compat/png.py, where the JAX generator writes JPEG at quality 96.
-    The port's world is the JAX world without JPEG loss;
-  * the smooth background's INTER_CUBIC resize is `cv_compat.resize_cubic`
-    (OpenCV's own arithmetic; OpenCV's wheels run Intel IPP's, a few
-    float32 ulp apart), and the flow pairs' INTER_LINEAR resizes are
-    `cv_compat.resize_linear_u8` and `preprocess.resize_linear`. PPM and
-    `.flo` files go through io_compat/ppm.py and io_compat/flo.py.
+same entities, paths, labels, flows and rendered frames, and the same
+files: frames are JPEG at quality 96 (`JPEGImages/480p/<seq>/00000.jpg`),
+written by io_compat/jpeg.py with Pillow's bytes; PPM and `.flo` files go
+through io_compat/ppm.py and io_compat/flo.py. One thing differs, because
+the card's machine has no OpenCV: the smooth background's INTER_CUBIC
+resize is `cv_compat.resize_cubic` (OpenCV's own arithmetic; OpenCV's
+wheels run Intel IPP's, a few float32 ulp apart, which can move a rendered
+value by one level), and the flow pairs' INTER_LINEAR resizes are
+`cv_compat.resize_linear_u8` and `preprocess.resize_linear`. With IPP off
+the JAX generator writes the same tree byte for byte.
 
 World model (per sequence, every parameter drawn per sequence): a static
 low-frequency background; `n_tracked` annotated entities (square, disk or
@@ -38,7 +37,7 @@ from premvos_tpu_torch.data.cv_compat import resize_cubic, resize_linear_u8
 from premvos_tpu_torch.data.palette import save_indexed_png
 from premvos_tpu_torch.data.preprocess import resize_linear
 from premvos_tpu_torch.io_compat.flo import write_flo
-from premvos_tpu_torch.io_compat.png import write_png
+from premvos_tpu_torch.io_compat.jpeg import write_jpeg
 from premvos_tpu_torch.io_compat.ppm import write_ppm
 
 SHAPES = ("square", "disk", "triangle")
@@ -463,7 +462,8 @@ def make_synthetic_vos(
 
     Splits are disjoint samples of the same procedural distribution:
       ImageSets/2017/{train,tune,val}.txt. Train sequences annotate all
-    entities; tune/val annotate only the tracked subset. Frames are PNG. If
+    entities; tune/val annotate only the tracked subset. Frames are JPEG
+    at quality 96. If
     `flow_pairs`, also writes `root/flow_pairs/` (FlyingChairs layout, GT
     backward flow) from the train sequences, at `pairs_hw` when given.
 
@@ -512,7 +512,7 @@ def make_synthetic_vos(
             prev_img = None
             for fi in range(t):
                 img, lab = render_frame(entities, fi, hw, bg, label_ids)
-                write_png(jd / f"{fi:05d}.png", img)
+                write_jpeg(jd / f"{fi:05d}.jpg", img, 96)
                 save_indexed_png(ad / f"{fi:05d}.png", lab)
                 if flow_pairs and split == "train" and fi > 0:
                     write_flow_pair(pairs_dir, pair_i, img, prev_img,

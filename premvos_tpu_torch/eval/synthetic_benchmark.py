@@ -20,9 +20,10 @@ The protocol:
 It runs on the card (`--device`, CUDA by default: it raises without one)
 through the port's trainers, `precompute_sequence` and the replay harness.
 The JSON record has the JAX record's keys plus the card's name and power
-limit and each stage's wall seconds. The port's frames are PNG where the
-JAX generator writes JPEG (data/synthetic_vos.py), and the port has one
-warp, the exact one, so its `gather_warp` row repeats the tuned one.
+limit and each stage's wall seconds. Its data are the JAX generator's
+files (data/synthetic_vos.py writes the same JPEG frames byte for byte).
+The port has one warp, the exact one, so its `gather_warp` row repeats the
+tuned one.
 
   python -m premvos_tpu_torch.eval.synthetic_benchmark                # full
   python -m premvos_tpu_torch.eval.synthetic_benchmark --quick        # reduced
@@ -619,7 +620,7 @@ def main(argv=None) -> dict:
             "seed": args.seed,
             "difficulty": "crossing+occlusion, full disappearance/re-appearance, "
                           "look-alike distractors, scale change",
-            "frames_format": "png (the JAX generator writes JPEG at quality 96)",
+            "frames_format": "jpeg at quality 96, the JAX generator's files",
         },
         "steps": ({"loaded_from": args.load_params} if args.load_params else {
             "det": args.steps_det, "refine": args.steps_refine,

@@ -35,10 +35,11 @@ their inputs contiguous themselves). At the merge warp's shape the kernel
 runs for a few microseconds, so this host path is what a call costs
 (PERF.md, section 6).
 
-Three host libraries sit here too, C++ with a plain C interface and no
-CUDA: `jpeg_decode.cc` (the frame readers' JPEG decoder, io_compat/jpeg.py),
-`rle.cc` (the COCO RLE codec, io_compat/rle_native.py) and `zstd_decode.cc`
-(the checkpoint reader's zstd decoder, io_compat/zstd.py, declared in the
+Four host libraries sit here too, C++ with a plain C interface and no
+CUDA: `jpeg_decode.cc` and `jpeg_encode.cc` (the frame readers' JPEG
+decoder and the generators' encoder, io_compat/jpeg.py), `rle.cc` (the
+COCO RLE codec, io_compat/rle_native.py) and `zstd_decode.cc` (the
+checkpoint reader's zstd decoder, io_compat/zstd.py, declared in the
 header's host section). `build_host()` compiles one with the host C++
 compiler (`g++`, which nvcc also uses) at first use, into the same
 `build/`, and raises if that fails.

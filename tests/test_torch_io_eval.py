@@ -308,10 +308,14 @@ def test_label_pngs_match_pillow_both_ways(tmp_path):
 
 
 def test_davis_reader_needs_pillow_only_for_jpeg(tmp_path, monkeypatch):
-    """With Pillow unimportable a PNG tree still loads, equal to the JAX
-    reader's arrays, and so does a tree of JPEG frames (the port's own
-    decoder; Pillow is needed by neither)."""
-    root = tdavis.make_synthetic_davis(tmp_path / "png", t=3, hw=(30, 40))
+    """With Pillow unimportable a PNG tree (frames written by the port's
+    codec) still loads, equal to the JAX reader's arrays, and so does a tree
+    of JPEG frames (the port's own decoder; Pillow is needed by neither)."""
+    root = jdavis.make_synthetic_davis(tmp_path / "png", t=3, hw=(30, 40))
+    for jpg in sorted(root.glob("JPEGImages/480p/seq_a/*.jpg")):
+        png.write_png(jpg.with_suffix(".png"), np.asarray(Image.open(jpg).convert("RGB")))
+        jpg.unlink()
+    assert len(list(root.glob("JPEGImages/480p/seq_a/*.png"))) == 3
     want = jdavis.DavisDataset(root).load_sequence("seq_a", 32, 48, 2)
     jroot = jdavis.make_synthetic_davis(tmp_path / "jpg", t=2, hw=(30, 40))
     jwant = jdavis.DavisDataset(jroot).load_sequence("seq_a", 32, 48, 2)

@@ -153,9 +153,11 @@ def test_parallel_imports_no_jax_cv2_or_pil():
 
 def test_jpeg_tree_and_converters_load_no_jax_cv2_or_pil(tmp_path):
     """Reading a DAVIS tree of JPEG frames (the JAX fixture's, written here
-    by Pillow) and COCO crops, and converting a checkpoint in each source
-    format, in a fresh interpreter, loads no jax*, no premvos_tpu(.*), no
-    cv2 and no PIL (the card's machine has none)."""
+    by Pillow) and COCO crops, writing the port's own synthetic DAVIS, COCO
+    and VOS trees (JPEG through the port's encoder), and converting a
+    checkpoint in each source format, in a fresh interpreter, loads no
+    jax*, no premvos_tpu(.*), no cv2 and no PIL (the card's machine has
+    none)."""
     from premvos_tpu.data.crops import make_synthetic_coco
     from premvos_tpu.data.davis import make_synthetic_davis
 
@@ -178,6 +180,13 @@ def test_jpeg_tree_and_converters_load_no_jax_cv2_or_pil(tmp_path):
         "assert seq['frames'].shape == (2, 48, 64, 3) and seq['frames'].any()\n"
         f"crops = InstanceCropDataset({str(images)!r}, {str(ann)!r}, crop_size=16)\n"
         "assert crops.load_crop(0).shape == (16, 16, 3)\n"
+        "from premvos_tpu_torch.data.davis import make_synthetic_davis\n"
+        "from premvos_tpu_torch.data.crops import make_synthetic_coco\n"
+        "from premvos_tpu_torch.data.synthetic_vos import make_synthetic_vos\n"
+        f"make_synthetic_davis({str(tmp_path / 'port_davis')!r}, t=2, hw=(40, 56))\n"
+        f"make_synthetic_coco({str(tmp_path / 'port_coco')!r}, num_images=2, per_image=1)\n"
+        f"make_synthetic_vos({str(tmp_path / 'port_vos')!r}, n_train=1, n_tune=0, n_val=0, "
+        "t=20, hw=(32, 48))\n"
         "net = ReIDNet(ReIDConfig(backbone_depth=26, embedding_dim=8))\n"
         "net.load_state_dict(convert_tf_reid(sc.tf_reid_vars(net), net))\n"
         "net.load_state_dict(convert_resnet_state_dict(\n"

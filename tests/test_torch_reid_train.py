@@ -187,25 +187,17 @@ def test_train_reid_needs_cuda_or_explicit_cpu(coco, monkeypatch):
 # ------------------------------------------------------------ the data
 
 def test_synthetic_coco_and_pk_batches_equal_jax(coco, tmp_path):
-    """The port writes the JAX fixture's annotations and images (PNG, no
-    Pillow: the same pixels, which Pillow encodes to the JAX fixture's JPEG
-    bytes), reads the same instances and masks from the JAX tree (its JPEG
-    decoder and bicubic resize without Pillow), and draws the same PK
-    batches from one seed."""
-    import io
-
-    from PIL import Image
-
-    from premvos_tpu_torch.io_compat.png import read_png
-
+    """The port writes the JAX fixture's files byte for byte (no Pillow:
+    `instances.json` and every JPEG image), reads the same instances and
+    masks from the JAX tree (its JPEG decoder and bicubic resize without
+    Pillow), and draws the same PK batches from one seed."""
     images, ann = coco
     timages, tann = tcrops.make_synthetic_coco(tmp_path, num_images=3, per_image=2)
-    assert tann.read_text() == ann.read_text().replace(".jpg", ".png")
-    for name in sorted(p.name for p in images.iterdir()):
-        pixels, _ = read_png(timages / name.replace(".jpg", ".png"))
-        buf = io.BytesIO()
-        Image.fromarray(pixels).save(buf, "JPEG", quality=95)
-        assert buf.getvalue() == (images / name).read_bytes(), name
+    assert tann.read_bytes() == ann.read_bytes()
+    names = sorted(p.name for p in images.iterdir())
+    assert sorted(p.name for p in timages.iterdir()) == names
+    for name in names:
+        assert (timages / name).read_bytes() == (images / name).read_bytes(), name
     jds = jcrops.InstanceCropDataset(images, ann, crop_size=24)
     tds = tcrops.InstanceCropDataset(images, ann, crop_size=24)
     assert len(tds) == len(jds) == 6

@@ -5,11 +5,10 @@ merge-weight search (eval/tune.py) and the protocol's entry point
 
 The generator is compared with OpenCV's Intel IPP paths off
 (cv2.ipp.setUseIPP(False)), where OpenCV runs its own arithmetic, which
-the port copies: every label, flow, pair image and rendered frame equal.
-With IPP on (the wheel's default) the background's cubic resize is a few
-float32 ulp apart (held here), which can move a rendered uint8 value by
-one level. The JAX generator writes JPEG frames; they are compared as the
-arrays its `render_frame` returned, not as decoded JPEGs.
+the port copies: every file of the tree equal byte for byte, the JPEG
+frames too (the port's encoder writes Pillow's bytes). With IPP on (the
+wheel's default) the background's cubic resize is a few float32 ulp apart
+(held here), which can move a rendered uint8 value by one level.
 
 The search runs both packages' `tune_weights` and `oracle_jf` on one
 synthetic precompute (the same arrays on both sides, the port's as
@@ -134,20 +133,11 @@ def test_render_and_backward_flow_match_jax():
 
 
 @pytest.mark.parametrize("pairs_hw", [(64, 128), None], ids=["pairs_resized", "pairs_at_canvas"])
-def test_make_synthetic_vos_matches_jax(tmp_path, monkeypatch, pairs_hw, no_ipp):
+def test_make_synthetic_vos_matches_jax(tmp_path, pairs_hw, no_ipp):
     """The whole tree at 64×96, 20 frames: the same split files, every
     annotation and .flo file equal, the pair images equal (at 64×128 the
-    INTER_LINEAR resizes against cv2's), and every PNG frame equal to the
-    array JAX's render_frame gave for it."""
-    rendered = []
-    real = jvos.render_frame
-
-    def recording(*a, **k):
-        out = real(*a, **k)
-        rendered.append(out[0])
-        return out
-
-    monkeypatch.setattr(jvos, "render_frame", recording)
+    INTER_LINEAR resizes against cv2's), and every JPEG frame equal to the
+    JAX generator's byte for byte."""
     kw = dict(n_train=2, n_tune=1, n_val=1, t=20, hw=HW, seed=3, pairs_hw=pairs_hw)
     jroot = jvos.make_synthetic_vos(tmp_path / "jax", **kw)
     troot = tvos.make_synthetic_vos(tmp_path / "port", **kw)
@@ -155,12 +145,17 @@ def test_make_synthetic_vos_matches_jax(tmp_path, monkeypatch, pairs_hw, no_ipp)
         name = f"ImageSets/2017/{split}.txt"
         assert (troot / name).read_text() == (jroot / name).read_text()
     anns = sorted(glob.glob(str(jroot / "Annotations/480p/*/*.png")))
-    assert len(anns) == len(rendered) == 4 * 20
-    for ann, want_img in zip(anns, rendered):
+    frames = sorted(glob.glob(str(jroot / "JPEGImages/480p/*/*")))
+    assert len(anns) == 4 * 20
+    assert [Path(f).relative_to(jroot) for f in frames] == [
+        Path(f).relative_to(troot) for f in sorted(glob.glob(str(troot / "JPEGImages/480p/*/*")))]
+    assert [f[:-4] for f in frames] == [a[:-4].replace("Annotations", "JPEGImages") for a in anns]
+    for ann in anns:
         rel = Path(ann).relative_to(jroot)
         np.testing.assert_array_equal(read_png(troot / rel)[0], np.asarray(Image.open(ann)))
-        frame = (troot / rel).as_posix().replace("Annotations", "JPEGImages")
-        np.testing.assert_array_equal(read_png(frame)[0], want_img)
+    for frame in frames:
+        rel = Path(frame).relative_to(jroot)
+        assert (troot / rel).read_bytes() == Path(frame).read_bytes(), rel
     flos = sorted(glob.glob(str(jroot / "flow_pairs/*.flo")))
     assert len(flos) == 2 * 19
     for f in flos:
