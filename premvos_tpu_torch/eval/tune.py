@@ -1,18 +1,55 @@
-"""Merge-weight search on a tune split (port of `sample_weights` in
-scripts/tune_merge.py and `tune_weights` / `ablation_weights` in
-scripts/run_synthetic_benchmark.py).
+"""Merge-weight search on a tune split (port of scripts/tune_merge.py, and
+of `tune_weights` / `ablation_weights` in scripts/run_synthetic_benchmark.py).
 
 Stages 1-4 are precomputed once per sequence (eval/harness.py); every
-candidate weight vector replays only the merge. The search draws from a
+candidate weight vector replays only the merge. The searches draw from a
 seeded `np.random.Generator` in the JAX scripts' order, so the same
 precompute gives the same trials and the same chosen vector.
+
+The command line (`main`) is the random search of scripts/tune_merge.py
+over (w_objectness, w_reid, w_warp, w_overlap, reid_sigma,
+new_object_score_floor, warp_decay, reid_ema, reid_reacquire) against
+J&F, on the card (`--device`, CUDA by default: it raises without one):
+
+  python -m premvos_tpu_torch.eval.tune --synthetic --trials 64        # self-contained
+  python -m premvos_tpu_torch.eval.tune --demo --checkpoint DIR       # the demo's nets
+  python -m premvos_tpu_torch.eval.tune --benchmark --checkpoint DIR  # + held-out val J&F
+  python -m premvos_tpu_torch.eval.tune --data /path/DAVIS --trials 256 --checkpoint CKPT
+
+--checkpoint takes an orbax directory (either package's) or a `.pt` file
+of utils/checkpoint.py; without one the nets are drawn from seed 0. The
+tuned weights go to --out (configs/merge_tuned_torch.json, the synthetic
+protocol's --tuned-out) in the JAX file's structure.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
+import tempfile
+
 import numpy as np
 
-from premvos_tpu_torch.eval.harness import DEFAULT_WEIGHTS, WEIGHT_NAMES, evaluate_weights
+from premvos_tpu_torch.config import (
+    FlowConfig,
+    PipelineConfig,
+    PremvosConfig,
+    ProposalConfig,
+    RefineConfig,
+    ReIDConfig,
+    load_config,
+)
+from premvos_tpu_torch.data.davis import DavisDataset, make_synthetic_davis
+from premvos_tpu_torch.data.synthetic_vos import make_synthetic_vos
+from premvos_tpu_torch.eval.harness import (
+    DEFAULT_WEIGHTS,
+    WEIGHT_NAMES,
+    evaluate_weights,
+    precompute_split,
+)
+from premvos_tpu_torch.pipeline.runner import build_models, init_params, resolve_device
+from premvos_tpu_torch.utils.checkpoint import load_params
 
 
 def sample_weights(rng: np.random.Generator) -> np.ndarray:
@@ -133,3 +170,147 @@ def tune_weights(pre_tune, args, rng=None, groups=None):
                 best_t, best_w = t, w
                 print(f"[tune] drop-local {i + 1} J&F={t:.4f}", flush=True)
     return best_w, float(best_t), log
+
+
+def synthetic_config() -> PremvosConfig:
+    """--synthetic's small nets and 64×96 canvas (frozen BN), which run
+    anywhere, the CPU included."""
+    return PremvosConfig(
+        proposal=ProposalConfig(
+            backbone_depth=26, fpn_channels=32, rpn_pre_nms_topk=32,
+            rpn_post_nms_topk=8, detections_per_frame=4,
+        ),
+        refine=RefineConfig(crop_size=33, backbone_depth=26),
+        flow=FlowConfig(variant="flownetc", max_displacement=4,
+                        infer_height=64, infer_width=64),
+        reid=ReIDConfig(backbone_depth=26, embedding_dim=8, crop_size=32),
+        pipeline=PipelineConfig(image_height=64, image_width=96, max_objects=2,
+                                max_proposals=4, dtype="float32", scan_chunk=4),
+    )
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Merge-weight random search against J&F.")
+    ap.add_argument("--data", help="DAVIS root (JPEGImages/Annotations)")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="tune on generated moving-squares sequences")
+    ap.add_argument("--demo", action="store_true",
+                    help="tune on the trained-accuracy demo's sequence and config "
+                         "(eval/synthetic_demo.py; its --save-params via --checkpoint)")
+    ap.add_argument("--benchmark", action="store_true",
+                    help="tune on the synthetic benchmark's tune split (eval/synthetic_benchmark.py "
+                         "config; its --save-params via --checkpoint), then report the best "
+                         "weights' J&F on the unseen val split")
+    ap.add_argument("--split", default="val")
+    ap.add_argument("--trials", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--config", help="JSON config preset")
+    ap.add_argument("--checkpoint", help="orbax directory or .pt file (else random weights)")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--max-seqs", type=int, default=None)
+    ap.add_argument("--out", default="configs/merge_tuned_torch.json")
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without a card); cpu runs the plain versions")
+    return ap, ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """The search: precompute once, then the defaults and --trials random
+    vectors replayed. Writes and returns {"merge": best weights,
+    "_tuning": {...}} (with --benchmark also the val split's J&F of the
+    best and the default weights)."""
+    # the protocol's module imports this one: its configs load here
+    from premvos_tpu_torch.eval.synthetic_benchmark import bench_config, demo_config
+
+    ap, args = parse_args(argv)
+    device = resolve_device(args.device)
+    if args.demo:
+        cfg = demo_config()
+    elif args.benchmark:
+        cfg = bench_config()
+    elif args.config:
+        cfg = load_config(args.config)
+    elif args.synthetic:
+        cfg = synthetic_config()
+    else:
+        cfg = PremvosConfig()
+    if not (args.data or args.demo or args.benchmark or args.synthetic):
+        ap.error("--data or --synthetic required")
+    with tempfile.TemporaryDirectory(prefix="tune_merge_") as tmp:
+        return search(args, cfg, tmp, device)
+
+
+def search(args, cfg, tmp, device) -> dict:
+    """main's work; generated trees go under `tmp`."""
+    hw = (cfg.pipeline.image_height, cfg.pipeline.image_width)
+
+    if args.demo:
+        args.data = os.path.join(tmp, "demo")
+        make_synthetic_davis(args.data, sequences=("demo",), t=10, hw=hw, num_objects=2)
+    elif args.benchmark:
+        root = args.data or os.path.join(tmp, "bench")
+        if not os.path.exists(os.path.join(root, "ImageSets")):
+            # the synthetic benchmark's split sizes and seed, so the tune and
+            # val sequences are the benchmark run's (its --data-root is
+            # better still)
+            make_synthetic_vos(root, n_train=6, n_tune=2, n_val=4, t=24, hw=hw,
+                               seed=args.seed, flow_pairs=False)
+        args.data = root
+        args.split = "tune"
+    elif args.synthetic:
+        args.data = os.path.join(tmp, "synthetic")
+        make_synthetic_davis(args.data, sequences=("seq_a", "seq_b"), t=6, hw=(64, 96),
+                             num_objects=2)
+    ds = DavisDataset(args.data, split=args.split)
+    models = build_models(cfg, device)
+    models = (load_params(args.checkpoint, models) if args.checkpoint
+              else init_params(models, cfg, 0, device))
+
+    sequences = ds.sequences[: args.max_seqs]
+    precomputed = precompute_split(models, cfg, ds, sequences, max_frames=args.max_frames,
+                                   device=device)
+
+    rng = np.random.default_rng(args.seed)
+    ws = cfg.merge.warp_stride
+    baseline, _ = evaluate_weights(precomputed, DEFAULT_WEIGHTS, ws)
+    print(f"[tune] baseline (all-1.0) J&F = {baseline:.4f}", flush=True)
+    best_w, best_score = DEFAULT_WEIGHTS, baseline
+    for t in range(args.trials):
+        w = sample_weights(rng)
+        score, _ = evaluate_weights(precomputed, w, ws)
+        mark = ""
+        if score > best_score:
+            best_w, best_score, mark = w, score, "  ← best"
+        print(f"[tune] {t + 1}/{args.trials} J&F={score:.4f} "
+              f"w={np.round(w, 3).tolist()}{mark}", flush=True)
+
+    out = {
+        "merge": {k: float(v) for k, v in zip(WEIGHT_NAMES, best_w)},
+        "_tuning": {
+            "J&F": best_score,
+            "baseline_J&F": baseline,
+            "trials": args.trials,
+            "split": args.split,
+            "synthetic": bool(args.synthetic),
+            "sequences": list(sequences),
+        },
+    }
+    if args.benchmark:
+        # the tuned weights on the val split, which the search never saw
+        pre_val = precompute_split(models, cfg, DavisDataset(args.data, split="val"),
+                                   device=device)
+        val_best, _ = evaluate_weights(pre_val, best_w, ws)
+        val_base, _ = evaluate_weights(pre_val, DEFAULT_WEIGHTS, ws)
+        out["_tuning"]["val_J&F"] = float(val_best)
+        out["_tuning"]["val_baseline_J&F"] = float(val_base)
+        print(f"[tune] held-out val: tuned {val_best:.4f} vs baseline {val_base:.4f}",
+              flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=2)
+    print(f"[tune] best J&F = {best_score:.4f} → {args.out}", flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

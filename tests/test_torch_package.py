@@ -93,9 +93,10 @@ def test_trainers_and_readers_import_no_jax_cv2_or_pil():
 
 def test_clis_and_replay_import_no_jax_cv2_or_pil():
     """Importing the command lines, the replay harness, the J&F measures,
-    the file codecs and the synthetic protocol (its generator, search and
-    entry point) in a fresh interpreter loads no jax*, no premvos_tpu(.*),
-    no cv2 and no PIL (the card's machine has none)."""
+    the file codecs, the synthetic protocol (its generator, search and
+    entry point), the trained-accuracy demo and the selection-loss
+    diagnosis in a fresh interpreter loads no jax*, no premvos_tpu(.*), no
+    cv2 and no PIL (the card's machine has none)."""
     code = (
         "import sys\n"
         "import premvos_tpu_torch.pipeline.run_davis\n"
@@ -110,6 +111,8 @@ def test_clis_and_replay_import_no_jax_cv2_or_pil():
         "import premvos_tpu_torch.utils.logging\n"
         "import premvos_tpu_torch.eval.synthetic_benchmark\n"
         "import premvos_tpu_torch.eval.tune\n"
+        "import premvos_tpu_torch.eval.synthetic_demo\n"
+        "import premvos_tpu_torch.eval.diagnose\n"
         "import premvos_tpu_torch.data.synthetic_vos\n"
         "import premvos_tpu_torch.models.xception\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
@@ -211,6 +214,7 @@ def test_jpeg_tree_and_converters_load_no_jax_cv2_or_pil(tmp_path):
 @pytest.mark.parametrize("module", ["eval/davis_eval.py", "io_compat/png.py", "data/palette.py",
                                     "data/synthetic_vos.py", "data/cv_compat.py",
                                     "eval/synthetic_benchmark.py", "eval/tune.py",
+                                    "eval/synthetic_demo.py", "eval/diagnose.py",
                                     "data/davis.py", "data/crops.py", "data/preprocess.py",
                                     "io_compat/jpeg.py", "io_compat/rle_native.py",
                                     "io_compat/convert_tf.py", "io_compat/convert_resnet.py",
@@ -241,6 +245,25 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(runner, entry)(*args)
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("synthetic_demo", ["--quick"]),
+    ("tune", ["--demo", "--trials", "1"]),
+    ("diagnose", ["--load-params", "ckpt", "--data-root", "data"]),
+])
+def test_eval_commands_need_cuda_or_explicit_cpu(cli, argv, monkeypatch, tmp_path):
+    """The demo, the tuning command and the diagnosis refuse to start
+    without a card unless told --device cpu, before they read or write
+    anything."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    main = importlib.import_module(f"premvos_tpu_torch.eval.{cli}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_cpu_tensors_take_the_plain_versions():
