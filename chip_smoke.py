@@ -24,10 +24,17 @@ Phases (any failure raises and exits non-zero):
      displaced pixel lies on the image; the RoIAlign backward also
      on 8-px boxes piled on one point of P2 (contention) and in one
      unfiltered launch on P2 whose largest RoIs are too large for the
-     kernel's shared-memory tables (its second path); resample2d also at
-     the fine-tune's lucid warps (the backgrounds [8, 3, 480, 864] and the
-     object patches [16 | 64, 4, 256, 256], under their affine, rotation
-     and elastic flows); and NMS and the training RoIAlign forward and
+     kernel's shared-memory tables (its second path); the block warp
+     (resample2d_block, warp_impl "block") at FlowNet2's in-net warps
+     ([8, 3, 448, 832] in bf16 and float32) and the merge's ([1, 8, 240,
+     432]) at (8, 128) blocks, residual 4, max_flow 64, each on a smooth
+     flow with noise and on noise of ±30 px, and at the fine-tune's lucid warps (the
+     backgrounds [8, 3, 480, 864] at (16, 16), 4, 160 and the object
+     patches [16 | 64, 4, 256, 256] at (8, 8), 6, 64, under their affine,
+     rotation and elastic flows), each with grid_sample's time at its shape
+     as the exact warp's library call (no PyTorch call computes the block
+     warp); the exact warp (resample2d, warp_impl "gather") at FlowNet2's
+     and the merge's shapes; and NMS and the training RoIAlign forward and
      backward at the fine-tune's proposal net (batch 4 at 256×448: 1956
      RPN boxes per image, bf16 features at P = 7 and 14, a bf16 output
      gradient); and the correlation backward (float32, each gradient within
@@ -48,11 +55,16 @@ Phases (any failure raises and exits non-zero):
      (the training shapes, c200, h50_w30, d61_groups, d61_c72, ...) as a
      share of its 1e-5 tolerance;
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
-     (plain versions) with the same seeded weights: ≥ 99 % label agreement;
+     (plain versions) with the same seeded weights: ≥ 99 % label agreement,
+     once with warp_impl "block" and once with "gather" (the launch counters
+     zeroed just before each CUDA run and read just after: the block warp's
+     kernel alone in the first, the exact warp's alone in the second);
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
      weights on 9 synthetic frames (one chunk): a warm-up run, then three
      timed runs; launch counters are zeroed just before the first timed run
-     and read just after it, and every inference kernel must have launched;
+     and read just after it, and every inference kernel must have launched,
+     the block warp 12 times (FlowNet2's 4 warps, the merge's 8) and the
+     exact warp never;
   6. one Mask R-CNN training loss and its gradients at a tiny configuration
      on CUDA (kernels) and on the CPU (plain versions) from the same seeded
      weights: the loss within 1e-4 relative, every parameter's gradient
@@ -84,8 +96,8 @@ Phases (any failure raises and exits non-zero):
      chunks of 16, 16 and 8) through `finetune_video_fused` on bench.py's
      synthetic 480×864 frame with two objects: a warm-up run, then a timed
      run with the launch counters zeroed just before and read just after;
-     every loss finite, both nets' parameters changed, resample2d launched
-     by both nets (two launches a step each), NMS, RoIAlign and its
+     every loss finite, both nets' parameters changed, the block warp
+     launched by both nets (two launches a step each), NMS, RoIAlign and its
      backward by the proposal net; then `run_sequence` with the fine-tuned
      models on phase 5's 9 frames (shape, ids, frame 0 = annotation); then
      FlowNetC training at full width (batch 8 of 256² crops of 384×512
@@ -174,7 +186,7 @@ Phases (any failure raises and exits non-zero):
      <that directory>` through main(argv), no --device, on phase 7b's first
      sequence (9 PNG frames of 480×854): frame 0 the annotation, a pixel
      labelled after it, NMS 2, multilevel RoIAlign 2, correlation 1 and
-     resample2d 12 launches in its zeroed window; (c) in float32, its
+     resample2d_block 12 launches in its zeroed window; (c) in float32, its
      labels equal to those of the same nets saved by utils/checkpoint.py
      and read back through --checkpoint model.pt, over the pixels either
      labels; (d) a checksummed zstd frame decoded, and refused with a
@@ -228,7 +240,8 @@ Phases (any failure raises and exits non-zero):
      card, every J&F finite in [0, 1]; (e) all seven kernels launched in
      (a)'s window (`launches_by_path` "synthetic_demo": the trainers'
      NMS, RoIAlign forward and backward, correlation forward and backward,
-     and tracking's NMS, multilevel RoIAlign, correlation and resample2d);
+     and tracking's NMS, multilevel RoIAlign, correlation and the block
+     warp);
   7e. data parallelism (premvos_tpu_torch.parallel): (a) a world-size-1
      NCCL group in this process on cuda:0, Mask R-CNN at full width
      (ProposalConfig(), 480×864, batch 2, float32 without TF32):
@@ -261,18 +274,19 @@ Phases (any failure raises and exits non-zero):
      loss 1e-5 relative from one process's, both ranks equal; s/step of
      each path and the ms of an all_reduce of each net's gradient bytes;
      NMS, both RoIAligns, the RoIAlign backward, the correlation and its
-     backward and resample2d must have launched (`launches_by_path` "dp");
+     backward and the block warp must have launched (`launches_by_path`
+     "dp");
   8. the device time by kernel name (torch.profiler) of NMS (mask pass,
      sweep, and the sort and the rest of its wrapper apart), multilevel
-     RoIAlign, correlation and its backward, resample2d and the training
-     RoIAlign forward and backward (four launches a head; also at the
+     RoIAlign, correlation and its backward, the block warp (every row of
+     phase 3), the exact warp and the training RoIAlign forward and backward (four launches a head; also at the
      host-pool fine-tune's shapes) beside phase 3's wrapper times,
      on fresh inputs of the same shapes: last, because the end-to-end
      phases ran slower after a profiled run in the same process.
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 5, 7, 7b, 7c, 7d, 7f, 7g, 7i or 7e, and `launches_by_path` gives each
+zeroed window of phase 4, 5, 7, 7b, 7c, 7d, 7f, 7g, 7i or 7e, and `launches_by_path` gives each
 path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
@@ -315,9 +329,16 @@ KERNELS = {
         "premvos_tpu_torch/kernels/correlation.cu",
         "premvos_tpu/ops/pallas/correlation_pallas.py:58",
     ),
-    "resample2d": (
+    "resample2d_block": (
         "premvos_tpu_torch/kernels/resample2d.cu",
         "premvos_tpu/ops/pallas/resample2d_pallas.py:109",
+    ),
+    # The exact warp (warp_impl "gather"): the JAX package computes it with
+    # an XLA gather, no TPU kernel.
+    "resample2d": (
+        "premvos_tpu_torch/kernels/resample2d.cu",
+        "premvos_tpu/ops/resample2d.py:295 (resample2d_reference, warp_impl \"gather\": an XLA "
+        "gather)",
     ),
     "roi_align": (
         "premvos_tpu_torch/kernels/roi_align.cu",
@@ -342,10 +363,17 @@ KERNELS = {
 HOST_SOURCES = ("jpeg_decode.cc", "jpeg_encode.cc", "rle.cc", "zstd_decode.cc")
 
 # The kernels each main path must launch: inference (phase 5) and training
-# (phase 7).
-INFERENCE_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d")
+# (phase 7). Inference warps with the block warp (warp_impl "block", the
+# default): 12 launches for a 9-frame sequence in one chunk (FlowNet2's 4
+# warps, one a frame for the merge's 8).
+INFERENCE_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d_block")
 TRAINING_KERNELS = ("nms", "roi_align", "roi_align_backward")
-FINETUNE_KERNELS = ("resample2d", "nms", "roi_align", "roi_align_backward")
+FINETUNE_KERNELS = ("resample2d_block", "nms", "roi_align", "roi_align_backward")
+PRESET_BLOCK_LAUNCHES = 12
+# The trained-accuracy demo (phase 7i) trains every net and tracks with the
+# default warp: every kernel but the exact warp. The synthetic protocol
+# (phase 7c) launches that one too, in its gather_warp ablation.
+DEMO_KERNELS = tuple(k for k in KERNELS if k != "resample2d")
 # FlowNetC training (phase 7) launches the cost volume's forward and
 # backward once a step each; ReID training runs no kernel of the port.
 FLOW_TRAIN_KERNELS = ("correlation", "correlation_backward")
@@ -892,6 +920,17 @@ CORR_CASES = (("bfloat16", (8, 256, 56, 104, 20, 2)), ("float32", (8, 256, 56, 1
 # padding); added later, so checked last from a generator of their own.
 CORR_TRAIN_CASES = (("float32", (8, 256, 32, 32, 20, 2)), ("float32", (8, 256, 8, 8, 20, 2)))
 RESAMPLE_CASES = ((8, 3, 448, 832, "bfloat16"), (1, 8, 240, 432, "float32"))
+# The block warp's rows: FlowNet2's in-net warps (bf16 in its two S passes,
+# float32 in the fusion's two) and the merge's, at the TPU kernel's (8, 128)
+# blocks, residual 4 and max_flow 64, each on resample_inputs' smooth flow
+# with noise (whose v varies by up to 51 px across a 128-px block, so some
+# pixels leave the window) and on noise of ±30 px; then the lucid warps at
+# the fine-tune's parameters. Each row has a generator of its own.
+TPU_BLOCK = ((8, 128), 4, 64)
+BLOCK_CASES = ((8, 3, 448, 832, "bfloat16"), (8, 3, 448, 832, "float32"),
+               (1, 8, 240, 432, "float32"))
+LUCID_BLOCK = {"background": ((16, 16), 4, 160), "patches16": ((8, 8), 6, 64),
+               "patches64": ((8, 8), 6, 64)}
 
 
 def corr_pairs(h, w, md, st):
@@ -1046,6 +1085,65 @@ def check_resample(torch, gen, dev, b, c, h, w, dtype):
                         f"src [{b},{c},{h},{w}] {str(dtype)[6:]}, flow f32")
 
 
+def block_rows():
+    """(what, flow kind) of each block-warp row of phase 3."""
+    return ([(case, kind) for case in BLOCK_CASES for kind in ("smooth", "noise30")]
+            + [(kind, "lucid") for kind in LUCID_RESAMPLE_CASES])
+
+
+def block_inputs(torch, dev, i):
+    """src, flow, grid_sample's grid and (block, residual, max_flow) of
+    block_rows()[i], from a generator of its own."""
+    what, kind = block_rows()[i]
+    gen = torch.Generator().manual_seed(70 + i)
+    if kind == "lucid":
+        src, flow, grid = lucid_resample_inputs(torch, gen, dev, what)
+        return src, flow, grid, LUCID_BLOCK[what]
+    b, c, h, w, dtype = what
+    src, flow, grid = resample_inputs(torch, gen, dev, b, c, h, w, getattr(torch, dtype))
+    if kind == "noise30":
+        flow = (torch.rand(b, 2, h, w, generator=gen) * 60 - 30).to(dev)
+        grid = grid_of(torch, flow)
+    return src, flow, grid, TPU_BLOCK
+
+
+def check_block(torch, dev, i):
+    """The block warp's kernel vs its plain version (atol 1e-5) on row i,
+    with times, the byte bound (source, flow and output once) and
+    grid_sample's time at the same shape (the exact warp's library call; no
+    PyTorch call computes the block warp, so library_ms is None), and how
+    far the block warp lies from the exact one there."""
+    import torch.nn.functional as F
+
+    from premvos_tpu_torch.ops.resample2d import (
+        resample2d_block_cuda,
+        resample2d_block_reference,
+        resample2d_reference,
+    )
+
+    src, flow, grid, (block, r, lf) = block_inputs(torch, dev, i)
+    what, kind = block_rows()[i]
+    b, c, h, w = src.shape
+    shape = (f"src [{b},{c},{h},{w}] {str(src.dtype)[6:]}, flow f32 ({kind}), block {block}, "
+             f"residual {r}, max_flow {lf}")
+    got = resample2d_block_cuda(src, flow, block, r, lf)
+    want = resample2d_block_reference(src, flow, block, r, lf)
+    err = max_abs(got, want)
+    tol = 1e-5
+    if not err <= tol:
+        fail(f"resample2d_block {shape}: max |diff| {err} > {tol}")
+    ms = cuda_ms(lambda: resample2d_block_cuda(src, flow, block, r, lf), 50)
+    plain = cuda_ms(lambda: resample2d_block_reference(src, flow, block, r, lf), 10)
+    srcf = src.float()
+    grid_ms = cuda_ms(lambda: F.grid_sample(srcf, grid, "bilinear", "border",
+                                            align_corners=True), 50)
+    nbytes = src.numel() * src.element_size() + flow.numel() * 4 + got.numel() * 4
+    return dict(shape=shape, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                bound=bound_ms(nbytes, b * c * h * w * 8.0), bound_bytes=nbytes,
+                library_ms=None, grid_sample_ms=grid_ms,
+                vs_exact_max=max_abs(got, resample2d_reference(src, flow)))
+
+
 def grid_of(torch, flow):
     """grid_sample's grid for the same clamped bilinear warp (border
     padding, align_corners=True)."""
@@ -1055,7 +1153,7 @@ def grid_of(torch, flow):
     return torch.stack([gx, gy], -1)
 
 
-# The resample2d rows of the fine-tune's lucid warps (phase 3, added after
+# The block-warp rows of the fine-tune's lucid warps (phase 3, after
 # the others): the backgrounds of a refine batch and the object patches of
 # two valid slots × 8 and of all 8 slots × 8.
 LUCID_RESAMPLE_CASES = ("background", "patches16", "patches64")
@@ -1086,13 +1184,6 @@ def lucid_resample_inputs(torch, gen, dev, kind):
         noise = torch.rand(n, 2, 32, 32, generator=gen) * 2 - 1
         flow = rot_scale_flow(256, ang, sc, smooth_field(noise, 256, 256)).contiguous().to(dev)
     return src, flow, grid_of(torch, flow)
-
-
-def check_lucid_resample(torch, gen, dev, kind):
-    src, flow, grid = lucid_resample_inputs(torch, gen, dev, kind)
-    b, c, h, w = src.shape
-    return resample_row(torch, src, flow, grid,
-                        f"src [{b},{c},{h},{w}] f32, flow f32 (lucid {kind})")
 
 
 def resample_row(torch, src, flow, grid, shape):
@@ -1155,7 +1246,8 @@ def device_times(torch, dev, checks) -> None:
     """The kernels' own device time by name (torch.profiler) for the timed
     rows of phase 3, on fresh inputs of each row's shape: NMS by part (mask
     pass, sweep, sort, the rest), multilevel RoIAlign, correlation,
-    resample2d and grid_sample, and the training RoIAligns (the four
+    the block warp, the exact warp and grid_sample, and the training
+    RoIAligns (the four
     launches of a head; for the backward also with its zero fill). It runs
     last: a profiled run leaves the card's activity tracing set up in the
     process, and the end-to-end phases after it ran slower (PERF.md,
@@ -1164,7 +1256,7 @@ def device_times(torch, dev, checks) -> None:
 
     from premvos_tpu_torch.ops.correlation import correlation_backward_cuda, correlation_cuda
     from premvos_tpu_torch.ops.nms import nms_cuda
-    from premvos_tpu_torch.ops.resample2d import resample2d_cuda
+    from premvos_tpu_torch.ops.resample2d import resample2d_block_cuda, resample2d_cuda
     from premvos_tpu_torch.ops.roi_align import (
         multilevel_roi_align_cuda,
         roi_align_backward_cuda,
@@ -1211,18 +1303,20 @@ def device_times(torch, dev, checks) -> None:
             fail(f"correlation backward {case}: 20 calls ran the kernels {names}, not one "
                  "kernel 20 times")
         row["device_ms"] = named_ms(times, "corr_grad")
-    lucid = [(row, lucid_resample_inputs(torch, torch.Generator().manual_seed(20 + i), dev, kind))
-             for i, (row, kind) in enumerate(zip(checks["resample2d"][len(RESAMPLE_CASES):],
-                                                 LUCID_RESAMPLE_CASES))]
     plain = [(row, resample_inputs(torch, gen, dev, b, c, h, w, getattr(torch, dtype)))
              for row, (b, c, h, w, dtype) in zip(checks["resample2d"], RESAMPLE_CASES)]
-    for row, (src, flow, grid) in plain + lucid:
+    for row, (src, flow, grid) in plain:
         srcf = src.float()
         row["device_ms"] = device_ms(lambda: resample2d_cuda(src, flow), "resample",
                                      wrapper=resample2d_cuda)
         row["library_device_ms"] = device_ms(
             lambda: F.grid_sample(srcf, grid, "bilinear", "border", align_corners=True),
             "grid_sampler")
+    # The block warp's rows, each from its inputs' own generator.
+    for i, row in enumerate(checks["resample2d_block"]):
+        src, flow, _, params = block_inputs(torch, dev, i)
+        row["device_ms"] = device_ms(lambda: resample2d_block_cuda(src, flow, *params),
+                                     "resample_block", wrapper=resample2d_block_cuda)
     # The training RoIAligns, added later: a generator of their own.
     gen = torch.Generator().manual_seed(2)
     for row, (p, dtype) in zip(checks["roi_align"], TRAIN_ALIGN_CASES):
@@ -1283,7 +1377,8 @@ def device_times(torch, dev, checks) -> None:
 
 # ------------------------------------------------------------- phase 4
 
-def tiny_config():
+def tiny_config(warp_impl: str = "block"):
+    """The tiny configuration, its FlowNet2 and merge warps at `warp_impl`."""
     from premvos_tpu_torch import config as tc
 
     return tc.PremvosConfig(
@@ -1293,9 +1388,9 @@ def tiny_config():
         ),
         refine=tc.RefineConfig(crop_size=33, backbone_depth=26),
         flow=tc.FlowConfig(variant="flownet2", max_displacement=4,
-                           infer_height=64, infer_width=64),
+                           infer_height=64, infer_width=64, warp_impl=warp_impl),
         reid=tc.ReIDConfig(backbone_depth=26, embedding_dim=8, crop_size=32),
-        merge=tc.MergeConfig(warp_stride=2, new_object_score_floor=0.9),
+        merge=tc.MergeConfig(warp_stride=2, new_object_score_floor=0.9, warp_impl=warp_impl),
         pipeline=tc.PipelineConfig(
             image_height=96, image_width=128, max_objects=2, max_proposals=4,
             dtype="float32", scan_chunk=2,
@@ -1389,6 +1484,10 @@ def track_preset(np, torch, wrappers, cfg, n_frames: int = 9):
     missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels not launched on the inference path: {missing}")
+    if n_frames == 9 and (launches["resample2d_block"] != PRESET_BLOCK_LAUNCHES
+                          or launches["resample2d"]):
+        fail(f"inference launched the block warp {launches['resample2d_block']} times (not "
+             f"{PRESET_BLOCK_LAUNCHES}) and the exact warp {launches['resample2d']} times")
     if launches["correlation_backward"]:
         fail("inference launched the correlation backward (it runs without grad)")
     with torch.inference_mode():
@@ -1939,9 +2038,9 @@ def finetune_full_width(np, torch, wrappers, cfg, steps: int = 40):
             fail(f"fine-tune {net}: no parameter changed")
         report[net] = dict(chunks=chunks, s_per_step=sum(c[1] for c in chunks) / steps,
                            chunk_s_per_step=[c[1] / c[0] for c in chunks])
-    # Each net launches resample2d twice a step (backgrounds, patches).
-    if launches["resample2d"] != 4 * steps:
-        fail(f"fine-tune: resample2d launched {launches['resample2d']} times, not "
+    # Each net launches the block warp twice a step (backgrounds, patches).
+    if launches["resample2d_block"] != 4 * steps:
+        fail(f"fine-tune: resample2d_block launched {launches['resample2d_block']} times, not "
              f"2 per step for each net ({4 * steps})")
     missing = [k for k in FINETUNE_KERNELS if launches[k] <= 0]
     if missing:
@@ -2628,7 +2727,7 @@ def codecs_full_width(np, torch, repeats: int = 5):
 # The kernels run_stages' stages launch: the proposals stage NMS and the
 # multilevel RoIAlign twice a frame (RPN and detection NMS; box and mask
 # head), the flow stage FlowNet2's, the merge stage the mask warp.
-STAGES_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d")
+STAGES_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d_block")
 
 
 def write_davis_tree(np, root, names, t, hw):
@@ -2822,7 +2921,8 @@ def davis_cli_full_width(np, torch, wrappers, cfg, n_frames: int = 9, stage_fram
         if got["nms"] != 2 * stage_frames or got["multilevel_roi_align"] != 2 * stage_frames:
             fail(f"the proposals stage launched {got}, not NMS and the multilevel RoIAlign "
                  f"twice a frame")
-        for stage, kernels in (("flow", ("correlation", "resample2d")), ("merge", ("resample2d",))):
+        for stage, kernels in (("flow", ("correlation", "resample2d_block")),
+                               ("merge", ("resample2d_block",))):
             if any(stages[stage]["launches"][k] <= 0 for k in kernels):
                 fail(f"the {stage} stage launched {stages[stage]['launches']}")
         for t in range(stage_frames):
@@ -2876,7 +2976,7 @@ def davis_cli_full_width(np, torch, wrappers, cfg, n_frames: int = 9, stage_fram
             replay[key] = dict(weights=w.tolist(), jf=jf, merge_s=merge_s,
                                with_jf_s=time.perf_counter() - t0)
         launches_replay = read()
-        if launches_replay["resample2d"] <= 0:
+        if launches_replay["resample2d_block"] <= 0:
             fail(f"the replay's merge launched {launches_replay}")
         agree = {}
         for name, x in zip(names, pre):
@@ -2907,8 +3007,10 @@ def davis_cli_full_width(np, torch, wrappers, cfg, n_frames: int = 9, stage_fram
 ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "orbax", "davis2017_val_tiled")
 # The launches of one run_davis window on one 9-frame sequence: NMS and the
 # multilevel RoIAlign twice (RPN and detections; box and mask head), the
-# cost volume once, resample2d 12 times (4 FlowNet2 warps, 8 merge warps).
-ORBAX_RUN_LAUNCHES = {"nms": 2, "multilevel_roi_align": 2, "correlation": 1, "resample2d": 12}
+# cost volume once, the block warp 12 times (4 FlowNet2 warps, 8 merge
+# warps).
+ORBAX_RUN_LAUNCHES = {"nms": 2, "multilevel_roi_align": 2, "correlation": 1,
+                      "resample2d_block": PRESET_BLOCK_LAUNCHES}
 # A zstd frame (level 3, content size and XXH64 checksum) of ZSTD_TEXT.
 ZSTD_TEXT = b"PReMVOS checkpoint reader: a zstd frame with an XXH64 content checksum. " * 3
 ZSTD_FRAME = bytes.fromhex(
@@ -3463,7 +3565,7 @@ def synthetic_demo_card(np, torch, wrappers):
         if set(losses) != {"proposal", "refine", "reid", "flow"} or not all(
                 np.isfinite(v) for v in losses.values()):
             fail(f"synthetic demo: final losses {losses}")
-        missing = [k for k in KERNELS if launches[k] <= 0]
+        missing = [k for k in DEMO_KERNELS if launches[k] <= 0]
         if missing:
             fail(f"kernels not launched on the synthetic demo's path: {missing}")
 
@@ -3549,9 +3651,9 @@ def synthetic_demo_card(np, torch, wrappers):
 # Mask R-CNN step and the fused fine-tune's proposal net (NMS, the
 # training RoIAlign and its backward), the fused fine-tune's lucid warps
 # and sharded inference (NMS, multilevel RoIAlign, correlation,
-# resample2d), the FlowNetC step (the correlation and its backward). The
+# the block warp), the FlowNetC step (the correlation and its backward). The
 # multi-video fine-tune's refine net runs none.
-DP_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d", "roi_align",
+DP_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d_block", "roi_align",
               "roi_align_backward", "correlation_backward")
 
 
@@ -3563,6 +3665,7 @@ def kernel_wrappers():
         "nms": nms.nms_cuda,
         "multilevel_roi_align": roi_align.multilevel_roi_align_cuda,
         "correlation": correlation.correlation_cuda,
+        "resample2d_block": resample2d.resample2d_block_cuda,
         "resample2d": resample2d.resample2d_cuda,
         "roi_align": roi_align.roi_align_cuda,
         "roi_align_backward": roi_align.roi_align_backward_cuda,
@@ -4123,9 +4226,7 @@ def main() -> int:
     for i, (p_bw, kind) in enumerate(BACKWARD_CASES):
         checks["roi_align_backward"].append(check_roi_align_backward(
             torch, torch.Generator().manual_seed(5 + i), dev, p_bw, kind))
-    for i, kind in enumerate(LUCID_RESAMPLE_CASES):
-        checks["resample2d"].append(
-            check_lucid_resample(torch, torch.Generator().manual_seed(20 + i), dev, kind))
+    checks["resample2d_block"] = [check_block(torch, dev, i) for i in range(len(block_rows()))]
     # The fine-tune's proposal net: its RPN's NMS, and the training
     # RoIAlign forward and backward of its box and mask heads.
     checks["nms"].append(check_nms(torch, torch.Generator().manual_seed(30), dev, NMS_CASES[3]))
@@ -4168,24 +4269,38 @@ def main() -> int:
                 continue
             log(f"{name}: {r['shape']}: err {r['max_abs_err']:.3g} (tol {r['tol']}), "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library {r['library_ms']}")
+                f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library {r['library_ms']}"
+                + (f", grid_sample (the exact warp) {r['grid_sample_ms']:.4f} ms, from the "
+                   f"exact warp {r['vs_exact_max']:.4g}" if "grid_sample_ms" in r else ""))
     log("correlation backward, error as a share of its tolerance (1e-5 of each gradient's "
         "max |grad|), the CUDA test's cases: " + ", ".join(
             f"{k} df1 {v['df1']:.3f} df2 {v['df2']:.3f}"
             for k, v in report["corr_grad_margins"].items()))
 
-    # Phase 4 — tiny config: CUDA (kernels) vs CPU (plain versions).
-    tiny = tiny_config()
+    # Phase 4 — tiny config: CUDA (kernels) vs CPU (plain versions), with
+    # each warp_impl; each CUDA run in its own zeroed window.
     frames, gt = synthetic_video(np, 4, 96, 128, 2, seed=1)
-    labels = {}
-    for d in ("cuda", "cpu"):
-        m = init_params(build_models(tiny, device=d), tiny, seed=0, device=d)
-        labels[d] = run_sequence(m, tiny, frames, gt, 2, device=d).cpu().numpy()
-    agree = float((labels["cuda"] == labels["cpu"]).mean())
-    report["tiny_agreement"] = agree
-    log(f"tiny config: CUDA vs CPU label agreement {agree:.5f}")
-    if agree < 0.99 or not np.array_equal(labels["cuda"][0], labels["cpu"][0]):
-        fail(f"tiny config: CUDA vs CPU agreement {agree} < 0.99 or frame 0 differs")
+    tiny_launches = {}
+    for impl, own, other in (("block", "resample2d_block", "resample2d"),
+                             ("gather", "resample2d", "resample2d_block")):
+        tiny = tiny_config(impl)
+        labels = {}
+        for d in ("cuda", "cpu"):
+            m = init_params(build_models(tiny, device=d), tiny, seed=0, device=d)
+            for fn in wrappers.values():
+                fn.launches = 0
+            labels[d] = run_sequence(m, tiny, frames, gt, 2, device=d).cpu().numpy()
+            if d == "cuda":
+                tiny_launches[impl] = {k: fn.launches for k, fn in wrappers.items()}
+        agree = float((labels["cuda"] == labels["cpu"]).mean())
+        report["tiny_agreement" if impl == "block" else f"tiny_agreement_{impl}"] = agree
+        log(f"tiny config, warp_impl {impl}: CUDA vs CPU label agreement {agree:.5f}, "
+            f"launches {tiny_launches[impl]}")
+        if agree < 0.99 or not np.array_equal(labels["cuda"][0], labels["cpu"][0]):
+            fail(f"tiny config ({impl}): CUDA vs CPU agreement {agree} < 0.99 or frame 0 differs")
+        if tiny_launches[impl][own] <= 0 or tiny_launches[impl][other]:
+            fail(f"tiny config ({impl}): launches {tiny_launches[impl]}")
+    report["tiny_launches"] = tiny_launches
 
     # Phase 5 — the production preset on 9 frames.
     prod = track_preset(np, torch, wrappers, cfg)
@@ -4507,7 +4622,9 @@ def main() -> int:
          FINETUNE_KERNELS + INFERENCE_KERNELS),
         ("stages_cli", {k: sum(v["launches"][k] for v in cli["run_stages"].values())
                         for k in KERNELS}, STAGES_KERNELS),
-        ("replay", rp["launches"], ("resample2d",)),
+        ("replay", rp["launches"], ("resample2d_block",)),
+        ("tiny_block", tiny_launches["block"], ("resample2d_block",)),
+        ("tiny_gather", tiny_launches["gather"], ("resample2d",)),
         ("training_group_norm", tr_gn["launches"], TRAINING_KERNELS),
         ("inference_xception65", xinf["launches"], INFERENCE_KERNELS),
         ("synthetic", syn["launches"], tuple(KERNELS)),
@@ -4518,7 +4635,7 @@ def main() -> int:
         ("davis_cli_orbax_written", ow["run_written"]["launches"], INFERENCE_KERNELS),
         ("davis_cli_orbax_zarr3", ow["run_zarr3"]["launches"], INFERENCE_KERNELS),
         ("train_maskrcnn_out", ow["train_out"]["launches"], TRAINING_KERNELS),
-        ("synthetic_demo", demo["launches"], tuple(KERNELS)),
+        ("synthetic_demo", demo["launches"], DEMO_KERNELS),
         ("dp", dp2["launches"], DP_KERNELS)) if name in names}
         for name in KERNELS}
     kernels_line = []

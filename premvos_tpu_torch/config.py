@@ -4,9 +4,9 @@ The port keeps its own copy of the JAX package's config tree so that it
 imports nothing from that package; both load the same JSON presets
 (configs/*.json), and field names and defaults are identical. Fields the
 port does not read yet (`mesh_axis`, the loss settings) stay so that every
-preset parses. The `warp_impl` switches are
-read by the JAX package only: the port's warp is always the exact bilinear
-warp (ops/resample2d.py).
+preset parses. The `warp_impl` switches pick the warp as in the JAX
+package (ops/resample2d.py): "block", the block warp at the TPU kernel's
+(8, 128) blocks, or "gather", the exact bilinear warp.
 """
 
 from __future__ import annotations
@@ -73,7 +73,8 @@ class FlowConfig:
     infer_height: int = 448
     infer_width: int = 832
     div_flow: float = 20.0
-    warp_impl: str = "block"  # JAX package only (see module docstring)
+    # FlowNet2's four in-net warps: "block" | "gather" (module docstring).
+    warp_impl: str = "block"
 
 
 @dataclass(frozen=True)
@@ -106,7 +107,8 @@ class MergeConfig:
     # Warp resolution divisor: 1 = per-pixel warp at full resolution; s>1
     # warps on a 1/s grid and upsamples bilinearly.
     warp_stride: int = 1
-    warp_impl: str = "block"  # JAX package only (see module docstring)
+    # The merge's mask warp: "block" | "gather" (see FlowConfig.warp_impl).
+    warp_impl: str = "block"
     # Per-frame decay of the warp term while a track is coasting.
     warp_decay: float = 1.0
     # EMA rate folding the assigned proposal's embedding into the track's

@@ -94,7 +94,8 @@ def diagnose_sequence(pre, gt_masks, n_obj, gt_labels, cfg_m, seq_name):
         state = init_state(gt_masks, pre["gt_emb"], k)
         for t in range(t_steps):
             pre_t = {kk: pre[kk][t] for kk in PRE_KEYS}
-            warped = warp_masks_coarse(state.prev_masks, pre_t["flow"], cfg_m.warp_stride)
+            warped = warp_masks_coarse(state.prev_masks, pre_t["flow"], cfg_m.warp_stride,
+                                       cfg_m.warp_impl)
             terms = term_matrices(state, warped, pre_t, cfg_m)
             new_state, _, info = merge_frame(
                 state, pre_t["prop_masks"], pre_t["scores"], pre_t["emb"],

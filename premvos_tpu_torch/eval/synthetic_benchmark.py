@@ -22,8 +22,9 @@ through the port's trainers, `precompute_sequence` and the replay harness.
 The JSON record has the JAX record's keys plus the card's name and power
 limit and each stage's wall seconds. Its data are the JAX generator's
 files (data/synthetic_vos.py writes the same JPEG frames byte for byte).
-The port has one warp, the exact one, so its `gather_warp` row repeats the
-tuned one.
+Its `gather_warp` row is the JAX script's: the val draw precomputed again
+with the exact warp in FlowNet2 and in the merge, scored with the tuned
+weights.
 
   python -m premvos_tpu_torch.eval.synthetic_benchmark                # full
   python -m premvos_tpu_torch.eval.synthetic_benchmark --quick        # reduced
@@ -72,7 +73,12 @@ from premvos_tpu_torch.eval.harness import (
 from premvos_tpu_torch.eval.tune import ablation_weights, tune_weights
 from premvos_tpu_torch.io_compat.flo import write_flo
 from premvos_tpu_torch.io_compat.ppm import write_ppm
-from premvos_tpu_torch.pipeline.runner import build_models, init_params, resolve_device
+from premvos_tpu_torch.pipeline.runner import (
+    build_models,
+    init_params,
+    resolve_device,
+    with_flow_warp,
+)
 from premvos_tpu_torch.train.train_flow import train_flownet_c
 from premvos_tpu_torch.train.train_maskrcnn import train_maskrcnn
 from premvos_tpu_torch.train.train_refine import train_refine
@@ -591,9 +597,16 @@ def main(argv=None) -> dict:
                   f"per-draw {ablation[-1]['per_draw']}", flush=True)
         ws2, _ = evaluate_weights(precomputed, tuned_w, warp_stride=2)
         ablation.append({"name": "warp_stride2", "J&F": _round(ws2)})
-        # The port's warp is always the exact one (JAX: "gather").
-        ablation.append({"name": "gather_warp", "J&F": draws[str(val_seeds[0])]["J&F"],
-                         "note": "the port has one warp, the exact one: this is the tuned row"})
+        # The block warp against the exact ("gather") warp, in FlowNet2 and
+        # the merge: a gather config, a fresh precompute, the tuned weights.
+        gather_cfg = dataclasses.replace(
+            cfg, flow=dataclasses.replace(cfg.flow, warp_impl="gather"),
+            merge=dataclasses.replace(cfg.merge, warp_impl="gather"))
+        pre_g = precompute_split(with_flow_warp(models, "gather"), gather_cfg, ds_val,
+                                 verbose=False, device=device)
+        gw, _ = evaluate_weights(pre_g, tuned_w, args.warp_stride, warp_impl="gather")
+        ablation.append({"name": "gather_warp", "J&F": _round(gw)})
+        print(f"[ablation]    gather_warp: J&F = {gw:.4f}", flush=True)
         # bf16 crop/paste interpolation against the float32 default, and
         # flow at half inference resolution (rounded up to 64-multiples)
         bf_cfg = dataclasses.replace(

@@ -23,14 +23,14 @@ that the draws keep their positions, but no work: the host knows which
 slots are valid.
 
 Warps. Both of JAX's `resample2d_block` calls (the background, `:206`, and
-the object patches, `:255`) are the port's `ops.resample2d.resample2d`, the
-exact bilinear warp with an edge clamp (the CUDA kernel on the card), one
-launch each per batch: [B, 3, H, W] for the backgrounds and [B·K, 4, P, P]
-for the patches of the K valid slots. JAX's block warp equals the exact warp
-only inside its envelope: the background warp (16×16 blocks, residual 4,
-`max_flow` 160) is exact at these ranges, and the patch warp (8×8 blocks,
-residual 6) clamps rare outlier pixels of the elastic field to its window.
-That is the port's warp contract (ROADMAP.md, queue 3, "By design").
+the object patches, `:255`) are the port's `ops.resample2d.resample2d_block`
+with JAX's explicit parameters, whatever the config's `warp_impl` says: the
+background with 16×16 blocks, residual 4 and `max_flow` 160 (exact at these
+ranges), the patches with 8×8 blocks, residual 6 and `max_flow` 64, which
+clamps the rare pixels of the elastic field that leave a block's window to
+its edge, as JAX does. One launch each per batch (the block kernel on the
+card): [B, 3, H, W] for the backgrounds and [B·K, 4, P, P] for the patches
+of the K valid slots.
 
 Crop and paste are `ops.roi_align.crop_and_resize` and
 `ops.masks.paste_mask` at `precision` (RefineConfig.interp_precision:
@@ -53,7 +53,7 @@ import torch.nn.functional as F
 
 from premvos_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from premvos_tpu_torch.ops.masks import paste_mask
-from premvos_tpu_torch.ops.resample2d import resample2d
+from premvos_tpu_torch.ops.resample2d import resample2d_block
 from premvos_tpu_torch.ops.resize import resize_bilinear
 from premvos_tpu_torch.ops.roi_align import crop_and_resize
 from premvos_tpu_torch.pipeline.runner import boxes_from_masks
@@ -207,8 +207,8 @@ def lucid_frames(draws: LucidDraws, image255: torch.Tensor, masks: torch.Tensor,
     cos, sin = torch.cos(ang) / sc, torch.sin(ang) / sc
     fx = cos * (xx - tx) + sin * (yy - ty) - xx
     fy = -sin * (xx - tx) + cos * (yy - ty) - yy
-    canvas = resample2d(background255.expand(n, 3, h, w).contiguous(),
-                        torch.stack([fx, fy], 1).contiguous())
+    canvas = resample2d_block(background255.expand(n, 3, h, w).contiguous(),
+                              torch.stack([fx, fy], 1).contiguous(), (16, 16), 4, 160)
     canvas = photometric(draws.bg_photo, canvas)
     label = torch.zeros((n, h, w), dtype=torch.int64, device=dev)
 
@@ -230,7 +230,7 @@ def object_patches(draws: LucidDraws, image255, masks, slots: list, patch: int,
     """The warped object patches of `slots` (host indices of the valid
     ones, ascending): a P×P patch around each object (native resolution
     when the object fits, scaled to fit above), cut once for the batch,
-    warped by each draw's rotation, scale and elastic field (one resample2d
+    warped by each draw's rotation, scale and elastic field (one block-warp
     launch for all) and jittered photometrically. Returns (rgb [B, Kv, 3,
     P, P], mask [B, Kv, P, P] in 0..1, destination boxes [B, Kv, 4] xyxy
     (a same-size box at the shifted centre), whether each object's mask is
@@ -250,8 +250,8 @@ def object_patches(draws: LucidDraws, image255, masks, slots: list, patch: int,
     # Elastic units are native pixels: rescale into the patch's.
     gain = torch.where(draws.elastic[:, slots], patch / (2.0 * src_half), 0.0)
     flow = rot_scale_flow(patch, aff[..., 0], aff[..., 1], elastic * gain[..., None, None, None])
-    warped = resample2d(pat.expand(n, kv, 4, patch, patch).reshape(n * kv, 4, patch, patch),
-                        flow.reshape(n * kv, 2, patch, patch).contiguous())
+    warped = resample2d_block(pat.expand(n, kv, 4, patch, patch).reshape(n * kv, 4, patch, patch),
+                              flow.reshape(n * kv, 2, patch, patch).contiguous(), (8, 8), 6, 64)
     warped = warped.reshape(n, kv, 4, patch, patch)
     rgb = photometric(draws.photo[:, slots], warped[:, :, :3])
     dx, dy = cx + aff[..., 2], cy + aff[..., 3]

@@ -10,7 +10,9 @@ JAX package:
   correlation.cu  ← premvos_tpu/ops/pallas/correlation_pallas.py (with the
                     gradient, which the JAX package computes with the XLA
                     scan premvos_tpu/ops/correlation.py::_correlation_grads)
-  resample2d.cu   ← premvos_tpu/ops/pallas/resample2d_pallas.py
+  resample2d.cu   ← premvos_tpu/ops/pallas/resample2d_pallas.py (the block
+                    warp; beside it the exact warp, the counterpart of the
+                    JAX package's XLA gather warp)
 
 Each exports a plain C function (pointers, sizes, a CUDA stream) that
 returns the `cudaError_t` of its launches. Those functions are declared once,

@@ -104,6 +104,15 @@ int premvos_correlation_backward(const float* f1, const float* f2,
 int premvos_resample2d(const void* src, int is_bf16, const float* flow, int b,
                        int c, int h, int w, float* out, cudaStream_t stream);
 
+// The block warp (warp_impl "block"): (by, bx) blocks of at most 4096
+// pixels, each sampling a window of 2 * residual + 2 rows and columns
+// around its rounded mean displacement; max_flow bounds how far outside the
+// image a sample point may fall. Same layouts as premvos_resample2d.
+int premvos_resample2d_block(const void* src, int is_bf16, const float* flow,
+                             int b, int c, int h, int w, int by, int bx,
+                             int residual, int max_flow, float* out,
+                             cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

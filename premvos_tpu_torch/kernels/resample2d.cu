@@ -1,15 +1,32 @@
-// Backward bilinear warp (resample2d), batched.
+// Backward bilinear warps (resample2d), batched: two kernels, one for each
+// of the JAX package's `warp_impl`s (ops/resample2d.py has both contracts
+// and their plain versions). src is NCHW float32 or bfloat16, flow
+// [B, 2, H, W] float32, the output NCHW float32 (the promoted type of src
+// and flow).
 //
-// Replaces premvos_tpu/ops/pallas/resample2d_pallas.py::
-// resample2d_block_pallas (_warp_kernel). Contract (ops/resample2d.py):
+// premvos_resample2d_block ("block", the default) replaces
+// premvos_tpu/ops/pallas/resample2d_pallas.py::resample2d_block_pallas
+// (_warp_kernel with _block_prep): each (by, bx) block of pixels samples a
+// window of 2r + 2 rows and columns around its rounded mean displacement,
+// and a pixel whose own displacement leaves the window is clamped to its
+// edge. It is bound by bytes, the same bytes as the exact warp. The TPU
+// kernel DMAs each block's window into VMEM and sums win x win shifted
+// FMAs there; on the H100 the two-tap sum needs no staging: one thread
+// block a block of pixels, each thread keeps its pixels' clipped source
+// coordinates in registers, the block sums the displacements (float64,
+// warp shuffles, then shared memory) to its window start, and each thread
+// reads its pixels' two rows and two columns of the window (clamped into
+// the image, JAX's edge padding) for every channel; neighbouring threads
+// take neighbouring columns, so the reads and the writes coalesce. The
+// products and sums are rounded one by one (__fmul_rn, __fadd_rn, no
+// contraction), in the plain version's order, so the two agree to the bit.
+//
+// premvos_resample2d ("gather") is the exact bilinear warp:
 //   out[b, c, y, x] = bilinear(src[b, c], y + flow[b, 1, y, x],
 //                                         x + flow[b, 0, y, x])
 // with the sample point clamped into the image (edge clamp), exactly
-// premvos_tpu/ops/resample2d.py::resample2d_reference for any flow. The TPU
-// kernel is exact only inside an envelope (|flow| <= 64 and a per-block
-// residual <= 4) and clamps to its window outside it; this kernel has no
-// envelope. src is NCHW float32 or bfloat16, flow [B, 2, H, W] float32, the
-// output NCHW float32 (the promoted type of src and flow).
+// premvos_tpu/ops/resample2d.py::resample2d_reference (the JAX package's
+// XLA gather warp, which has no TPU kernel) for any flow.
 //
 // What bounds it on the H100: bytes. B*H*W*(C src + 2 flow + C out)
 // elements move once, against eight flops per output; the four taps of a
@@ -128,7 +145,149 @@ cudaError_t launch(const void* src, const float* flow, int b, int c, int h,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- block warp
+
+constexpr int kBlockThreads = 256;  // at most; a small block takes fewer
+
+// One thread block per (by, bx) block of pixels of one image; thread t
+// takes the block's pixels t, t + threads, ... (K of them at most).
+template <typename T, int K>
+__global__ void __launch_bounds__(kBlockThreads)
+resample_block_kernel(const T* __restrict__ src, const float* __restrict__ flow,
+                      int c, int h, int w, int by, int bx, int r, float lf,
+                      float* __restrict__ out) {
+  const int b = blockIdx.z;
+  const int oy = blockIdx.y * by;
+  const int ox = blockIdx.x * bx;
+  const int npix = by * bx;
+  const size_t hw = (size_t)h * w;
+  const float* fu = flow + (size_t)b * 2 * hw;
+  const float* fv = fu + hw;
+
+  // Clipped source coordinates and the block's displacement sums.
+  float sy[K], sx[K];
+  double sum_y = 0.0, sum_x = 0.0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    const int y = oy + q / bx;
+    const int x = ox + q % bx;
+    sy[k] = sx[k] = 0.f;
+    if (q < npix && y < h && x < w) {
+      const int pix = y * w + x;
+      const float yf = (float)y, xf = (float)x;
+      sy[k] = fminf(fmaxf(__fadd_rn(yf, __ldg(fv + pix)), -lf), (float)(h - 1) + lf);
+      sx[k] = fminf(fmaxf(__fadd_rn(xf, __ldg(fu + pix)), -lf), (float)(w - 1) + lf);
+      sum_y += (double)__fsub_rn(sy[k], yf);
+      sum_x += (double)__fsub_rn(sx[k], xf);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sum_y += __shfl_down_sync(0xffffffffu, sum_y, off);
+    sum_x += __shfl_down_sync(0xffffffffu, sum_x, off);
+  }
+  __shared__ double warp_sums[kBlockThreads / 32][2];
+  __shared__ int start[2];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) {
+    warp_sums[wid][0] = sum_y;
+    warp_sums[wid][1] = sum_x;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double ty = 0.0, tx = 0.0;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
+      ty += warp_sums[i][0];
+      tx += warp_sums[i][1];
+    }
+    // The mean over the pixels inside the image, a float32 division
+    // rounded half to even (jnp.round).
+    const float n = (float)(min(by, h - oy) * min(bx, w - ox));
+    start[0] = oy + (int)rintf(__fdiv_rn((float)ty, n)) - r;
+    start[1] = ox + (int)rintf(__fdiv_rn((float)tx, n)) - r;
+  }
+  __syncthreads();
+  const int ws_y = start[0], ws_x = start[1];
+  const float ws_yf = (float)ws_y, ws_xf = (float)ws_x;
+  const float top = (float)(2 * r + 1);  // win - 1
+
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    const int ry = q / bx, rx = q % bx;
+    const int y = oy + ry, x = ox + rx;
+    if (q >= npix || y >= h || x >= w) continue;
+    // Local coordinates in the window, and the two taps a side.
+    const float ty = fminf(fmaxf(__fsub_rn(__fsub_rn(sy[k], ws_yf), (float)ry), 0.f), top);
+    const float tx = fminf(fmaxf(__fsub_rn(__fsub_rn(sx[k], ws_xf), (float)rx), 0.f), top);
+    const float dy = floorf(ty), dx = floorf(tx);
+    const float wy0 = fmaxf(0.f, 1.f - fabsf(ty - dy));
+    const float wy1 = fmaxf(0.f, 1.f - fabsf(ty - (dy + 1.f)));
+    const float wx0 = fmaxf(0.f, 1.f - fabsf(tx - dx));
+    const float wx1 = fmaxf(0.f, 1.f - fabsf(tx - (dx + 1.f)));
+    const int y0 = ws_y + ry + (int)dy, x0 = ws_x + rx + (int)dx;
+    const int r0 = min(max(y0, 0), h - 1) * w, r1 = min(max(y0 + 1, 0), h - 1) * w;
+    const int c0 = min(max(x0, 0), w - 1), c1 = min(max(x0 + 1, 0), w - 1);
+    const T* s = src + (size_t)b * c * hw;
+    float* o = out + (size_t)b * c * hw + y * w + x;
+    for (int ch = 0; ch < c; ++ch, s += hw, o += hw) {
+      const float a = __fadd_rn(__fmul_rn(wx0, load(s + r0 + c0)), __fmul_rn(wx1, load(s + r0 + c1)));
+      const float d = __fadd_rn(__fmul_rn(wx0, load(s + r1 + c0)), __fmul_rn(wx1, load(s + r1 + c1)));
+      *o = __fadd_rn(__fmul_rn(wy0, a), __fmul_rn(wy1, d));
+    }
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_block_k(const void* src, const float* flow, int b, int c, int h, int w,
+                           int by, int bx, int r, int max_flow, int threads, float* out,
+                         cudaStream_t stream) {
+  const dim3 grid((w + bx - 1) / bx, (h + by - 1) / by, b);
+  resample_block_kernel<T, K><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(src), flow, c, h, w, by, bx, r, (float)max_flow, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_block(const void* src, const float* flow, int b, int c, int h, int w,
+                         int by, int bx, int r, int max_flow, float* out,
+                         cudaStream_t stream) {
+  // Threads: the block's pixels rounded up to whole warps, 256 at most;
+  // pixels a thread: the next power of two that covers the rest.
+  const int npix = by * bx;
+  const int threads = min(kBlockThreads, (npix + 31) / 32 * 32);
+  const int per = (npix + threads - 1) / threads;
+#define PREMVOS_BLOCK_K(K)                                                           \
+  if (per <= K)                                                                      \
+    return launch_block_k<T, K>(src, flow, b, c, h, w, by, bx, r, max_flow, threads, out, \
+                                stream);
+  PREMVOS_BLOCK_K(1)
+  PREMVOS_BLOCK_K(2)
+  PREMVOS_BLOCK_K(4)
+  PREMVOS_BLOCK_K(8)
+  PREMVOS_BLOCK_K(16)
+#undef PREMVOS_BLOCK_K
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+extern "C" int premvos_resample2d_block(const void* src, int is_bf16, const float* flow,
+                                        int b, int c, int h, int w, int by, int bx,
+                                        int residual, int max_flow, float* out,
+                                        cudaStream_t stream) {
+  if (b <= 0 || c <= 0 || h <= 0 || w <= 0) return 0;
+  if ((long long)h * w >= (1LL << 31) || by < 1 || bx < 1 || by * bx > 16 * kBlockThreads ||
+      residual < 0 || max_flow < 0 || b > 65535 || (h + by - 1) / by > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      is_bf16 ? launch_block<__nv_bfloat16>(src, flow, b, c, h, w, by, bx, residual, max_flow,
+                                            out, stream)
+              : launch_block<float>(src, flow, b, c, h, w, by, bx, residual, max_flow, out,
+                                    stream);
+  return (int)err;
+}
 
 extern "C" int premvos_resample2d(const void* src, int is_bf16,
                                   const float* flow, int b, int c, int h,

@@ -3,8 +3,10 @@ premvos_tpu/models/flownet.py), NCHW.
 
 Sub-nets predict flow/div_flow at 1/4 resolution (Fusion at full
 resolution); `FlowNet2` rescales at every seam as the JAX package does. The
-cost volume is ops.correlation (float32), the inter-net warps are
-ops.resample2d (exact bilinear), the brightness error ops.channelnorm.
+cost volume is ops.correlation (float32), the four inter-net warps are
+ops.resample2d.warp at `warp_impl` ("block", the default: the block warp at
+the TPU kernel's (8, 128) blocks; "gather": the exact warp), the brightness
+error ops.channelnorm.
 Module names follow the flax tree (conv3_1, predict_flow6, deconv5,
 upsampled_flow6_to_5, Conv_0, ConvTranspose_0, …). Input H, W must be
 multiples of 64.
@@ -19,7 +21,7 @@ from torch import nn
 from premvos_tpu_torch.models.layers import Conv, ConvTranspose
 from premvos_tpu_torch.ops.channelnorm import channelnorm
 from premvos_tpu_torch.ops.correlation import correlation, num_displacements
-from premvos_tpu_torch.ops.resample2d import resample2d
+from premvos_tpu_torch.ops.resample2d import warp
 from premvos_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -231,12 +233,14 @@ class FlowNet2(nn.Module):
     """(img1, img2) [B, 3, H, W] in [0, 1] → flow [B, 2, H, W] in pixels.
 
     variant: 'flownetc' | 'flownet2cs' | 'flownet2css' | 'flownet2'
+    warp_impl: 'block' | 'gather' (FlowConfig.warp_impl)
     """
 
     def __init__(self, variant="flownet2", max_displacement=20, corr_stride=2,
-                 div_flow=20.0, dtype=torch.float32):
+                 div_flow=20.0, dtype=torch.float32, warp_impl="block"):
         super().__init__()
         self.variant, self.div_flow, self.dtype = variant, div_flow, dtype
+        self.warp_impl = warp_impl
         self.flownetc = FlowNetC(max_displacement, corr_stride, dtype)
         if variant in ("flownet2cs", "flownet2css", "flownet2"):
             self.flownets_1 = FlowNetS(dtype=dtype)
@@ -248,7 +252,7 @@ class FlowNet2(nn.Module):
 
     def _s_refine(self, net, img1, img2, flow_px):
         """One FlowNetS refinement pass."""
-        warped = resample2d(img2, flow_px)
+        warped = warp(img2, flow_px, self.warp_impl)
         err = channelnorm(img1 - warped)
         x = torch.cat(
             [img1, img2, warped, flow_px / self.div_flow, err], dim=1
@@ -282,8 +286,8 @@ class FlowNet2(nn.Module):
         flow_sd_q = self.flownetsd(torch.cat([i1, i2], dim=1))
         flow_sd = upsample_flow(flow_sd_q.to(torch.float32), hw, 4.0 * self.div_flow)
         i1f, i2f = i1.to(torch.float32), i2.to(torch.float32)
-        warped_css = resample2d(i2f, flow_px)
-        warped_sd = resample2d(i2f, flow_sd)
+        warped_css = warp(i2f, flow_px, self.warp_impl)
+        warped_sd = warp(i2f, flow_sd, self.warp_impl)
         fuse_in = torch.cat(
             [
                 i1f,

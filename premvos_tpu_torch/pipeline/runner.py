@@ -20,6 +20,7 @@ Layouts follow the JAX package at the public functions (frames
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -60,6 +61,14 @@ class Models(NamedTuple):
     refine: torch.nn.Module
     flow: torch.nn.Module
     reid: torch.nn.Module
+
+
+def with_flow_warp(models: Models, warp_impl: str) -> Models:
+    """`models` with FlowNet2's in-net warps at `warp_impl`; every net and
+    weight is shared with `models`."""
+    flow = copy.copy(models.flow)
+    flow.warp_impl = warp_impl
+    return models._replace(flow=flow)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -107,6 +116,7 @@ def build_models(cfg: PremvosConfig, device=None) -> Models:
             corr_stride=cfg.flow.corr_stride,
             div_flow=cfg.flow.div_flow,
             dtype=dtype,
+            warp_impl=cfg.flow.warp_impl,
         ),
         reid=ReIDNet(cfg.reid, dtype),
     )
@@ -328,7 +338,7 @@ def precompute_sequence(
     return {**pre, "gt_emb": gt_emb, "gt_valid": gt_valid}
 
 
-def merge_config_from_weights(weights, warp_stride: int = 1) -> MergeConfig:
+def merge_config_from_weights(weights, warp_stride: int = 1, warp_impl: str = "block") -> MergeConfig:
     """The replay's MergeConfig: a weight vector of length 6, 8 or 9
     (w_objectness, w_reid, w_warp, w_overlap, reid_sigma,
     new_object_score_floor[, warp_decay, reid_ema[, reid_reacquire]]), each
@@ -346,6 +356,7 @@ def merge_config_from_weights(weights, warp_stride: int = 1) -> MergeConfig:
         reid_ema=w[7] if len(w) > 7 else 0.0,
         reid_reacquire=w[8] if len(w) > 8 else 2.0,
         warp_stride=warp_stride,
+        warp_impl=warp_impl,
     )
 
 
@@ -359,11 +370,10 @@ def merge_labels_from_precomputed(
     warp_impl: str = "block",
 ) -> torch.Tensor:
     """Replay only the merge over precompute_sequence's outputs with the
-    MergeConfig of `weights` (merge_config_from_weights). `warp_impl` is
-    accepted for the JAX signature and ignored: the port's warp is the
-    exact one. Returns labels [T, H, W] int32 on pre's device (frame 0 the
+    MergeConfig of `weights` (merge_config_from_weights) at `warp_stride`
+    and `warp_impl`. Returns labels [T, H, W] int32 on pre's device (frame 0 the
     annotation, every object introduced at frame 0)."""
-    cfg_m = merge_config_from_weights(weights, warp_stride)
+    cfg_m = merge_config_from_weights(weights, warp_stride, warp_impl)
     device = pre["scores"].device
     with torch.inference_mode():
         gt_masks = torch.as_tensor(gt_masks, device=device).to(torch.float32)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from premvos_tpu_torch.ops.resample2d import resample2d
+from premvos_tpu_torch.ops.resample2d import warp
 from premvos_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -55,20 +55,21 @@ def run_flow_pairs(model, frames, infer_hw=None, chunk=None) -> torch.Tensor:
     return torch.cat(out)
 
 
-def warp_masks(masks: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_masks(masks: torch.Tensor, flow: torch.Tensor, impl: str = "block") -> torch.Tensor:
     """Backward-warp [K, H, W] masks by one [2, H, W] flow: the K masks are
-    the channels of one exact bilinear warp."""
-    return resample2d(masks[None], flow[None])[0]
+    the channels of one warp, the block warp or ("gather") the exact one."""
+    return warp(masks[None], flow[None], impl)[0]
 
 
-def warp_masks_coarse(masks: torch.Tensor, flow: torch.Tensor, stride: int) -> torch.Tensor:
+def warp_masks_coarse(masks: torch.Tensor, flow: torch.Tensor, stride: int,
+                      impl: str = "block") -> torch.Tensor:
     """Warp at 1/stride resolution, then upsample bilinearly (stride 1 is the
     full-resolution warp). Downsampling antialiases, as jax.image.resize."""
     if stride <= 1:
-        return warp_masks(masks, flow)
+        return warp_masks(masks, flow, impl)
     h, w = masks.shape[-2:]
     hs, ws = h // stride, w // stride
     flow_s = resize_bilinear(flow[None], (hs, ws))[0] / float(stride)
     masks_s = resize_bilinear(masks[None], (hs, ws))[0]
-    warped_s = warp_masks(masks_s, flow_s)
+    warped_s = warp_masks(masks_s, flow_s, impl)
     return resize_bilinear(warped_s[None], (h, w))[0]

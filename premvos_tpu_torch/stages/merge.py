@@ -111,7 +111,7 @@ def merge_frame(state, prop_masks, prop_scores, prop_emb, prop_valid, flow_back,
     frame emit their annotation and join assignment from the next frame.
     Returns (new_state, labels [H, W] int32, info dict).
     """
-    warped = warp_masks_coarse(state.prev_masks, flow_back, cfg.warp_stride)
+    warped = warp_masks_coarse(state.prev_masks, flow_back, cfg.warp_stride, cfg.warp_impl)
     s, sim = score_matrix(
         state, warped, prop_masks, prop_scores, prop_emb, prop_valid, cfg
     )

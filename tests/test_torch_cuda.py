@@ -25,7 +25,12 @@ from premvos_tpu_torch.ops.correlation import (
     correlation_grads_reference,
     correlation_reference,
 )
-from premvos_tpu_torch.ops.resample2d import resample2d_cuda, resample2d_reference
+from premvos_tpu_torch.ops.resample2d import (
+    resample2d_block_cuda,
+    resample2d_block_reference,
+    resample2d_cuda,
+    resample2d_reference,
+)
 from premvos_tpu_torch.ops.roi_align import (
     multilevel_roi_align_reference,
     roi_align_backward_cuda,
@@ -652,20 +657,56 @@ def test_resample2d_kernel_cases(dev, dtype, c, hw):
         torch.testing.assert_close(got, resample2d_reference(src, flow), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("hw", [(30, 40), (29, 37), (40, 136)], ids=["w40", "ragged", "w136"])
+@pytest.mark.parametrize("params", [((8, 128), 4, 64), ((16, 16), 4, 160), ((8, 8), 6, 64),
+                                    ((32, 128), 4, 64)], ids=["tpu", "lucid_bg", "lucid_patch",
+                                                              "jax_cpu"])
+def test_resample2d_block_kernel_cases(dev, dtype, c, hw, params):
+    """The block warp vs resample2d_block_reference, atol 1e-5, at the TPU
+    kernel's blocks, the lucid warps' and JAX's CPU fallback's (a block of
+    4096 pixels, 16 a thread), on noise flow of ±30 px and flow past
+    max_flow (pixels leave the window), flow far out of the image, zero
+    flow and a constant half pixel, for blocks that the image fills and
+    ragged ones."""
+    h, w = hw
+    gen = torch.Generator().manual_seed(9)
+    src = torch.randn(2, c, h, w, generator=gen).to(dev, dtype)
+    lf = params[2]
+    flows = [
+        torch.rand(2, 2, h, w, generator=gen) * 60 - 30,
+        torch.rand(2, 2, h, w, generator=gen) * 3 * lf - 1.5 * lf,
+        torch.full((2, 2, h, w), 500.0),
+        torch.full((2, 2, h, w), -41.3),
+        torch.zeros(2, 2, h, w),
+        torch.full((2, 2, h, w), 0.5),
+    ]
+    for flow in flows:
+        flow = flow.to(dev)
+        got = resample2d_block_cuda(src, flow, *params)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == src.shape
+        torch.testing.assert_close(got, resample2d_block_reference(src, flow, *params), rtol=0,
+                                   atol=1e-5)
+
+
 def test_forward_only_kernels_refuse_grad(dev):
-    """resample2d_cuda has no backward: with grad enabled and an input that
-    requires grad it raises; under no_grad and inference_mode it runs.
+    """resample2d_cuda and resample2d_block_cuda have no backward: with grad
+    enabled and an input that requires grad they raise; under no_grad and
+    inference_mode they run.
     correlation_cuda has one: backward() fills both inputs' gradients, and
     it too runs under no_grad and inference_mode."""
     src = torch.randn(1, 3, 16, 20, device=dev)
     flow = torch.zeros(1, 2, 16, 20, device=dev)
     leaf = src.clone().requires_grad_(True)
-    with pytest.raises(ValueError, match="no backward"):
-        resample2d_cuda(leaf, flow)
-    with torch.no_grad():
-        resample2d_cuda(leaf, flow)
-    with torch.inference_mode():
-        resample2d_cuda(src, flow)
+    for warp in (resample2d_cuda, resample2d_block_cuda):
+        with pytest.raises(ValueError, match="no backward"):
+            warp(leaf, flow)
+        with torch.no_grad():
+            warp(leaf, flow)
+        with torch.inference_mode():
+            warp(src, flow)
 
     f = torch.randn(1, 8, 16, 20, device=dev)
     f1, f2 = f.clone().requires_grad_(True), torch.randn_like(f).requires_grad_(True)
@@ -693,21 +734,25 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("kind", ["background", "patches16", "patches64"])
 def test_resample2d_kernel_lucid_shapes(dev, kind):
-    """The fine-tune's two warps at their shapes and flows (chip_smoke.py's
-    phase 3 inputs: backgrounds [8, 3, 480, 864] under the largest
-    background affine, patches [16 | 64, 4, 256, 256] under rotation, scale
-    and the elastic field) vs resample2d_reference on unit-scale values,
-    atol 1e-5."""
+    """The fine-tune's two warps, the block warp at their parameters, at
+    their shapes and flows (chip_smoke.py's phase 3 inputs: backgrounds
+    [8, 3, 480, 864] under the largest background affine at (16, 16), 4,
+    160; patches [16 | 64, 4, 256, 256] under rotation, scale and the
+    elastic field at (8, 8), 6, 64) vs resample2d_block_reference on
+    unit-scale values, atol 1e-5."""
+    cs = _chip_smoke()
     gen = torch.Generator().manual_seed(31)
-    src, flow, _ = _chip_smoke().lucid_resample_inputs(torch, gen, dev, kind)
-    got = resample2d_cuda(src, flow)
+    src, flow, _ = cs.lucid_resample_inputs(torch, gen, dev, kind)
+    params = cs.LUCID_BLOCK[kind]
+    got = resample2d_block_cuda(src, flow, *params)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, resample2d_reference(src, flow), rtol=0, atol=1e-5)
+    torch.testing.assert_close(got, resample2d_block_reference(src, flow, *params), rtol=0,
+                               atol=1e-5)
 
 
 def test_lucid_frames_cuda_matches_cpu(dev):
     """A batch of 4 lucid draws (3 slots, 2 valid, patch 64) made on the CPU,
-    composited on the card (the resample2d kernel) and on the CPU (the plain
+    composited on the card (the block warp's kernel) and on the CPU (the plain
     warp): masks equal except where a pasted value lies within 1e-4 of
     0.5, canvases within 1e-3 of 255 where the labels agree."""
     from premvos_tpu_torch.finetune import lucid_device as tl
@@ -725,10 +770,10 @@ def test_lucid_frames_cuda_matches_cpu(dev):
     out = {}
     for d in ("cpu", "cuda"):
         dd = tl.LucidDraws(*[x.to(d) for x in draws])
-        before = resample2d_cuda.launches
+        before = resample2d_block_cuda.launches
         out[d] = [x.cpu() for x in tl.lucid_frames(dd, img.to(d), masks.to(d), valid,
                                                    bg.to(d), patch)]
-        assert resample2d_cuda.launches - before == (2 if d == "cuda" else 0)
+        assert resample2d_block_cuda.launches - before == (2 if d == "cuda" else 0)
     differ = (out["cuda"][1] != out["cpu"][1]).any(1)
     if bool(differ.any()):
         _, m, dst, on = tl.object_patches(draws, img, masks, [0, 1], patch)
@@ -888,7 +933,7 @@ def test_run_davis_and_replay_on_the_card_match_the_cpu(dev, tmp_path):
     cs.write_davis_tree(np, str(root), ("a", "b"), 6, (90, 120))
     common = ["--davis_root", str(root), "--config", str(tmp_path / "tiny.json"),
               "--checkpoint", str(tmp_path / "p.pt")]
-    wrappers = (tnms.nms_cuda, multilevel_roi_align_cuda, corr, resample2d_cuda)
+    wrappers = (tnms.nms_cuda, multilevel_roi_align_cuda, corr, resample2d_block_cuda)
     start = [fn.launches for fn in wrappers]
     run_davis.main(common + ["--output", str(tmp_path / "card")])
     torch.cuda.synchronize()

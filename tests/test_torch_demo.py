@@ -8,7 +8,7 @@ the JAX script's `main(["--load-params", ...])` restores that directory
 and tracks with it, and its J&F and `[diag]` lines must be the port's
 `--load-params` ones.
 
-Two steps leave the nets at random weights, where three things decide by
+Two steps leave the nets at random weights, where two things decide by
 float rounding rather than by the nets (`pin_for_parity` sets them, the
 same way in both packages since both read the same checkpoint):
 - the RPN's and the box head's delta layers push every box into one
@@ -18,11 +18,10 @@ same way in both packages since both read the same checkpoint):
   refinement net's masks stay below 0.5, so no proposal would pass the
   score threshold nor label a pixel, and a J&F of 0 would hold nothing:
   the classifier is scaled to 1 % with a +2 object bias, the refinement
-  classifier to 10 % with a +1 object bias;
-- FlowNetC's output at random weights is a rough field of up to 16 px,
-  where the JAX merge's default block warp (exact for smooth flow only)
-  and the port's exact warp part ways; the last flow layer gives a
-  constant subpixel flow instead, which both warp exactly.
+  classifier to 10 % with a +1 object bias.
+FlowNetC's rough random flow (up to 16 px) stays: both packages warp it
+with the block warp at the TPU kernel's blocks (tests/_jax_block_warp.py
+pins the JAX side to them).
 """
 
 import contextlib
@@ -43,6 +42,7 @@ from premvos_tpu_torch.eval import synthetic_demo as tdemo
 from premvos_tpu_torch.eval.synthetic_benchmark import demo_config
 from premvos_tpu_torch.pipeline.runner import build_models
 from premvos_tpu_torch.utils.checkpoint import load_params, save_params
+from tests._jax_block_warp import jax_tpu_block_warp  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import train_synthetic_demo as jdemo  # noqa: E402
@@ -78,11 +78,6 @@ def pin_for_parity(models):
     tree["params"]["cls"] = {"kernel": cls["kernel"] * np.float32(0.1),
                              "bias": np.array([0.0, 1.0], np.float32)}
     bridge.load_flax_tree(models.refine, tree)
-    tree = bridge.flax_tree(models.flow)
-    last = tree["params"]["flownetc"]["decoder"]["predict_flow2"]["Conv_0"]
-    last["kernel"] = np.zeros_like(last["kernel"])
-    last["bias"] = np.array([0.03, -0.02], np.float32)
-    bridge.load_flax_tree(models.flow, tree)
     return models
 
 

@@ -8,7 +8,8 @@ reaches every class: the counts, the blame and the events equal, the
 score terms within 1e-6. The tuning command runs both `main`s on
 --synthetic with one port-written orbax checkpoint (pinned as
 tests/test_torch_demo.py pins the demo's nets: random weights decide by
-float rounding otherwise).
+float rounding otherwise). The JAX block warp is the TPU kernel's on both
+(tests/_jax_block_warp.py).
 """
 
 import json
@@ -31,6 +32,7 @@ from premvos_tpu_torch.pipeline.runner import build_models, init_params
 from premvos_tpu_torch.stages import merge as tmerge
 from premvos_tpu_torch.stages.flow import warp_masks_coarse
 from premvos_tpu_torch.utils.checkpoint import save_params
+from tests._jax_block_warp import jax_tpu_block_warp  # noqa: F401 (autouse)
 from tests.test_torch_demo import pin_for_parity
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
@@ -148,7 +150,7 @@ def test_term_matrices_match_jax():
         jt = {key: jnp.asarray(pre[key][t]) for key in keys}
         tt = {key: tpre[key][t] for key in keys}
         jwarped = jwarp(jstate.prev_masks, jt["flow"])
-        twarped = warp_masks_coarse(tstate.prev_masks, tt["flow"], 1)
+        twarped = warp_masks_coarse(tstate.prev_masks, tt["flow"], 1, tcfg.warp_impl)
         want = jdiag.term_matrices(jstate, jwarped, jt, jcfg)
         got = tdiag.term_matrices(tstate, twarped, tt, tcfg)
         assert set(got) == set(want)

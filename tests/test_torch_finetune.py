@@ -7,8 +7,9 @@ fused.py:221-238, and feeds them to the port. The JAX side runs unjitted
 where it is a closure of the fused runners, and the refine batch loss under
 value_and_grad is jitted alone (never the fused scan, whose proposal
 version takes about 25 min to compile on the CPU).
-Both sides warp exactly here: JAX's block warps are inside their envelope
-at these sizes (measured below). Float32 throughout, tiny nets (frozen BN).
+Both sides run the block warp at JAX's parameters (the background's (16,
+16) blocks, the patches' (8, 8)); tests/test_torch_block_warp.py drives the
+patches out of their windows. Float32 throughout, tiny nets (frozen BN).
 
 Tolerances, each measured first:
   * smooth_field 1e-5 (the same blur and resize in another library);

@@ -47,6 +47,7 @@ from premvos_tpu_torch.io_compat.orbax_ckpt import (
 from premvos_tpu_torch.pipeline import run_davis
 from premvos_tpu_torch.pipeline import runner as tr
 from premvos_tpu_torch.utils.checkpoint import NETS, load_params
+from tests._jax_block_warp import jax_tpu_block_warp  # noqa: F401 (autouse)
 from tests.test_pipeline import TINY
 
 DATA = Path(__file__).parent / "data" / "orbax"

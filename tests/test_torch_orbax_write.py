@@ -37,6 +37,7 @@ from premvos_tpu_torch.pipeline import run_davis
 from premvos_tpu_torch.pipeline import runner as tr
 from premvos_tpu_torch.train import train_flow, train_maskrcnn, train_refine, train_reid
 from premvos_tpu_torch.utils.checkpoint import NETS, load_params, save_net, save_params
+from tests._jax_block_warp import jax_tpu_block_warp  # noqa: F401 (autouse)
 from tests.test_pipeline import TINY
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "orbax")

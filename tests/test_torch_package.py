@@ -275,6 +275,7 @@ def test_cpu_tensors_take_the_plain_versions():
         return (nms.nms_cuda.launches, correlation.correlation_cuda.launches,
                 correlation.correlation_backward_cuda.launches,
                 resample2d.resample2d_cuda.launches,
+                resample2d.resample2d_block_cuda.launches,
                 roi_align.multilevel_roi_align_cuda.launches,
                 roi_align.roi_align_cuda.launches,
                 roi_align.roi_align_backward_cuda.launches)
@@ -285,6 +286,7 @@ def test_cpu_tensors_take_the_plain_versions():
     f = torch.zeros(1, 4, 6, 6)
     correlation.correlation(f, f.clone().requires_grad_(True), 2, 1).sum().backward()
     resample2d.resample2d(f, torch.zeros(1, 2, 6, 6))
+    resample2d.resample2d_block(f, torch.zeros(1, 2, 6, 6))
     roi_align.multilevel_roi_align(
         [torch.zeros(1, 8, 8, 4)] * 4, boxes, torch.full((1, 2), 2)
     )
@@ -331,6 +333,7 @@ def test_kernel_header_matches_the_sources():
         "premvos_nms", "premvos_multilevel_roi_align", "premvos_roi_align",
         "premvos_roi_align_backward", "premvos_correlation",
         "premvos_correlation_backward", "premvos_resample2d",
+        "premvos_resample2d_block",
     }
     for name, types in declared.items():
         assert defined[name] == types, name

@@ -3,8 +3,8 @@ the merge step, stages 1–4 and `run_sequence` end to end.
 
 One tiny configuration serves every test: depth-26 backbones, 32 FPN
 channels, a 96×128 canvas with FlowNet2 at 64×64 (so the frame and mask
-resizes downsample), the exact ("gather") warps on the JAX side, merge warp
-stride 2, and T=4 with scan_chunk 2 (so the last chunk is padded). The JAX
+resizes downsample), the exact ("gather") warps on both sides (the block
+warp has tests/test_torch_block_warp.py), merge warp stride 2, and T=4 with scan_chunk 2 (so the last chunk is padded). The JAX
 parameters are initialised once per module and bridged into the port.
 Everything runs in float32 on the CPU.
 """
@@ -135,7 +135,7 @@ def test_merge_frame_matches_jax_exactly():
     gt[2, 20:60, 70:100] = 1.0
     emb0 = rng.standard_normal((k, e)).astype(np.float32)
     cfg_j = jc.MergeConfig(warp_stride=2, warp_impl="gather", reid_ema=0.3)
-    cfg_t = tc.MergeConfig(warp_stride=2, reid_ema=0.3)
+    cfg_t = tc.MergeConfig(warp_stride=2, warp_impl="gather", reid_ema=0.3)
     js = jmerge.init_state(jnp.asarray(gt * [[[1]], [[1]], [[0]]]), jnp.asarray(emb0), 3)
     js = js._replace(active=jnp.asarray([True, True, False]))
     ts = tmerge.init_state(torch.from_numpy(gt * [[[1]], [[1]], [[0]]]).float(),

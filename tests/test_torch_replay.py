@@ -4,8 +4,9 @@ from them per weight vector (`merge_labels_from_precomputed`), and the
 harness's J&F (`eval/harness.py`).
 
 The tiny configuration of tests/test_torch_pipeline.py (T = 5 frames with
-scan_chunk 2, so the last chunk is padded). The JAX replay runs with the
-exact ("gather") warp, the port's only warp.
+scan_chunk 2, so the last chunk is padded), whose warps are the exact
+("gather") ones on both sides; tests/test_torch_block_warp.py replays at
+"block".
 """
 
 import dataclasses
@@ -105,14 +106,14 @@ def test_replay_matches_jax_exactly(setup, name):
         want_pre, jnp.asarray(gt), jnp.int32(2), jnp.asarray(w), warp_stride=2,
         warp_impl="gather"))
     got = tr.merge_labels_from_precomputed(_port_pre(want_pre), torch.from_numpy(gt), 2, w,
-                                           warp_stride=2, warp_impl="block")
+                                           warp_stride=2, warp_impl="gather")
     assert got.dtype == torch.int32 and got.shape == (T, H, W)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got[1:] == 1).any() and (got[1:] == 2).any()  # both objects tracked
     if name == "floor":
         base = tr.merge_labels_from_precomputed(
             _port_pre(want_pre), torch.from_numpy(gt), 2,
-            th.weights_from_merge_cfg(TCFG.merge), warp_stride=2)
+            th.weights_from_merge_cfg(TCFG.merge), warp_stride=2, warp_impl="gather")
         assert (base.numpy() != got.numpy()).any(), "the floor did not change the labels"
 
 
@@ -122,7 +123,8 @@ def test_replay_equals_run_sequence(setup):
     tm, frames, gt, _, _, got_pre = setup
     w = th.weights_from_merge_cfg(TCFG.merge)
     assert not np.array_equal(w, th.DEFAULT_WEIGHTS)  # TCFG's score floor is 0.9
-    replay = tr.merge_labels_from_precomputed(got_pre, gt, 2, w, warp_stride=2)
+    replay = tr.merge_labels_from_precomputed(got_pre, gt, 2, w, warp_stride=2,
+                                              warp_impl=TCFG.merge.warp_impl)
     labels = tr.run_sequence(tm, TCFG, frames, gt, 2, device="cpu")
     np.testing.assert_array_equal(replay.numpy(), labels.numpy())
 
@@ -162,7 +164,8 @@ def test_evaluate_weights_matches_jax(setup, name):
         [(want_pre, jnp.asarray(gt), jnp.int32(2), gt_labels)], w, warp_stride=2,
         warp_impl="gather")
     got, got_seq = th.evaluate_weights(
-        [(_port_pre(want_pre), torch.from_numpy(gt), 2, gt_labels)], w, warp_stride=2)
+        [(_port_pre(want_pre), torch.from_numpy(gt), 2, gt_labels)], w, warp_stride=2,
+        warp_impl="gather")
     assert abs(got - want) <= 1e-9
     assert abs(got_seq[0]["J"] - want_seq[0]["J"]) <= 1e-9
 

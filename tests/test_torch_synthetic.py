@@ -290,15 +290,31 @@ def test_bench_config_matches_jax():
 # ----------------------------------------------------------------- protocol
 
 
-def test_protocol_main_writes_the_record(tmp_path):
+def test_protocol_main_writes_the_record(tmp_path, monkeypatch):
     """The whole protocol on the CPU at 2 steps per net, one sequence per
     split, two proposals a frame (the refine stage dominates a CPU
     precompute) and a short search: the record has the JAX record's keys,
     J&F in [0, 1], and the tuned weights' file; nothing lands in the
-    repo."""
+    repo. Its gather_warp row is computed as the JAX script computes it: a
+    precompute with the exact warp in FlowNet2 and the merge config, scored
+    at "gather"; every other precompute and score runs the block warp."""
     want = json.loads((Path(__file__).resolve().parents[1]
                        / "docs/SYNTHETIC_BENCHMARK.json").read_text())
     out, tuned = tmp_path / "record.json", tmp_path / "tuned.json"
+    warps = []
+    precompute_split, evaluate_weights = tbench.precompute_split, tbench.evaluate_weights
+
+    def precompute_spy(models, cfg, *args, **kwargs):
+        warps.append(("precompute", models.flow.warp_impl, cfg.flow.warp_impl,
+                      cfg.merge.warp_impl))
+        return precompute_split(models, cfg, *args, **kwargs)
+
+    def evaluate_spy(pre, weights, warp_stride=1, warp_impl="block"):
+        warps.append(("evaluate", warp_impl))
+        return evaluate_weights(pre, weights, warp_stride, warp_impl)
+
+    monkeypatch.setattr(tbench, "precompute_split", precompute_spy)
+    monkeypatch.setattr(tbench, "evaluate_weights", evaluate_spy)
     report = tbench.main([
         "--device", "cpu", "--steps-det", "2", "--steps-refine", "2", "--steps-reid", "2",
         "--steps-flow", "2", "--n-train", "1", "--n-tune", "1", "--n-val", "1",
@@ -318,3 +334,9 @@ def test_protocol_main_writes_the_record(tmp_path):
     assert record["platform"] == "cpu" and set(record["seconds"]["train"]) == {
         "det", "refine", "reid", "flow"}
     assert json.loads(tuned.read_text())["trials"][0]["kind"] == "baseline"
+    row = {r["name"]: r for r in record["ablation"]}["gather_warp"]
+    assert set(row) == {"name", "J&F"} and 0.0 <= row["J&F"] <= 1.0
+    assert warps.count(("precompute", "gather", "gather", "gather")) == 1
+    assert warps.count(("evaluate", "gather")) == 1
+    assert {w for w in warps if "gather" not in w} == {
+        ("precompute", "block", "block", "block"), ("evaluate", "block")}
