@@ -138,14 +138,14 @@ def _check_block(block, residual, max_flow):
     return by, bx
 
 
-def resample2d_block_reference(src: torch.Tensor, flow: torch.Tensor, block=(8, 128),
-                               residual: int = 4, max_flow: int = 64) -> torch.Tensor:
-    """Plain version of the block warp (the module docstring), in float32
-    over every pixel at once: each pixel's window row and column, its two
-    weights a side, then four gathers."""
+def block_taps(flow: torch.Tensor, block=(8, 128), residual: int = 4, max_flow: int = 64):
+    """The block warp's index arithmetic (the module docstring) for flow
+    [B, 2, H, W], each [B, H, W]: every pixel's window start ws_y, ws_x
+    (its block's), its local coordinates t_y, t_x and its first tap's row
+    and column y0 = ws_y + ry + ⌊t_y⌋, x0 = ws_x + rx + ⌊t_x⌋, before the
+    clamp into the image."""
     by, bx = _check_block(block, residual, max_flow)
-    b, c, h, w = src.shape
-    out_dtype = torch.promote_types(src.dtype, flow.dtype)
+    b, _, h, w = flow.shape
     f32, i64, dev = torch.float32, torch.int64, flow.device
     r, lf = int(residual), float(max_flow)
     flow = flow.to(f32)
@@ -173,6 +173,19 @@ def resample2d_block_reference(src: torch.Tensor, flow: torch.Tensor, block=(8, 
     win = 2 * r + 2
     t_y = torch.clamp((sy - ws_y.to(f32)) - ry.to(f32), 0.0, win - 1.0)
     t_x = torch.clamp((sx - ws_x.to(f32)) - rx.to(f32), 0.0, win - 1.0)
+    y0 = ws_y + ry + torch.floor(t_y).to(i64)
+    x0 = ws_x + rx + torch.floor(t_x).to(i64)
+    return ws_y, ws_x, t_y, t_x, y0, x0
+
+
+def resample2d_block_reference(src: torch.Tensor, flow: torch.Tensor, block=(8, 128),
+                               residual: int = 4, max_flow: int = 64) -> torch.Tensor:
+    """Plain version of the block warp (the module docstring), in float32
+    over every pixel at once: each pixel's window row and column
+    (block_taps), its two weights a side, then four gathers."""
+    b, c, h, w = src.shape
+    out_dtype = torch.promote_types(src.dtype, flow.dtype)
+    _, _, t_y, t_x, y0, x0 = block_taps(flow, block, residual, max_flow)
     d_y, d_x = torch.floor(t_y), torch.floor(t_x)
 
     def weight(t, d):
@@ -180,9 +193,7 @@ def resample2d_block_reference(src: torch.Tensor, flow: torch.Tensor, block=(8, 
 
     wy0, wy1 = weight(t_y, d_y), weight(t_y, d_y + 1)
     wx0, wx1 = weight(t_x, d_x), weight(t_x, d_x + 1)
-    y0 = ws_y + ry + d_y.to(i64)
-    x0 = ws_x + rx + d_x.to(i64)
-    flat = src.to(f32).reshape(b, c, h * w)
+    flat = src.to(torch.float32).reshape(b, c, h * w)
 
     def tap(yi, xi):
         idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, 1, h * w)

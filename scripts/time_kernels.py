@@ -7,7 +7,7 @@ training), three ways, on one CUDA card.
 `--root` is the checkout whose `premvos_tpu_torch` is imported (default: the
 one holding this script), so two trees can be timed in one call, on one card.
 `--kernels` keeps only the rows of the named kernels (`nms`,
-`multilevel_roi_align`, `resample2d`, `correlation`,
+`multilevel_roi_align`, `resample2d`, `resample2d_block`, `correlation`,
 `correlation_backward`, `roi_align`, `roi_align_backward`); the `empty`
 row is always timed.
 For each case it reports:
@@ -48,6 +48,14 @@ keep 32) and at the RPN's on clustered boxes (the sweep visits all 2384);
 multilevel RoIAlign at the box head (bf16 C = 256, 256 RoIs per image,
 P = 7) and the mask head (32 RoIs, P = 14); resample2d at FlowNet2's warp
 (bf16 [8, 3, 448, 832]) and the merge warp (f32 [1, 8, 240, 432]);
+the block warp (`resample2d_block_cuda`) at every block-warp row of
+chip_smoke.py's phase 3 (`block_rows`, the inputs of `block_inputs`):
+FlowNet2's bf16 and float32 [8, 3, 448, 832] and the merge's float32
+[1, 8, 240, 432] at (8, 128) blocks, residual 4, max_flow 64, each on
+smooth flow and on ±30 px noise, and the lucid warps' backgrounds and
+patches at their blocks; each with `bound` (the bytes of source, flow and
+output once against 8 flops an output) and `exact_device_ms`, the exact
+warp's (`resample2d_cuda`) device time by name on the same inputs;
 correlation at FlowNetC's cost volume ([8, 256, 56, 104], max displacement
 20, stride 2), float32 and bfloat16 inputs; and the training path's
 single-level RoIAlign (`roi_align_levels`: four launches, one per level
@@ -141,6 +149,9 @@ def main() -> int:
     # This checkout's helpers and inputs, whichever tree is timed.
     from chip_smoke import (
         CORR_GRAD_CASES,
+        block_inputs,
+        block_rows,
+        bound_ms,
         corr_bmm,
         corr_grad_bounds,
         LEVEL_SHAPES,
@@ -163,7 +174,7 @@ def main() -> int:
     from premvos_tpu_torch.ops import nms as nms_mod
     from premvos_tpu_torch.ops import correlation as corr_mod
     from premvos_tpu_torch.ops.correlation import correlation_cuda
-    from premvos_tpu_torch.ops.resample2d import resample2d_cuda
+    from premvos_tpu_torch.ops.resample2d import resample2d_block_cuda, resample2d_cuda
     from premvos_tpu_torch.ops import roi_align as roi_mod
     from premvos_tpu_torch.ops.roi_align import multilevel_roi_align_cuda, roi_align_levels
 
@@ -213,6 +224,21 @@ def main() -> int:
         lib = (lambda s=srcf, g=grid:
                F.grid_sample(s, g, "bilinear", "border", align_corners=True))
         cases.append((row, lambda s=src, f=flow: resample2d_cuda(s, f), "resample", lib))
+
+    # The block warp's rows, each on its inputs' own generator; beside each,
+    # the exact warp on the same inputs (its device time only).
+    exact_calls = []
+    for i in range(len(block_rows())) if want("resample2d_block") else ():
+        src, flow, _, (block, r, lf) = block_inputs(torch, dev, i)
+        b, c, h, w = src.shape
+        nbytes = src.numel() * src.element_size() + flow.numel() * 4 + b * c * h * w * 4
+        row = dict(kernel="resample2d_block",
+                   shape=f"src [{b},{c},{h},{w}] {str(src.dtype)[6:]}, flow f32 "
+                         f"({block_rows()[i][1]}), block {block}, residual {r}, max_flow {lf}",
+                   bound=bound_ms(nbytes, b * c * h * w * 8.0), bound_bytes=nbytes)
+        cases.append((row, lambda a=(src, flow, block, r, lf): resample2d_block_cuda(*a),
+                      "resample_block", None))
+        exact_calls.append((row, lambda s=src, f=flow: resample2d_cuda(s, f)))
 
     b, c, h, w, md, st = 8, 256, 56, 104, 20, 2
     for dtype in (torch.float32, torch.bfloat16) if want("correlation") else ():
@@ -292,6 +318,8 @@ def main() -> int:
         if lib is not None and row["kernel"] == "resample2d":
             row["library_device_ms"] = named_ms(kernel_times(lib, ITERS, ("grid_sampler",)),
                                                 "grid_sampler")
+    for row, exact in exact_calls:
+        row["exact_device_ms"] = named_ms(kernel_times(exact, ITERS, ("resample",)), "resample")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -306,7 +334,9 @@ def main() -> int:
               + (f", parts {r['device_parts_ms']}" if "device_parts_ms" in r else "")
               + (f", device all {r['device_all_ms']:.5f} ms" if "device_all_ms" in r else "")
               + (f", library {r['library_ms']:.5f} ms" if "library_ms" in r else "")
-              + (f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]})" if "bound" in r else ""),
+              + (f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]})" if "bound" in r else "")
+              + (f", exact device {r['exact_device_ms']:.5f} ms" if "exact_device_ms" in r
+                 else ""),
               file=sys.stderr)
     result = {"card": smi, "root": os.path.abspath(args.root), "torch": torch.__version__,
               "rows": rows}

@@ -28,6 +28,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from premvos_tpu.finetune import lucid_device as jl
 from premvos_tpu.ops.pallas.resample2d_pallas import resample2d_block_pallas
@@ -38,6 +40,7 @@ from premvos_tpu_torch import config as tc
 from premvos_tpu_torch.bridge import flax_tree, params_from_jax
 from premvos_tpu_torch.finetune import lucid_device as tl
 from premvos_tpu_torch.ops.resample2d import (
+    block_taps,
     resample2d_block,
     resample2d_block_reference,
     resample2d_reference,
@@ -167,6 +170,51 @@ def test_block_warp_is_not_the_exact_warp(name):
     assert gap[0] > 0.1 and gap[1] > 0.1, gap
     assert gap[3] <= 1e-6 and gap[4] <= 1e-6, gap
     assert _leaves_window(_port(flow[:2]), block, residual, max_flow)
+
+
+def _staged_tile(ws, length, win, size, piece):
+    """The window tile that the block kernel's staged path
+    (kernels/resample2d.cu, `resample_block_staged`) copies into shared
+    memory, along one axis of `size` pixels, for blocks of `length` pixels
+    with window start `ws`: (origin, extent). The origin is clamp(ws, 0,
+    size − span), span = min(length + win, size), rounded down to the
+    16-byte `piece` (1 element for rows, 4 float32 or 8 bfloat16 for
+    columns); the extent covers span pixels from any such origin. The
+    kernel stages only (8, 128) blocks at residual 4 on an image at least a
+    tile large (span = length + win); the rule is held here in general."""
+    span = min(length + win, size)
+    origin = torch.clamp(ws, 0, size - span)
+    origin = origin - origin % piece
+    return origin, (span + 2 * piece - 2) // piece * piece if piece > 1 else span
+
+
+@settings(max_examples=80, deadline=None)
+@given(data=st.data())
+def test_staged_tile_holds_every_clamped_tap(data):
+    """The block kernel's staged path copies each block's window tile
+    (_staged_tile) into shared memory and reads every tap from there: for
+    every pixel, the clamped rows and columns of its four taps (block_taps,
+    the plain version's index arithmetic) lie inside its block's tile, whose
+    column origin is a multiple of the 16-byte piece. Over image and block
+    shapes (ragged blocks, images smaller than a tile), residuals, max_flows,
+    pieces of 4 and 8 elements (float32, bfloat16; the width then a
+    multiple of the piece) and flows from zero to far past the image."""
+    align = data.draw(st.sampled_from([4, 8]), label="piece")
+    by, bx = data.draw(st.integers(1, 16), label="by"), data.draw(st.integers(1, 64), label="bx")
+    h = data.draw(st.integers(1, 48), label="h")
+    w = -(-data.draw(st.integers(1, 48), label="w") // align) * align
+    r, lf = data.draw(st.integers(0, 6), label="residual"), data.draw(st.integers(0, 80), label="lf")
+    scale = data.draw(st.sampled_from([0.0, 0.5, 5.0, 40.0, 500.0]), label="flow scale")
+    rng = np.random.default_rng(data.draw(st.integers(0, 2**32 - 1), label="seed"))
+    flow = torch.from_numpy(rng.uniform(-scale, scale, (2, 2, h, w)).astype(np.float32))
+    ws_y, ws_x, _, _, y0, x0 = block_taps(flow, (by, bx), r, lf)
+    win = 2 * r + 2
+    for ws, length, size, piece, tap in ((ws_y, by, h, 1, y0), (ws_x, bx, w, align, x0)):
+        origin, extent = _staged_tile(ws, length, win, size, piece)
+        assert (origin >= 0).all() and (origin % piece == 0).all()
+        for d in (0, 1):
+            t = (tap + d).clamp(0, size - 1)
+            assert (t >= origin).all() and (t < origin + extent).all()
 
 
 def test_warp_names_the_two_warps():

@@ -657,23 +657,40 @@ def test_resample2d_kernel_cases(dev, dtype, c, hw):
         torch.testing.assert_close(got, resample2d_reference(src, flow), rtol=0, atol=1e-5)
 
 
+def _offset_view(t):
+    """A contiguous copy of `t` at a storage offset of one element, so that
+    its data lies off 16-byte alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("c", [1, 3, 8])
-@pytest.mark.parametrize("hw", [(30, 40), (29, 37), (40, 136)], ids=["w40", "ragged", "w136"])
+@pytest.mark.parametrize("c", [1, 3, 8, 4])
+@pytest.mark.parametrize("hw", [(30, 40), (29, 37), (40, 136), (33, 30), (5, 12), (45, 200)],
+                         ids=["w40", "ragged", "w136", "w30", "small", "w200"])
 @pytest.mark.parametrize("params", [((8, 128), 4, 64), ((16, 16), 4, 160), ((8, 8), 6, 64),
                                     ((32, 128), 4, 64)], ids=["tpu", "lucid_bg", "lucid_patch",
                                                               "jax_cpu"])
 def test_resample2d_block_kernel_cases(dev, dtype, c, hw, params):
     """The block warp vs resample2d_block_reference, atol 1e-5, at the TPU
     kernel's blocks, the lucid warps' and JAX's CPU fallback's (a block of
-    4096 pixels, 16 a thread), on noise flow of ±30 px and flow past
-    max_flow (pixels leave the window), flow far out of the image, zero
-    flow and a constant half pixel, for blocks that the image fills and
-    ragged ones."""
+    4096 pixels), on noise flow of ±30 px and flow past max_flow (pixels
+    leave the window), flow far out of the image, zero flow, a constant
+    half pixel and max_flow towards each of the four edges, for blocks that
+    the image fills, ragged ones, widths that are not a multiple of 4 or 8,
+    images smaller than the window tile (small) and a ragged image that
+    holds a whole tile (w200); each flow also with src and flow at a storage
+    offset that breaks their 16-byte alignment. Every shape here has too
+    few image blocks for the staged path, so these hold the direct one,
+    its channels in groups where the image blocks are fewer than two an
+    SM."""
     h, w = hw
     gen = torch.Generator().manual_seed(9)
     src = torch.randn(2, c, h, w, generator=gen).to(dev, dtype)
     lf = params[2]
+    edge = torch.zeros(2, 2, h, w)
     flows = [
         torch.rand(2, 2, h, w, generator=gen) * 60 - 30,
         torch.rand(2, 2, h, w, generator=gen) * 3 * lf - 1.5 * lf,
@@ -681,14 +698,50 @@ def test_resample2d_block_kernel_cases(dev, dtype, c, hw, params):
         torch.full((2, 2, h, w), -41.3),
         torch.zeros(2, 2, h, w),
         torch.full((2, 2, h, w), 0.5),
-    ]
+    ] + [edge.index_fill(1, torch.tensor([axis]), sign * lf)
+         for axis in (0, 1) for sign in (1.0, -1.0)]
     for flow in flows:
         flow = flow.to(dev)
-        got = resample2d_block_cuda(src, flow, *params)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.float32 and got.shape == src.shape
-        torch.testing.assert_close(got, resample2d_block_reference(src, flow, *params), rtol=0,
-                                   atol=1e-5)
+        want = resample2d_block_reference(src, flow, *params)
+        for s, f in ((src, flow), (_offset_view(src), _offset_view(flow))):
+            got = resample2d_block_cuda(s, f, *params)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == src.shape
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 3, 448, 832), (2, 4, 333, 1000)],
+                         ids=["flownet2", "ragged"])
+def test_resample2d_block_kernel_full_width(dev, dtype, shape):
+    """The warp at (8, 128) blocks on many image blocks, more than the card
+    holds at once: FlowNet2's [8, 3, 448, 832] (3136 blocks) and a ragged
+    [2, 4, 333, 1000] (672 blocks, neither rows nor columns a multiple of
+    the block's), which take the staged kernel, vs
+    resample2d_block_reference at atol 1e-5: on noise flow of ±30 px, flow
+    past max_flow, flow far out of the image, zero flow and max_flow towards
+    each of the four edges (the tile's origin clamped into the image); the
+    noise flow also with src and flow at a storage offset that breaks their
+    16-byte alignment (the direct path at the same shape)."""
+    gen = torch.Generator().manual_seed(12)
+    b, c, h, w = shape
+    src = torch.rand(b, c, h, w, generator=gen).to(dev, dtype)
+    edge = torch.zeros(b, 2, h, w)
+    flows = [
+        torch.rand(b, 2, h, w, generator=gen) * 60 - 30,
+        torch.rand(b, 2, h, w, generator=gen) * 192 - 96,
+        torch.full((b, 2, h, w), -500.0),
+        torch.zeros(b, 2, h, w),
+    ] + [edge.index_fill(1, torch.tensor([axis]), sign * 64.0)
+         for axis in (0, 1) for sign in (1.0, -1.0)]
+    for i, flow in enumerate(flows):
+        flow = flow.to(dev)
+        want = resample2d_block_reference(src, flow)
+        views = ((src, flow),) + (((_offset_view(src), _offset_view(flow)),) if i == 0 else ())
+        for s, f in views:
+            got = resample2d_block_cuda(s, f)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 def test_forward_only_kernels_refuse_grad(dev):
