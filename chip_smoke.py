@@ -53,18 +53,39 @@ Phases (any failure raises and exits non-zero):
      one frame at a time (`check_stage_shapes` ties them to davis2017_val);
      and the correlation backward's error on each of its CUDA test's cases
      (the training shapes, c200, h50_w30, d61_groups, d61_c72, ...) as a
-     share of its 1e-5 tolerance;
+     share of its 1e-5 tolerance; and, last, the block warp at the merge's
+     shape at warp stride 1 (configs/fast_flownetc.json: [1, 8, 480, 864]
+     float32, 420 image blocks) on smooth flow and on ±30 px noise; every
+     block-warp row names the kernel's path there (`block_path`, staged or
+     direct);
   4. run a tiny configuration end to end on CUDA (kernels) and on the CPU
      (plain versions) with the same seeded weights: ≥ 99 % label agreement,
      once with warp_impl "block" and once with "gather" (the launch counters
      zeroed just before each CUDA run and read just after: the block warp's
-     kernel alone in the first, the exact warp's alone in the second);
+     kernel alone in the first, the exact warp's alone in the second); then
+     scripts/check_tpu_consistency_torch.py's `check` (the JAX
+     consistency script's tiny FlowNetC pipeline, ResNet-50 backbones,
+     64×64, merge stride 1): label agreement and the IoU of every object
+     of 16 pixels or more ≥ 0.97, frame 0 equal, the inference kernels
+     launched (the exact warp not);
   5. run `run_sequence` at configs/davis2017_val.json with seeded random
      weights on 9 synthetic frames (one chunk): a warm-up run, then three
      timed runs; launch counters are zeroed just before the first timed run
      and read just after it, and every inference kernel must have launched,
      the block warp 12 times (FlowNet2's 4 warps, the merge's 8) and the
      exact warp never;
+ 5b. the same at configs/fast_flownetc.json (FlowNetC alone at 448×832,
+     bf16, the merge at warp stride 1 on [1, 8, 480, 864], the crops and
+     pastes at "highest"): frames/s, peak bytes, and each kernel's launches
+     exactly NMS 2, multilevel RoIAlign 2, correlation 1, block warp 8 (the
+     merge's alone), the exact warp 0; then its float32 labels on the card
+     against the CPU's on 3 frames (phase 7d's BN draws, so that pixels are
+     labelled after frame 0), object by object over the pixels either
+     labels, every IoU ≥ 0.99 and frame 0 exact; then FlowNet2 at
+     "flownet2cs" and "flownet2css" (one and two in-net block warps) at
+     448×832 in bf16 and float32, the card's flow against the CPU's within
+     VARIANT_FLOW_BOUND (‖Δ‖₂ / ‖cpu‖₂), the cost volume launched once and
+     the block warp once a FlowNetS; the slice's command time is logged;
   6. one Mask R-CNN training loss and its gradients at a tiny configuration
      on CUDA (kernels) and on the CPU (plain versions) from the same seeded
      weights: the loss within 1e-4 relative, every parameter's gradient
@@ -286,7 +307,7 @@ Phases (any failure raises and exits non-zero):
 
 Prints the card line, a `{"kernels": [...]}` line (each kernel's
 `launches` is the sum over the paths that run it, each counted in its own
-zeroed window of phase 4, 5, 7, 7b, 7c, 7d, 7f, 7g, 7i or 7e, and `launches_by_path` gives each
+zeroed window of phase 4, 5, 5b, 7, 7b, 7c, 7d, 7f, 7g, 7i or 7e, and `launches_by_path` gives each
 path's
 count), and last
 `{"ok": true, "device": {...}}`; progress and every measurement go to
@@ -370,6 +391,26 @@ INFERENCE_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d_b
 TRAINING_KERNELS = ("nms", "roi_align", "roi_align_backward")
 FINETUNE_KERNELS = ("resample2d_block", "nms", "roi_align", "roi_align_backward")
 PRESET_BLOCK_LAUNCHES = 12
+# configs/fast_flownetc.json on 9 frames in one chunk (phase 5b): each
+# kernel's launches, FlowNetC alone (one cost volume, no in-net warp) and
+# the merge's block warp at stride 1, one a frame.
+FAST_FLOWNETC_LAUNCHES = {"nms": 2, "multilevel_roi_align": 2, "correlation": 1,
+                          "resample2d_block": 8, "resample2d": 0, "roi_align": 0,
+                          "roi_align_backward": 0, "correlation_backward": 0}
+# The FlowNet variants with in-net warps (phase 5b) and the block warps
+# each forward launches.
+VARIANT_WARPS = {"flownet2cs": 1, "flownet2css": 2}
+# Their CUDA flow against the CPU's, as ‖cuda − cpu‖₂ / ‖cpu‖₂, by
+# dtype. Float32 (TF32 off): each product and sum rounds at 2^-24, a
+# convolution's K-term sum spreads that by about √K (K ≤ 9 · 1024), and
+# some 30 layers of variance-keeping random weights by √30 more: about
+# 1e-5 apart, so 1e-3 leaves room for a block warp whose rounded block
+# mean lies within that distance of a half on one device and not the
+# other (its window one pixel apart, which moves only that block's
+# clamped pixels). bf16: activations round at 2^-9 relative (half an
+# ulp), about 1e-3 RMS a rounding, √30 layers and two devices: about 1e-2,
+# bounded at 5e-2.
+VARIANT_FLOW_BOUND = {"float32": 1e-3, "bfloat16": 5e-2}
 # The trained-accuracy demo (phase 7i) trains every net and tracks with the
 # default warp: every kernel but the exact warp. The synthetic protocol
 # (phase 7c) launches that one too, in its gather_warp ablation.
@@ -929,6 +970,10 @@ RESAMPLE_CASES = ((8, 3, 448, 832, "bfloat16"), (1, 8, 240, 432, "float32"))
 TPU_BLOCK = ((8, 128), 4, 64)
 BLOCK_CASES = ((8, 3, 448, 832, "bfloat16"), (8, 3, 448, 832, "float32"),
                (1, 8, 240, 432, "float32"))
+# The merge at warp stride 1 (configs/fast_flownetc.json): 8 float32 masks
+# at the full 480×864 canvas, 420 image blocks. Its rows come after the
+# lucid ones, so the earlier rows keep their generators.
+MERGE_STRIDE1_CASE = (1, 8, 480, 864, "float32")
 LUCID_BLOCK = {"background": ((16, 16), 4, 160), "patches16": ((8, 8), 6, 64),
                "patches64": ((8, 8), 6, 64)}
 
@@ -1088,7 +1133,24 @@ def check_resample(torch, gen, dev, b, c, h, w, dtype):
 def block_rows():
     """(what, flow kind) of each block-warp row of phase 3."""
     return ([(case, kind) for case in BLOCK_CASES for kind in ("smooth", "noise30")]
-            + [(kind, "lucid") for kind in LUCID_RESAMPLE_CASES])
+            + [(kind, "lucid") for kind in LUCID_RESAMPLE_CASES]
+            + [(MERGE_STRIDE1_CASE, kind) for kind in ("smooth", "noise30")])
+
+
+def block_path(torch, src, block, residual) -> str:
+    """The path `premvos_resample2d_block` takes for `src`
+    (kernels/resample2d.cu::launch_block): "staged" at (8, 128) blocks,
+    residual 4, on an image a tile large (h ≥ 18, w ≥ 138, w a multiple of
+    16 bytes, a 16-byte aligned source) with at least two image blocks an
+    SM; "direct" everywhere else."""
+    b, _, h, w = src.shape
+    by, bx = block
+    blocks = b * -(-h // by) * -(-w // bx)
+    sms = torch.cuda.get_device_properties(src.device).multi_processor_count
+    staged = ((by, bx, residual) == (8, 128, 4) and h >= 18 and w >= 138
+              and w % (16 // src.element_size()) == 0 and src.data_ptr() % 16 == 0
+              and blocks >= 2 * sms)
+    return "staged" if staged else "direct"
 
 
 def block_inputs(torch, dev, i):
@@ -1141,7 +1203,8 @@ def check_block(torch, dev, i):
     return dict(shape=shape, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                 bound=bound_ms(nbytes, b * c * h * w * 8.0), bound_bytes=nbytes,
                 library_ms=None, grid_sample_ms=grid_ms,
-                vs_exact_max=max_abs(got, resample2d_reference(src, flow)))
+                vs_exact_max=max_abs(got, resample2d_reference(src, flow)),
+                path=block_path(torch, src.contiguous(), block, r))
 
 
 def grid_of(torch, flow):
@@ -1436,21 +1499,25 @@ def synthetic_video(np, t, h, w, k, seed):
     return np.clip(frames, 0, 255).astype(np.uint8), gt
 
 
-def track_preset(np, torch, wrappers, cfg, n_frames: int = 9):
+def track_preset(np, torch, wrappers, cfg, n_frames: int = 9,
+                 block_launches: int = PRESET_BLOCK_LAUNCHES, models=None):
     """`run_sequence` at `cfg` (a full-width preset) with seeded random
-    weights on `n_frames` synthetic frames (one chunk): a warm-up run, then
+    weights (init_params, seed 0, unless `models` on the card are given)
+    on `n_frames` synthetic frames (one chunk): a warm-up run, then
     three timed runs; the launch counters zeroed just before the first
     timed run and read just after. Fails unless the labels have the right
     shape and ids with frame 0 the annotation, every inference kernel
-    launched (the correlation backward not), and stages_batch's outputs
-    are finite. Returns a report dict."""
+    launched (the correlation backward not; at 9 frames the block warp
+    `block_launches` times and the exact warp never), and stages_batch's
+    outputs are finite. Returns a report dict."""
     from premvos_tpu_torch.pipeline.runner import (
         build_models, get_anchors, init_params, run_sequence, stages_batch,
     )
 
     p = cfg.pipeline
     t0 = time.perf_counter()
-    models = init_params(build_models(cfg), cfg, seed=0)
+    if models is None:
+        models = init_params(build_models(cfg), cfg, seed=0)
     init_s = time.perf_counter() - t0
     frames, gt = synthetic_video(np, n_frames, p.image_height, p.image_width, p.max_objects, seed=2)
     frames_d = torch.from_numpy(frames).cuda()
@@ -1484,10 +1551,10 @@ def track_preset(np, torch, wrappers, cfg, n_frames: int = 9):
     missing = [k for k in INFERENCE_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels not launched on the inference path: {missing}")
-    if n_frames == 9 and (launches["resample2d_block"] != PRESET_BLOCK_LAUNCHES
+    if n_frames == 9 and (launches["resample2d_block"] != block_launches
                           or launches["resample2d"]):
         fail(f"inference launched the block warp {launches['resample2d_block']} times (not "
-             f"{PRESET_BLOCK_LAUNCHES}) and the exact warp {launches['resample2d']} times")
+             f"{block_launches}) and the exact warp {launches['resample2d']} times")
     if launches["correlation_backward"]:
         fail("inference launched the correlation backward (it runs without grad)")
     with torch.inference_mode():
@@ -1503,6 +1570,126 @@ def track_preset(np, torch, wrappers, cfg, n_frames: int = 9):
         peak_bytes=peak, launches=launches,
         labels_per_frame=[int((lab[t] > 0).sum()) for t in range(n_frames)],
     )
+
+
+# ------------------------------------------------------------- phase 5b
+
+def fast_flownetc_models(torch, cfg):
+    """Seeded random nets at `cfg` (configs/fast_flownetc.json), drawn once
+    on the CPU: init_params(seed 0) with phase 7d's frozen-BN statistics and
+    biases drawn away from 1 and 0 (at flax's defaults davis2017_val's
+    random nets labelled nothing after frame 0, ROADMAP's Traps). Returns
+    {"cpu": float32 on the CPU, "cuda_f32": float32 on the card, "cuda":
+    cfg's dtype on the card}, every net's parameters the same."""
+    from premvos_tpu_torch.io_compat import _synthetic_checkpoints as sc
+    from premvos_tpu_torch.pipeline.runner import build_models, init_params
+
+    cfg32 = float32_cfg(cfg)
+    out = {"cpu": init_params(build_models(cfg32, device="cpu"), cfg32, seed=0, device="cpu")}
+    gen = torch.Generator().manual_seed(12)
+    for net in NETS:
+        sc.perturb(getattr(out["cpu"], net), gen)
+    for key, c in (("cuda_f32", cfg32), ("cuda", cfg)):
+        out[key] = build_models(c)
+        for net in NETS:
+            getattr(out[key], net).load_state_dict(
+                {k: v.cuda() for k, v in getattr(out["cpu"], net).state_dict().items()},
+                strict=True)
+    return out
+
+
+def fast_flownetc_cpu_parity(np, torch, cfg, models, n_frames: int = 3):
+    """`run_sequence` at `cfg` (configs/fast_flownetc.json) in float32 on
+    the card and on the CPU (`models`: fast_flownetc_models' "cuda_f32"
+    and "cpu"), on phase 5's first `n_frames` frames. Compared object by
+    object over the pixels either device labels, as phase 7d (c): frame 0
+    exact, a pixel labelled after frame 0 on each, every object's IoU ≥
+    CPU_IOU_MIN on every frame. Returns a report dict."""
+    from premvos_tpu_torch.pipeline.runner import run_sequence
+
+    p = cfg.pipeline
+    cfg32 = float32_cfg(cfg)
+    on_cpu, on_card = models["cpu"], models["cuda_f32"]
+    frames, gt = synthetic_video(np, n_frames, p.image_height, p.image_width, p.max_objects,
+                                 seed=2)
+    gt_d = torch.from_numpy(gt).cuda()
+    t0 = time.perf_counter()
+    want = run_sequence(on_cpu, cfg32, frames, gt, 2, device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    got = run_sequence(on_card, cfg32, torch.from_numpy(frames).cuda(), gt_d, 2).cpu().numpy()
+    if not np.array_equal(got[0], want[0]):
+        fail("fast_flownetc, float32: CUDA vs CPU frame 0 differs")
+    if not ((got[1:] > 0).any() and (want[1:] > 0).any()):
+        fail("fast_flownetc, float32: no pixel labelled after frame 0 on the card or the CPU: "
+             "the comparison would hold nothing")
+    rows = object_ious(np, got, want, p.max_objects)
+    low = [(t, i, v) for t, row in enumerate(rows) for i, v in row["iou"].items()
+           if v < CPU_IOU_MIN]
+    if low:
+        fail(f"fast_flownetc, float32: CUDA vs CPU object IoU below {CPU_IOU_MIN} "
+             f"(frame, object, IoU): {low}")
+    return dict(frames=n_frames, cpu_s=cpu_s, cuda_vs_cpu_float32=rows,
+                min_object_iou=min(v for row in rows for v in row["iou"].values()))
+
+
+def flow_variants_card(np, torch, wrappers, cfg):
+    """FlowNet2 at "flownet2cs" and "flownet2css" (VARIANT_WARPS) at `cfg`'s
+    flow section (448×832, max displacement 20, the block warp), seeded
+    random weights, on one pair of synthetic frames, in bfloat16 and
+    float32 (TF32 off), on the card and on the CPU: the launch counters
+    zeroed just before each card forward and read just after (the cost
+    volume once, the block warp once a FlowNetS, the exact warp never), and
+    the card's flow against the CPU's within VARIANT_FLOW_BOUND. Returns a
+    report dict by variant and dtype."""
+    from premvos_tpu_torch.models.flownet import FlowNet2
+    from premvos_tpu_torch.models.layers import init_module
+    from premvos_tpu_torch.pipeline.runner import float32_precision, place
+
+    f = cfg.flow
+    frames, _ = synthetic_video(np, 2, f.infer_height, f.infer_width, 2, seed=3)
+    pair = torch.from_numpy(frames).permute(0, 3, 1, 2).float() / 255.0
+    report = {}
+
+    def flownet(variant, dtype):
+        return FlowNet2(variant=variant, max_displacement=f.max_displacement,
+                        corr_stride=f.corr_stride, div_flow=f.div_flow,
+                        dtype=getattr(torch, dtype), warp_impl="block")
+
+    for variant, warps in VARIANT_WARPS.items():
+        base = flownet(variant, "float32")
+        init_module(base, torch.Generator().manual_seed(0))
+        for dtype in ("bfloat16", "float32"):
+            nets = {}
+            for dev in ("cpu", "cuda"):
+                net = flownet(variant, dtype)
+                net.load_state_dict(base.state_dict(), strict=True)
+                nets[dev] = place(net, torch.device(dev)).eval()
+            x1, x2 = pair[0:1], pair[1:2]
+            with torch.inference_mode(), float32_precision():
+                want = nets["cpu"](x1, x2)
+                x1d, x2d = x1.cuda(), x2.cuda()
+                for fn in wrappers.values():
+                    fn.launches = 0
+                got = nets["cuda"](x1d, x2d)
+                torch.cuda.synchronize()
+                launches = {k: fn.launches for k, fn in wrappers.items()}
+                ms = cuda_ms(lambda: nets["cuda"](x1d, x2d), 5)
+            got = got.float().cpu()
+            rel = float((got - want).norm() / want.norm())
+            want_launches = {k: 0 for k in wrappers} | {"correlation": 1,
+                                                        "resample2d_block": warps}
+            if launches != want_launches:
+                fail(f"{variant} {dtype}: launches {launches}, not {want_launches}")
+            if not torch.isfinite(got).all() or not rel <= VARIANT_FLOW_BOUND[dtype]:
+                fail(f"{variant} {dtype}: CUDA flow vs CPU ‖Δ‖/‖cpu‖ {rel} > "
+                     f"{VARIANT_FLOW_BOUND[dtype]}")
+            report[f"{variant}_{dtype}"] = dict(
+                rel_l2=rel, bound=VARIANT_FLOW_BOUND[dtype], max_abs=max_abs(got, want),
+                max_flow=float(want.abs().max()),
+                share_over_0_1px=float(((got - want).norm(dim=1) > 0.1).float().mean()),
+                launches=launches, ms=ms)
+            del nets
+    return report
 
 
 # ------------------------------------------------------------- phase 6
@@ -3657,6 +3844,17 @@ DP_KERNELS = ("nms", "multilevel_roi_align", "correlation", "resample2d_block", 
               "roi_align_backward", "correlation_backward")
 
 
+def load_script(name):
+    """The module of scripts/<name>.py in this checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def kernel_wrappers():
     """The launch-counting wrappers, by kernel name (this process's own)."""
     from premvos_tpu_torch.ops import correlation, nms, resample2d, roi_align
@@ -4226,7 +4424,12 @@ def main() -> int:
     for i, (p_bw, kind) in enumerate(BACKWARD_CASES):
         checks["roi_align_backward"].append(check_roi_align_backward(
             torch, torch.Generator().manual_seed(5 + i), dev, p_bw, kind))
-    checks["resample2d_block"] = [check_block(torch, dev, i) for i in range(len(block_rows()))]
+    checks["resample2d_block"], new_work_s = [], {"phase3_merge_stride1_rows": 0.0}
+    for i, (what, _) in enumerate(block_rows()):
+        t0 = time.perf_counter()
+        checks["resample2d_block"].append(check_block(torch, dev, i))
+        if what == MERGE_STRIDE1_CASE:
+            new_work_s["phase3_merge_stride1_rows"] += time.perf_counter() - t0
     # The fine-tune's proposal net: its RPN's NMS, and the training
     # RoIAlign forward and backward of its box and mask heads.
     checks["nms"].append(check_nms(torch, torch.Generator().manual_seed(30), dev, NMS_CASES[3]))
@@ -4271,7 +4474,8 @@ def main() -> int:
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library {r['library_ms']}"
                 + (f", grid_sample (the exact warp) {r['grid_sample_ms']:.4f} ms, from the "
-                   f"exact warp {r['vs_exact_max']:.4g}" if "grid_sample_ms" in r else ""))
+                   f"exact warp {r['vs_exact_max']:.4g}" if "grid_sample_ms" in r else "")
+                + (f", path {r['path']}" if "path" in r else ""))
     log("correlation backward, error as a share of its tolerance (1e-5 of each gradient's "
         "max |grad|), the CUDA test's cases: " + ", ".join(
             f"{k} df1 {v['df1']:.3f} df2 {v['df2']:.3f}"
@@ -4301,6 +4505,26 @@ def main() -> int:
         if tiny_launches[impl][own] <= 0 or tiny_launches[impl][other]:
             fail(f"tiny config ({impl}): launches {tiny_launches[impl]}")
     report["tiny_launches"] = tiny_launches
+    # scripts/check_tpu_consistency_torch.py's tiny FlowNetC pipeline (the
+    # JAX script's configuration), the card against the CPU.
+    t0 = time.perf_counter()
+    for fn in wrappers.values():
+        fn.launches = 0
+    consistency = load_script("check_tpu_consistency_torch").check("cuda")
+    tiny_launches["flownetc"] = {k: fn.launches for k, fn in wrappers.items()}
+    new_work_s["phase4_consistency"] = time.perf_counter() - t0
+    report["tiny_consistency"] = consistency
+    log(f"tiny FlowNetC config (scripts/check_tpu_consistency_torch.py): CUDA vs CPU label "
+        f"agreement {consistency['agreement']:.5f}, least IoU of an object of 16 pixels or "
+        f"more {consistency['min_object_iou']:.5f}, objects (frame, id, IoU, pixels) "
+        f"{consistency['object_iou']}, pixels labelled a frame (CUDA, CPU) "
+        f"{consistency['labelled']}, launches {tiny_launches['flownetc']}")
+    if not consistency["ok"]:
+        fail(f"tiny FlowNetC config: CUDA vs CPU below the check's 0.97 or frame 0 differs: "
+             f"{consistency}")
+    missing = [k for k in INFERENCE_KERNELS if tiny_launches["flownetc"][k] <= 0]
+    if missing or tiny_launches["flownetc"]["resample2d"]:
+        fail(f"tiny FlowNetC config: launches {tiny_launches['flownetc']}")
 
     # Phase 5 — the production preset on 9 frames.
     prod = track_preset(np, torch, wrappers, cfg)
@@ -4310,6 +4534,40 @@ def main() -> int:
         f"{prod['frames_per_s']:.2f} frames/s, peak {prod['peak_bytes'] / 2**30:.2f} GiB, "
         f"launches {launches}")
     torch.cuda.empty_cache()
+
+    # Phase 5b — configs/fast_flownetc.json on 9 frames (FlowNetC alone, the
+    # merge at warp stride 1, the crops at "highest"), its float32 labels on
+    # the card against the CPU's, then the FlowNet variants with in-net
+    # warps against the CPU.
+    t0 = time.perf_counter()
+    fast_cfg = load_config(os.path.join(REPO, "configs", "fast_flownetc.json"))
+    fast_models = fast_flownetc_models(torch, fast_cfg)
+    fast = track_preset(np, torch, wrappers, fast_cfg,
+                        block_launches=FAST_FLOWNETC_LAUNCHES["resample2d_block"],
+                        models=fast_models["cuda"])
+    if fast["launches"] != FAST_FLOWNETC_LAUNCHES:
+        fail(f"fast_flownetc launched {fast['launches']}, not {FAST_FLOWNETC_LAUNCHES}")
+    log(f"fast_flownetc, {fast['frames']} frames: median {fast['median_s']:.3f} s → "
+        f"{fast['frames_per_s']:.2f} frames/s, peak {fast['peak_bytes'] / 2**30:.2f} GiB, "
+        f"launches {fast['launches']}, labels a frame {fast['labels_per_frame']}")
+    torch.cuda.empty_cache()
+    fast["cpu_parity"] = fast_flownetc_cpu_parity(np, torch, fast_cfg, fast_models)
+    del fast_models
+    log(f"fast_flownetc, float32, {fast['cpu_parity']['frames']} frames: CUDA vs CPU least "
+        f"object IoU {fast['cpu_parity']['min_object_iou']:.5f} "
+        f"({fast['cpu_parity']['cuda_vs_cpu_float32']}), CPU {fast['cpu_parity']['cpu_s']:.1f} s")
+    report["fast_flownetc"] = fast
+    report["flow_variants"] = flow_variants_card(np, torch, wrappers, fast_cfg)
+    for name, r in report["flow_variants"].items():
+        log(f"FlowNet2 {name} at 448×832: CUDA vs CPU flow ‖Δ‖/‖cpu‖ {r['rel_l2']:.3g} (bound "
+            f"{r['bound']}), max |Δ| {r['max_abs']:.4g} of max |flow| {r['max_flow']:.4g}, "
+            f"{r['share_over_0_1px']:.5f} of pixels over 0.1 px, {r['ms']:.3f} ms a forward, "
+            f"launches {r['launches']}")
+    torch.cuda.empty_cache()
+    new_work_s["phase5b"] = time.perf_counter() - t0
+    report["new_work_s"] = new_work_s
+    log(f"fast_flownetc slice: {sum(new_work_s.values()):.1f} s of command time "
+        f"({ {k: round(v, 1) for k, v in new_work_s.items()} })")
 
     # Phase 6 — tiny training step: CUDA (kernels) vs CPU (plain versions).
     report["tiny_training"] = tiny_train_parity(np, torch)
@@ -4625,6 +4883,10 @@ def main() -> int:
         ("replay", rp["launches"], ("resample2d_block",)),
         ("tiny_block", tiny_launches["block"], ("resample2d_block",)),
         ("tiny_gather", tiny_launches["gather"], ("resample2d",)),
+        ("tiny_flownetc", tiny_launches["flownetc"], INFERENCE_KERNELS),
+        ("fast_flownetc", fast["launches"], INFERENCE_KERNELS),
+        ("flow_variants", {k: sum(r["launches"][k] for r in report["flow_variants"].values())
+                           for k in KERNELS}, ("correlation", "resample2d_block")),
         ("training_group_norm", tr_gn["launches"], TRAINING_KERNELS),
         ("inference_xception65", xinf["launches"], INFERENCE_KERNELS),
         ("synthetic", syn["launches"], tuple(KERNELS)),

@@ -52,8 +52,10 @@ the block warp (`resample2d_block_cuda`) at every block-warp row of
 chip_smoke.py's phase 3 (`block_rows`, the inputs of `block_inputs`):
 FlowNet2's bf16 and float32 [8, 3, 448, 832] and the merge's float32
 [1, 8, 240, 432] at (8, 128) blocks, residual 4, max_flow 64, each on
-smooth flow and on ±30 px noise, and the lucid warps' backgrounds and
-patches at their blocks; each with `bound` (the bytes of source, flow and
+smooth flow and on ±30 px noise, the lucid warps' backgrounds and
+patches at their blocks, and the merge at warp stride 1 (float32
+[1, 8, 480, 864], configs/fast_flownetc.json) on both flows; each with the
+kernel's `path` there (chip_smoke.py's `block_path`), `bound` (the bytes of source, flow and
 output once against 8 flops an output) and `exact_device_ms`, the exact
 warp's (`resample2d_cuda`) device time by name on the same inputs;
 correlation at FlowNetC's cost volume ([8, 256, 56, 104], max displacement
@@ -150,6 +152,7 @@ def main() -> int:
     from chip_smoke import (
         CORR_GRAD_CASES,
         block_inputs,
+        block_path,
         block_rows,
         bound_ms,
         corr_bmm,
@@ -235,7 +238,8 @@ def main() -> int:
         row = dict(kernel="resample2d_block",
                    shape=f"src [{b},{c},{h},{w}] {str(src.dtype)[6:]}, flow f32 "
                          f"({block_rows()[i][1]}), block {block}, residual {r}, max_flow {lf}",
-                   bound=bound_ms(nbytes, b * c * h * w * 8.0), bound_bytes=nbytes)
+                   bound=bound_ms(nbytes, b * c * h * w * 8.0), bound_bytes=nbytes,
+                   path=block_path(torch, src, block, r))
         cases.append((row, lambda a=(src, flow, block, r, lf): resample2d_block_cuda(*a),
                       "resample_block", None))
         exact_calls.append((row, lambda s=src, f=flow: resample2d_cuda(s, f)))

@@ -60,6 +60,7 @@ from tests.test_torch_finetune import (
     _stack_lucid,
 )
 from tests.test_torch_pipeline import JCFG, H, W, _close, _nchw, _video
+from tests._threads import few_threads  # noqa: F401
 
 # (block, residual, max_flow): the TPU kernel's defaults (FlowNet2, the
 # merge) and the lucid fine-tune's two warps.
@@ -78,16 +79,6 @@ JCFG_B = dataclasses.replace(
     JCFG, flow=dataclasses.replace(JCFG.flow, warp_impl="block"),
     merge=dataclasses.replace(JCFG.merge, warp_impl="block"))
 TCFG_B = tc._from_dict(tc.PremvosConfig, dataclasses.asdict(JCFG_B))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flows(rng, h, w, max_flow):

@@ -45,6 +45,7 @@ from premvos_tpu_torch.pipeline import run_davis, run_stages
 from premvos_tpu_torch.pipeline import runner as tr
 from premvos_tpu_torch.utils.checkpoint import load_params, save_params
 from tests.test_torch_pipeline import JCFG, TCFG, H, W
+from tests._threads import few_threads  # noqa: F401
 
 T, HW = 4, (90, 120)
 
@@ -70,17 +71,6 @@ def _davis_tree(root):
             write_png(jd / f"{t:05d}.png", img)
             save_indexed_png(ad / f"{t:05d}.png", lab)
     return root
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores, and at these tiny shapes more threads
-    only contend with them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

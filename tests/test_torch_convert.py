@@ -40,6 +40,7 @@ from premvos_tpu_torch.io_compat.convert_tf_maskrcnn import convert_tf_maskrcnn
 from premvos_tpu_torch.io_compat.convert_tf_refine import convert_tf_refine
 from premvos_tpu_torch.io_compat.convert_tf_reid import convert_tf_reid
 from premvos_tpu_torch.pipeline import runner as tr
+from tests._threads import few_threads  # noqa: F401
 
 H, W = 64, 96
 
@@ -57,17 +58,6 @@ JCFG = jc.PremvosConfig(
 )
 TCFG = tc._from_dict(tc.PremvosConfig, dataclasses.asdict(JCFG))
 RA, FPN = TCFG.proposal.roi_align_size, TCFG.proposal.fpn_channels
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores, and at these tiny shapes more threads
-    only contend with them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(flat: dict) -> dict:

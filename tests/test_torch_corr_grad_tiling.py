@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from premvos_tpu_torch.ops.correlation import correlation_grads_reference, num_displacements
+from tests._threads import few_threads  # noqa: F401
 
 Q = 16  # output columns a warp (16 rows of the product)
 ROWS = 8  # output rows a block, one warp each

@@ -711,13 +711,15 @@ def test_resample2d_block_kernel_cases(dev, dtype, c, hw, params):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(8, 3, 448, 832), (2, 4, 333, 1000)],
-                         ids=["flownet2", "ragged"])
+@pytest.mark.parametrize("shape", [(8, 3, 448, 832), (2, 4, 333, 1000), (1, 8, 480, 864)],
+                         ids=["flownet2", "ragged", "merge_stride1"])
 def test_resample2d_block_kernel_full_width(dev, dtype, shape):
     """The warp at (8, 128) blocks on many image blocks, more than the card
-    holds at once: FlowNet2's [8, 3, 448, 832] (3136 blocks) and a ragged
+    holds at once: FlowNet2's [8, 3, 448, 832] (3136 blocks), a ragged
     [2, 4, 333, 1000] (672 blocks, neither rows nor columns a multiple of
-    the block's), which take the staged kernel, vs
+    the block's) and the merge's masks at warp stride 1 (configs/
+    fast_flownetc.json: [1, 8, 480, 864], 420 blocks, the last column of
+    blocks 96 wide), which take the staged kernel, vs
     resample2d_block_reference at atol 1e-5: on noise flow of ±30 px, flow
     past max_flow, flow far out of the image, zero flow and max_flow towards
     each of the four edges (the tile's origin clamped into the image); the

@@ -32,7 +32,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from premvos_tpu.data.davis import DavisDataset as JaxDavisDataset
 from premvos_tpu.data.davis import make_synthetic_davis as jax_make_synthetic_davis
@@ -46,19 +45,10 @@ from tests._jax_block_warp import jax_tpu_block_warp  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import train_synthetic_demo as jdemo  # noqa: E402
+from tests._threads import few_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = ["--steps-det", "2", "--steps-refine", "2", "--steps-reid", "2", "--steps-flow", "2"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def pin_for_parity(models):

@@ -38,21 +38,12 @@ from tests.test_torch_demo import pin_for_parity
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import diagnose_benchmark as jdiag  # noqa: E402
 import tune_merge as jtune  # noqa: E402
+from tests._threads import few_threads  # noqa: F401
 
 CLASSES = tdiag.CLASSES
 # A score floor that rejects weak assignments, so objects go absent too.
 WEIGHTS = dict(w_objectness=1.0, w_reid=0.8, w_warp=1.2, w_overlap=0.7, reid_sigma=1.0,
                new_object_score_floor=1.0, warp_decay=0.8, reid_ema=0.0, reid_reacquire=2.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def hand_precompute(seed, t=16, k=3, n=6, h=24, w=32):

@@ -56,6 +56,7 @@ from premvos_tpu_torch.models.layers import init_module
 from premvos_tpu_torch.ops.masks import paste_mask
 from premvos_tpu_torch.pipeline import runner as tr
 from premvos_tpu_torch.train.trainer import create_train_state
+from tests._threads import few_threads  # noqa: F401
 
 H, W, K = 64, 96, 3
 FT = dict(batch_size=2, aug_patch=32, chunk=2, steps=2)

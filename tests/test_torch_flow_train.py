@@ -39,6 +39,7 @@ from premvos_tpu_torch.models.flownet import FlowNetC
 from premvos_tpu_torch.ops.correlation import correlation_grads_reference, correlation_reference
 from premvos_tpu_torch.train import losses as tlosses
 from premvos_tpu_torch.train.train_flow import DIV_FLOW, device_batch, flow_loss_fn, train_flownet_c
+from tests._threads import few_threads  # noqa: F401
 
 
 def _t(x):

@@ -32,6 +32,7 @@ from premvos_tpu_torch.eval import davis_eval as teval
 from premvos_tpu_torch.io_compat import png
 from premvos_tpu_torch.io_compat import proposals_json as tprops
 from premvos_tpu_torch.utils import logging as tlog
+from tests._threads import few_threads  # noqa: F401
 
 # ------------------------------------------------------------------ PNG
 

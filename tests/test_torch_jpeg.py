@@ -28,7 +28,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image, ImageFile
 
 from premvos_tpu.data import davis as jdavis
@@ -37,19 +36,9 @@ from premvos_tpu_torch.data import davis as tdavis
 from premvos_tpu_torch.io_compat import jpeg
 from premvos_tpu_torch.io_compat.png import read_png, write_png
 from tests import _jpeg_damage
+from tests._threads import few_threads  # noqa: F401
 
 CODINGS = os.path.join(os.path.dirname(__file__), "data", "jpeg", "codings")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores, and at these tiny shapes more threads
-    only contend with them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _image(h, w, seed=0):

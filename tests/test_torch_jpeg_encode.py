@@ -23,7 +23,6 @@ from pathlib import Path
 import cv2
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from premvos_tpu.data import crops as jcrops
@@ -35,6 +34,7 @@ from premvos_tpu_torch.data import davis as tdavis
 from premvos_tpu_torch.data import synthetic_vos as tvos
 from premvos_tpu_torch.io_compat import jpeg
 from premvos_tpu_torch.io_compat.png import read_png
+from tests._threads import few_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 ENCODED = REPO / "tests" / "data" / "jpeg" / "encoded"
@@ -47,16 +47,6 @@ QUALITIES = (1, 10, 25, 50, 75, 90, 95, 96, 100)
 # Each size with each content, the quality turning through QUALITIES.
 CASES = [(hw, content, QUALITIES[i % len(QUALITIES)])
          for i, (hw, content) in enumerate(itertools.product(SIZES, CONTENTS))]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pixels(h, w, content, seed=0):

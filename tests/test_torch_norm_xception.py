@@ -44,16 +44,7 @@ from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 from premvos_tpu_torch.models.reid import ReIDNet
 from premvos_tpu_torch.models.resnet import ResNet
 from premvos_tpu_torch.models.xception import Xception65, same_pads
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests._threads import few_threads  # noqa: F401
 
 
 def _np(x):

@@ -33,6 +33,7 @@ from premvos_tpu_torch.ops.masks import paste_mask, soft_mask_iou
 from premvos_tpu_torch.ops.resample2d import resample2d, resample2d_reference
 from premvos_tpu_torch.ops.resize import resize_bilinear
 from premvos_tpu_torch.ops.roi_align import crop_and_resize
+from tests._threads import few_threads  # noqa: F401
 
 
 def _t(x):

@@ -49,23 +49,13 @@ from premvos_tpu_torch.pipeline import runner as tr
 from premvos_tpu_torch.utils.checkpoint import NETS, load_params
 from tests._jax_block_warp import jax_tpu_block_warp  # noqa: F401 (autouse)
 from tests.test_pipeline import TINY
+from tests._threads import few_threads  # noqa: F401
 
 DATA = Path(__file__).parent / "data" / "orbax"
 SMALL = ("tiny_f32", "tiny_bf16", "tiny_maskrcnn", "tiny_refine", "tiny_flow", "tiny_reid",
          "sharded", "dtypes", "no_ocdbt", "no_compression", "layouts",
          "zarr3", "zarr3_no_ocdbt", "zarr3_no_compression", "zarr3_inner_chunks",
          "zarr3_layouts", "tiny_f32_zarr3")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores, and at these tiny shapes more threads
-    only contend with them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_cfg():

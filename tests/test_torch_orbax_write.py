@@ -39,19 +39,9 @@ from premvos_tpu_torch.train import train_flow, train_maskrcnn, train_refine, tr
 from premvos_tpu_torch.utils.checkpoint import NETS, load_params, save_net, save_params
 from tests._jax_block_warp import jax_tpu_block_warp  # noqa: F401 (autouse)
 from tests.test_pipeline import TINY
+from tests._threads import few_threads  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "orbax")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores, and at these tiny shapes more threads
-    only contend with them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_cfg(**pipeline):

@@ -9,6 +9,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests._threads import few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

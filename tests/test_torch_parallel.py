@@ -1,8 +1,11 @@
 """The port's data parallelism (premvos_tpu_torch.parallel, the DP train
-step, the trainers and fine-tunes over a mesh) on the CPU: two gloo ranks
-against the JAX package at `make_mesh(2)` (tests/conftest.py gives JAX 8
-virtual CPU devices), two ranks against one, and a one-rank mesh against
-the single-device code, bit for bit.
+step, the fused fine-tune over a mesh) on the CPU: two gloo ranks against
+the JAX package at `make_mesh(2)` (tests/conftest.py gives JAX 8 virtual
+CPU devices), two ranks against one, and a one-rank mesh against the
+single-device code, bit for bit. The multi-video fine-tune, sharded
+inference, `run_davis --finetune` under a process group and the dry run
+are in tests/test_torch_parallel_videos.py: the two files' JAX references
+and spawns then run on two pytest workers.
 
 The JAX references are built once per module. The port's two ranks run in
 ONE spawn (premvos_tpu_torch.parallel.dryrun.spawn, a FileStore rendezvous
@@ -12,13 +15,9 @@ which imports no JAX); a spawn costs a few seconds before any model work.
 Bounds (those of the single-device parity tests): a DP step's loss 1e-5
 relative and every parameter after its Adam step within 1e-4 of its norm
 (tests/test_torch_pool_finetune.py::_assert_params_close: Adam turns
-float32 noise in near-zero gradients into a large share of a step); the
-multi-video losses 1e-4 relative (each package builds its own lucid pools,
-tests/test_torch_pool_finetune.py); sharded inference ≥ 99 % of pixels
-and frame 0 exact (tests/test_torch_pipeline.py). Across ranks, the
-weights after a step are equal bit for bit.
+float32 noise in near-zero gradients into a large share of a step). Across
+ranks, the weights after a step are equal bit for bit.
 """
-
 import dataclasses
 import os
 
@@ -35,19 +34,17 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 import premvos_tpu.config as jc
 from premvos_tpu.data import crops as jcrops
 from premvos_tpu.finetune import fused as jfused
-from premvos_tpu.finetune import multi_video as jmv
 from premvos_tpu.models.anchors import pyramid_anchors as jax_pyramid_anchors
 from premvos_tpu.models.deeplab import DeepLabV3Plus as JaxDeepLab
 from premvos_tpu.models.maskrcnn import MaskRCNN as JaxMaskRCNN
 from premvos_tpu.models.reid import ReIDNet as JaxReIDNet
 from premvos_tpu.parallel import mesh as jmesh
-from premvos_tpu.pipeline import runner as jr
 from premvos_tpu.train import detection as jdet
 from premvos_tpu.train import trainer as jtrainer
 from premvos_tpu.train.losses import sigmoid_xent as jax_sigmoid_xent
 from premvos_tpu.train.train_reid import train_reid as jax_train_reid
 from premvos_tpu_torch import config as tc
-from premvos_tpu_torch.bridge import flax_tensors, load_flax_tree, params_from_jax
+from premvos_tpu_torch.bridge import flax_tensors, load_flax_tree
 from premvos_tpu_torch.finetune import fused as tfused
 from premvos_tpu_torch.finetune import lucid_device as tl
 from premvos_tpu_torch.finetune.finetune import refine_loss_fn
@@ -58,35 +55,19 @@ from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 from premvos_tpu_torch.models.reid import ReIDNet
 from premvos_tpu_torch.parallel import dryrun, make_mesh, replicate, shard_batch
 from premvos_tpu_torch.parallel.mesh import Mesh, as_mesh
-from premvos_tpu_torch.pipeline import runner as tr
 from premvos_tpu_torch.train import trainer as ttrainer
 from premvos_tpu_torch.train.detection import maskrcnn_loss_fn
 from tests import _parallel_ranks
 from tests.test_torch_finetune import H as FH
 from tests.test_torch_finetune import JREFINE, K, TREFINE, W as FW
 from tests.test_torch_finetune import _batch_loss, _cells, _consts, _port_consts, _refine_draws
-from tests.test_torch_pipeline import JCFG as PIPE_JCFG
-from tests.test_torch_pipeline import TCFG as PIPE_TCFG
-from tests.test_torch_pipeline import _video
-from tests.test_torch_cli import _davis_tree
 from tests.test_torch_pool_finetune import _frame_and_labels
 from tests.test_torch_train import HW, JTINY, TTINY, _train_batch
+from tests._threads import few_threads  # noqa: F401
 
 JREID = jc.ReIDConfig(backbone_depth=26, embedding_dim=8, crop_size=32)
 TREID = tc._from_dict(tc.ReIDConfig, dataclasses.asdict(JREID))
 FT_FUSED = dict(batch_size=4, aug_patch=32, chunk=1, steps=1)
-FT_VIDEOS = dict(steps=2, batch_size=4, num_augmentations=4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module (and for the ranks it spawns,
-    which take the parent's count): the suite runs several pytest workers
-    on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):
@@ -223,62 +204,15 @@ def _fused_case(refine):
                 jgrads=flax_tensors(refine["tm"], jgrads))
 
 
-def _videos():
-    videos = [_frame_and_labels(64, 64, seed=s) for s in (11, 12, 13)]
-    for _, lab in videos:
-        lab[lab == 2] = 0
-    return videos
-
-
-def _multi_video_case(refine):
-    """JAX's finetune_refine_videos of 3 videos at make_mesh(2): padded to
-    4, two a device."""
-    ft = jc.FinetuneConfig(**FT_VIDEOS)
-    _, jlosses = jmv.finetune_refine_videos(refine["jm"], refine["jp"], _videos(),
-                                            jmesh.make_mesh(2), JREFINE, ft)
-    return dict(jlosses=np.asarray(jlosses))
-
-
-def _sharded_inputs():
-    """Two 3-frame sequences of tests/test_torch_pipeline.py's canvas: its
-    video and its mirror image."""
-    frames, gt = _video()
-    frames, gt = frames[:3], gt
-    return (np.stack([frames, frames[:, :, ::-1]]), np.stack([gt, gt[:, :, ::-1]]),
-            np.array([2, 2], np.int32))
-
-
-def _sharded_case():
-    jm = jr.build_models(PIPE_JCFG)
-    jp = jr.init_params(jm, PIPE_JCFG, jax.random.PRNGKey(0))
-    tm = params_from_jax(tr.build_models(PIPE_TCFG, device="cpu"), _np_tree(jp))
-    frames, gt, nobj = _sharded_inputs()
-    want = jmesh.run_sequences_sharded(jm, jp, PIPE_JCFG, jnp.asarray(frames), jnp.asarray(gt),
-                                       nobj, jmesh.make_mesh(2))
-    return dict(tm=tm, want=np.asarray(want))
-
-
 @pytest.fixture(scope="module")
 def jax_refs(tmp_path_factory):
     refine = _refine_case()
     return dict(refine=refine, maskrcnn=_maskrcnn_case(),
-                reid=_reid_case(tmp_path_factory.mktemp("coco")), fused=_fused_case(refine),
-                multi_video=_multi_video_case(refine), sharded=_sharded_case())
+                reid=_reid_case(tmp_path_factory.mktemp("coco")), fused=_fused_case(refine))
 
 
 @pytest.fixture(scope="module")
-def cli_tree(tmp_path_factory):
-    """tests/test_torch_cli.py's DAVIS tree and tiny configuration, with a
-    2-step fine-tune at batch 2 (one example a rank)."""
-    d = tmp_path_factory.mktemp("dp_cli")
-    cfg = dataclasses.replace(PIPE_TCFG, finetune=tc.FinetuneConfig(
-        steps=2, chunk=2, batch_size=2, aug_patch=32))
-    tc.save_config(d / "tiny.json", cfg)
-    return dict(root=_davis_tree(d / "davis"), config=d / "tiny.json", out=d / "out")
-
-
-@pytest.fixture(scope="module")
-def ranks(jax_refs, cli_tree):
+def ranks(jax_refs):
     """Every case on two gloo ranks in one spawn."""
     r = jax_refs
     sd = lambda m: {k: v.clone() for k, v in m.state_dict().items()}  # noqa: E731
@@ -293,17 +227,6 @@ def ranks(jax_refs, cli_tree):
         "fused": ("fused", dict(cfg=TREFINE, ft=tc.FinetuneConfig(**FT_FUSED), max_objects=K,
                                 state_dict=sd(r["refine"]["tm"]),
                                 consts=_port_consts(_consts()), draws=r["fused"]["draws"])),
-        "multi_video": ("multi_video", dict(cfg=TREFINE, ft=tc.FinetuneConfig(**FT_VIDEOS),
-                                            state_dict=sd(r["refine"]["tm"]),
-                                            videos=_videos())),
-        "sharded": ("sharded", dict(
-            cfg=PIPE_TCFG, state_dicts={n: sd(getattr(r["sharded"]["tm"], n))
-                                        for n in ("maskrcnn", "refine", "flow", "reid")},
-            frames=_sharded_inputs()[0], gt=_sharded_inputs()[1], num_objects=np.array([2, 2]))),
-        "run_davis": ("run_davis", dict(argv=[
-            "--davis_root", str(cli_tree["root"]), "--output", str(cli_tree["out"]),
-            "--config", str(cli_tree["config"]), "--device", "cpu", "--finetune",
-            "--sequences", "a"])),
     }
     return dryrun.spawn(_parallel_ranks.parity_rank, 2, "gloo", cases, device="cpu")
 
@@ -587,44 +510,6 @@ def test_dp_fused_refine_step_matches_jax(jax_refs, ranks):
     assert ranks[0]["fused"]["digest"] == ranks[1]["fused"]["digest"]
 
 
-def test_multi_video_finetune_pads_as_jax(jax_refs, ranks):
-    """3 videos over 2 ranks, padded to 4: every rank returns the 3 videos'
-    losses (JAX's, 1e-4) and the same 3 tuned nets."""
-    want = jax_refs["multi_video"]["jlosses"]
-    assert want.shape == (3,)
-    for r in ranks:
-        np.testing.assert_allclose(r["multi_video"]["losses"], want, rtol=1e-4, atol=0)
-    assert ranks[0]["multi_video"]["digests"] == ranks[1]["multi_video"]["digests"]
-    assert len(set(ranks[0]["multi_video"]["digests"])) == 3
-
-
-def test_run_sequences_sharded_matches_jax(jax_refs, ranks):
-    """Two sequences, one a rank, gathered on both: each ≥ 99 % of JAX's
-    labels, frame 0 exact, and equal to the port's own run_sequence."""
-    want = jax_refs["sharded"]["want"]
-    frames, gt, nobj = _sharded_inputs()
-    for r in ranks:
-        got = r["sharded"]["labels"]
-        assert got.shape == want.shape == (2, 3, *frames.shape[2:4])
-        for s in range(2):
-            np.testing.assert_array_equal(got[s, 0], want[s, 0])
-            assert (got[s] == want[s]).mean() >= 0.99
-    alone = tr.run_sequence(jax_refs["sharded"]["tm"], PIPE_TCFG, frames[1], gt[1], 2,
-                            device="cpu").numpy()
-    np.testing.assert_array_equal(ranks[0]["sharded"]["labels"][1], alone)
-    np.testing.assert_array_equal(ranks[0]["sharded"]["labels"], ranks[1]["sharded"]["labels"])
-
-
-def test_run_davis_finetune_under_a_process_group(ranks, cli_tree):
-    """`run_davis --finetune` started on two gloo ranks: both fine-tune
-    over the mesh, rank 0 alone tracks, writes the PNGs and returns the
-    summary."""
-    summary = ranks[0]["run_davis"]["summary"]
-    assert ranks[1]["run_davis"]["summary"] is None
-    assert summary["frames"] == 3 and np.isfinite(summary["fps"])
-    assert len(list((cli_tree["out"] / "a").glob("*.png"))) == 4
-
-
 # ------------------------------------------------------ the port alone
 
 def _one_rank_step(module, loss_fn, batch):
@@ -650,20 +535,6 @@ def test_two_ranks_equal_one_rank_at_the_same_global_batch(jax_refs, ranks):
     loss, params = _one_rank_step(m, maskrcnn_loss_fn(m, mr["tanchors"], TTINY, HW), mr["batch"])
     assert _rel(ranks[0]["maskrcnn"]["loss"], loss) <= 1e-5
     _assert_params_close(ranks[0]["maskrcnn"]["params"], params, "maskrcnn, one rank")
-
-
-def test_dryrun_multichip_two_cpu_ranks(capfd):
-    """dryrun_multichip(2, device="cpu") end to end: every part on both
-    ranks, finite, the same on both."""
-    out = dryrun.dryrun_multichip(2, device="cpu")
-    assert len(out) == 2
-    for r in out:
-        assert all(np.isfinite(r[k]) for k in ("refine_loss", "maskrcnn_loss", "fused_loss"))
-        assert r["video_losses"].shape == (2,) and np.isfinite(r["video_losses"]).all()
-        assert r["labels_shape"] == (2, 2, 64, 64)
-    assert out[0]["maskrcnn_loss"] == out[1]["maskrcnn_loss"]
-    text = capfd.readouterr().out
-    assert "sharded inference on 2 ranks" in text and "fused finetune" in text
 
 
 def test_spawn_raises_when_a_rank_fails():

@@ -46,7 +46,7 @@ from premvos_tpu_torch.models.flownet import FlowNetC
 from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 from premvos_tpu_torch.parallel import dryrun
 from tests import _parallel_ranks
-from tests.test_torch_parallel import few_threads  # noqa: F401 (the module's fixture)
+from tests._threads import few_threads  # noqa: F401
 from tests.test_torch_pool_finetune import (  # noqa: F401 (jax_nets: the module's fixture)
     JCFG,
     TCFG,

@@ -24,6 +24,7 @@ from premvos_tpu_torch import config as tc
 from premvos_tpu_torch.bridge import params_from_jax
 from premvos_tpu_torch.pipeline import runner as tr
 from premvos_tpu_torch.stages import merge as tmerge
+from tests._threads import few_threads  # noqa: F401
 
 H, W, T = 96, 128, 4
 

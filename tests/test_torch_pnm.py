@@ -13,7 +13,6 @@ import re
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from premvos_tpu.data.flow_pairs import FlowPairDataset as JaxFlowPairs
@@ -22,20 +21,11 @@ from premvos_tpu_torch.io_compat.flo import write_flo
 from premvos_tpu_torch.io_compat.png import read_png
 from premvos_tpu_torch.io_compat.ppm import PnmFormatError, read_ppm
 from tests import _pnm_cases
+from tests._threads import few_threads  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "pnm")
 CASES = _pnm_cases.pnm_cases()
 FIXTURES = sorted(f[:-4] for f in os.listdir(DATA) if f.endswith(".ppm"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pillow(path):

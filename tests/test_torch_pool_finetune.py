@@ -75,6 +75,7 @@ from premvos_tpu_torch.models.layers import init_module
 from premvos_tpu_torch.models.maskrcnn import MaskRCNN
 from premvos_tpu_torch.pipeline import runner as trunner
 from premvos_tpu_torch.train.trainer import PoolDraws
+from tests._threads import few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 96, 128

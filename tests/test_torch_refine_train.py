@@ -31,6 +31,7 @@ from premvos_tpu_torch.data.davis import DavisDataset, make_synthetic_davis
 from premvos_tpu_torch.eval import metrics as tmetrics
 from premvos_tpu_torch.models.deeplab import DeepLabV3Plus
 from premvos_tpu_torch.train import train_refine as ttr
+from tests._threads import few_threads  # noqa: F401
 
 HW = (64, 96)
 JREFINE = jc.RefineConfig(crop_size=33, backbone_depth=26, box_margin=12.0)

@@ -39,6 +39,7 @@ from premvos_tpu_torch.io_compat import rle as trle
 from premvos_tpu_torch.models.reid import ReIDNet
 from premvos_tpu_torch.train import losses as tlosses
 from premvos_tpu_torch.train.train_reid import pk_device_batch, reid_loss_fn, train_reid
+from tests._threads import few_threads  # noqa: F401
 
 JCFG = jc.ReIDConfig(backbone_depth=26, embedding_dim=8, crop_size=32)
 TCFG = tc._from_dict(tc.ReIDConfig, dataclasses.asdict(JCFG))

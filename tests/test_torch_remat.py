@@ -20,16 +20,7 @@ import torch
 from premvos_tpu.models.resnet import ResNet as JaxResNet
 from premvos_tpu_torch import bridge
 from premvos_tpu_torch.models.resnet import ResNet
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
+from tests._threads import few_threads  # noqa: F401
 
 @pytest.fixture(scope="module")
 def case():

@@ -24,6 +24,7 @@ from premvos_tpu_torch.bridge import params_from_jax
 from premvos_tpu_torch.eval import harness as th
 from premvos_tpu_torch.pipeline import runner as tr
 from tests.test_torch_pipeline import JCFG, TCFG, H, W, _close
+from tests._threads import few_threads  # noqa: F401
 
 T = 5
 
@@ -42,17 +43,6 @@ def _video():
         labels[t, 50:90, 60 + t:120 + t] = 2
     gt = np.stack([(labels[0] == 1), (labels[0] == 2)]).astype(np.float32)
     return frames, gt, labels
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores, and at these tiny shapes more threads
-    only contend with them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

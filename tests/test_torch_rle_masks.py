@@ -20,6 +20,7 @@ from premvos_tpu.ops.masks import mask_iou as jmask_iou
 from premvos_tpu_torch import kernels
 from premvos_tpu_torch.io_compat import rle_native
 from premvos_tpu_torch.ops import mask_iou
+from tests._threads import few_threads  # noqa: F401
 
 
 def _masks(name):

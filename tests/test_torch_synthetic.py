@@ -37,22 +37,13 @@ from premvos_tpu_torch.eval import tune as ttune
 from premvos_tpu_torch.io_compat.flo import read_flo
 from premvos_tpu_torch.io_compat.png import read_png
 from premvos_tpu_torch.io_compat.ppm import read_ppm
+from tests._threads import few_threads  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import run_synthetic_benchmark as jbench  # noqa: E402
 import tune_merge as jtune  # noqa: E402
 
 HW = (64, 96)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

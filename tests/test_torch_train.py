@@ -46,6 +46,7 @@ from premvos_tpu_torch.train import detection as tdet
 from premvos_tpu_torch.train import losses as tlosses
 from premvos_tpu_torch.train.train_maskrcnn import sample_batch, train_maskrcnn
 from premvos_tpu_torch.train.trainer import create_train_state
+from tests._threads import few_threads  # noqa: F401
 
 
 def _t(x):

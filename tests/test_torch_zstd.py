@@ -12,26 +12,16 @@ import ctypes.util
 
 import numpy as np
 import pytest
-import torch
 
 from premvos_tpu_torch import kernels
 from premvos_tpu_torch.io_compat import zstd
+from tests._threads import few_threads  # noqa: F401
 
 LEVELS = (1, 3, 9, 19)
 KINDS = ("random", "repetitive", "weights", "text")
 SIZES = (0, 1, 1000, 131_073, 2 << 20)
 # ZSTD_cParameter values (zstd.h).
 C_LEVEL, C_CONTENT_SIZE, C_CHECKSUM = 100, 200, 201
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module: the suite runs several pytest
-    workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
